@@ -1,21 +1,27 @@
-"""Drive the PyTorch port's front end on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's nerf_vo main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``/usr/local/cuda``) and PyTorch built for CUDA. It builds every kernel of
 the path from ``nerf_vo_tpu_torch/csrc/`` (into ``nerf_vo_tpu_torch/_build/``,
-one ``nvcc`` per source, all started together), then runs three phases; any
+one ``nvcc`` per source, all started together), then runs four phases; any
 failure ends the run with a non-zero exit:
 
   (a) kernels: each kernel against its plain PyTorch version on the card at
       the replica configuration's shapes, with its time, the plain
-      version's time and the least time the card could take;
+      version's time, the least time the card could take and, where one
+      PyTorch call computes the same function, that call's time;
   (b) tracking: ``TrackingStage`` at the full replica configuration
       (DPVO fdim 128 / cdim 384, 96 patches, 32768 edge slots, 32-frame
       ring) on synthetic 360x640 frames, random weights from a seed;
   (c) enhancement: ``EnhancementStage`` with the full 12-block Omnidata
-      DPT-hybrid at 384 on the packets of (b).
+      DPT-hybrid at 384 on the packets of (b);
+  (d) mapping: ``MappingStage`` at the replica configuration (192
+      keyframes of 360x640, 4096 rays per step, full field and proposal
+      grids, random weights from a seed) fed the enhanced packets of (c)
+      with train steps interleaved as the serial pipeline does, 64 steps in
+      all, then one full-frame render.
 
 Output: progress on stderr; on stdout the card's name and power limit, the
 per-phase results, one JSON line with every kernel's numbers, and as the
@@ -46,8 +52,17 @@ REPLICA = dict(  # configs/nerf_vo_replica.yaml, tracking + enhancement
     enhancement_module="depth", enhancement_image_size=384,
     enhancement_dpt_layers=12,
 )
+MAPPING = dict(  # configs/nerf_vo_replica.yaml, mapping
+    num_keyframes=192, mapping_iterations=8192, rays_per_batch=4096,
+    mapping_module="nerfstudio",
+)
 N_FRAMES = 48
 RADIUS = 3
+MAP_STEPS = 64
+STEPS_PER_FRAME = 4  # the serial pipeline's mapping_steps_per_frame
+RAYS = MAPPING["rays_per_batch"]
+FIELD_SAMPLES, PROPOSAL_SAMPLES = 48, (96, 48)
+F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores
 
 
 def log(*a):
@@ -136,7 +151,7 @@ def corr_bound(pf, f1, f2, ring, ctr):
                                  else "operations")
 
 
-def phase_kernels(dev):
+def phase_corr(dev):
     from nerf_vo_tpu_torch.ops import correlation_cuda as cc
 
     gen = torch.Generator(device=dev)
@@ -188,8 +203,163 @@ def phase_kernels(dev):
     }]
 
 
+def gather_inputs(dev):
+    """The field's table ops at the replica configuration: 4096 rays x 48
+    samples = 196,608 points, uniform in the unit cube, through the field
+    grid (3 levels x 8 features, 16,384 bricks a level; level 0's 512
+    bricks on the one-hot route). Returns the table, the level-major ids and
+    trilinear weights of all levels, the number of level-0 descriptors, and
+    a cotangent of the encoded features."""
+    from nerf_vo_tpu_torch.ops import hash_grid as hg
+
+    cfg = hg.HashGridConfig(3, 8, 19, 16, 2048)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tab = torch.randn(3 * cfg.bricks_per_level, 256, generator=gen,
+                      device=dev) * 0.5
+    n = RAYS * FIELD_SAMPLES
+    x = torch.rand(n, 3, generator=gen, device=dev)
+    idx, _, _, W, _ = hg._descriptors(x, cfg)
+    cot = torch.randn(3 * n, 8, generator=gen, device=dev)
+    return tab, idx, W, n, cot
+
+
+def table_bytes(tab, idx):
+    """Bytes of the table rows a descriptor list touches, each read once."""
+    return int(torch.unique(idx).numel()) * tab.shape[1] * 4
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_kernel(name, fn, plain, library, nbytes, flops, err, reps=20):
+    ms = cuda_ms(fn, reps)
+    plain_ms = cuda_ms(plain, 3)
+    library_ms = cuda_ms(library, reps) if library is not None else None
+    bound_ms, bound_by = bound(nbytes, flops)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"(a) {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+          f"{bound_ms / ms:.1%} of the bound; max abs err {err:.3e}",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, max_abs_err=err)
+
+
+def check_close(name, got, want, rel):
+    err = (got.float() - want.float()).abs().max().item()
+    tol = rel * max(want.abs().max().item(), 1.0)
+    if not np.isfinite(err) or err > tol:
+        fail(f"{name} disagrees with its plain version: {err} > {tol}")
+    return err
+
+
+def phase_gather(dev):
+    """Kernels 2-5 at the field's shapes; gather_interp also at the two
+    proposal grids' (F = 1). Tolerances against the plain versions:
+    gather_cols bitwise (the same bf16 rounding); the others 1e-5 of
+    max(|plain|, 1) (f32 sums in another order, atomics in an order that
+    changes from run to run)."""
+    import torch.nn.functional as Fn
+
+    from nerf_vo_tpu_torch.models.nerf_field import dense_grid
+    from nerf_vo_tpu_torch.ops import gather_cuda as gc
+    from nerf_vo_tpu_torch.ops import hash_grid as hg
+
+    tab, idx, W, n, cot = gather_inputs(dev)
+    M, R = idx.shape[0], tab.shape[1]
+    src = "nerf_vo_tpu_torch/csrc/gather.cu"
+    pallas = "nerf_vo_tpu/ops/gather_pallas.py"
+    out = []
+
+    # 2: gather_cols, every level (the position backward's re-gather)
+    got = gc.gather_cols(tab, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(got, gc.gather_cols_plain(tab, idx)):
+        fail("gather_cols differs from its plain version")
+    idx_l = idx.long()
+    nbytes = table_bytes(tab, idx) + M * 4 + M * R * 2
+    out.append(dict(name="gather_cols", route="cuda", source=src,
+                    replaces=f"{pallas}:79", launches=None, **time_kernel(
+                        f"gather_cols M={M} R={R}",
+                        lambda: gc.gather_cols(tab, idx),
+                        lambda: gc.gather_cols_plain(tab, idx),
+                        lambda: torch.index_select(tab, 0, idx_l),
+                        nbytes, 0, 0.0)))
+
+    def interp_entry(name, line, fn, plain, t, i, w, F):
+        m = i.shape[0]
+        got = fn(t, i, w, F)
+        torch.cuda.synchronize()
+        err = check_close(name, got, plain(t, i, w, F), 1e-5)
+        flat = (i.long()[:, None] * 32
+                + torch.arange(32, device=dev)[None, :])
+        view = t.view(-1, F)
+        nbytes = table_bytes(t, i) + m * 4 + m * 32 * 4 + m * F * 4
+        return dict(name=name, route="cuda", source=src,
+                    replaces=f"{pallas}:{line}", launches=None,
+                    **time_kernel(
+                        f"{name} M={m} F={F} over {t.shape[0]} bricks",
+                        lambda: fn(t, i, w, F), lambda: plain(t, i, w, F),
+                        lambda: Fn.embedding_bag(flat, view,
+                                                 per_sample_weights=w,
+                                                 mode="sum"),
+                        nbytes, 2 * m * 32 * F, err))
+
+    # 3: gather_interp, the hashed levels 1-2 of the field
+    out.append(interp_entry("gather_interp", 133, gc.gather_interp,
+                            gc.gather_interp_plain, tab, idx[n:], W[n:], 8))
+    # 4: gather_interp_mm, the field's one-hot level 0
+    e4 = interp_entry("gather_interp_mm", 219, gc.gather_interp_mm,
+                      gc.gather_interp_mm_plain, tab, idx[:n], W[:n], 8)
+    agree = (gc.gather_interp_mm(tab, idx[:n], W[:n], 8)
+             - gc.gather_interp(tab, idx[:n], W[:n], 8)).abs().max().item()
+    print(f"(a) gather_interp_mm vs gather_interp on level 0: max abs diff "
+          f"{agree:.3e}", flush=True)
+    if agree > 1e-5 * max(tab.abs().max().item(), 1.0):
+        fail("gather_interp_mm and gather_interp disagree")
+    out.append(e4)
+
+    # 5: scatter_cols_accum, the table gradient of every level
+    rows = (W[:, :, None] * cot[:, None, :]).reshape(M, R)
+    got = gc.scatter_cols_accum(rows, idx, tab.shape[0])
+    torch.cuda.synchronize()
+    err = check_close("scatter_cols_accum", got,
+                      gc.scatter_cols_accum_plain(rows, idx, tab.shape[0]),
+                      1e-5)
+    acc = torch.zeros_like(tab)
+    nbytes = M * R * 4 + M * 4 + tab.numel() * 4
+    out.append(dict(name="scatter_cols_accum", route="cuda", source=src,
+                    replaces=f"{pallas}:297", launches=None, **time_kernel(
+                        f"scatter_cols_accum M={M} R={R} into "
+                        f"{tab.shape[0]} bricks",
+                        lambda: gc.scatter_cols_accum(rows, idx,
+                                                      tab.shape[0]),
+                        lambda: gc.scatter_cols_accum_plain(rows, idx,
+                                                            tab.shape[0]),
+                        lambda: acc.index_add_(0, idx_l, rows),
+                        nbytes, M * R, err)))
+
+    # gather_interp at the proposal grids' shapes (F = 1, dense)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for res, samples in zip((128, 160), PROPOSAL_SAMPLES):
+        cfg = dense_grid(res)
+        ptab = torch.randn(cfg.bricks_per_level, 32, generator=gen,
+                           device=dev)
+        x = torch.rand(RAYS * samples, 3, generator=gen, device=dev)
+        pidx, _, _, pw, _ = hg._descriptors(x, cfg)
+        interp_entry(f"gather_interp (proposal res {res})", 133,
+                     gc.gather_interp, gc.gather_interp_plain, ptab, pidx,
+                     pw, 1)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# (b) tracking, (c) enhancement
+# (b) tracking, (c) enhancement, (d) mapping
 # ---------------------------------------------------------------------------
 
 def synthetic_frames(n, H, W, seed=0):
@@ -217,7 +387,7 @@ def phase_tracking(dev):
     frames = synthetic_frames(N_FRAMES, H, W)
     stage = TrackingStage(args, device=dev)
     intr = dict(fx=320.0, fy=320.0, cx=W / 2, cy=H / 2)
-    packets, times = [], []
+    packets, frame_of, times = [], [], []
     for i, img in enumerate(frames):
         t0 = time.perf_counter()
         pkt = stage.step(dict(frame_index=i, frame_color=img,
@@ -227,6 +397,7 @@ def phase_tracking(dev):
         times.append(time.perf_counter() - t0)
         if pkt is not None:
             packets.append(pkt)
+            frame_of.append(i)
     tr = stage.tracker
     steady = times[tr.cfg.init_frames:-1]
     fps = len(steady) / sum(steady)
@@ -250,7 +421,7 @@ def phase_tracking(dev):
             fail("camera_extrinsics are not rigid")
         if not np.isfinite(p["dpvo_patches"].cpu().numpy()).all():
             fail("non-finite patches in a packet")
-    return packets, fps
+    return packets, frame_of, fps
 
 
 def phase_enhancement(dev, packets):
@@ -260,12 +431,13 @@ def phase_enhancement(dev, packets):
     stage = EnhancementStage(SimpleNamespace(**REPLICA), device=dev)
     stage.step(packets[0])  # warm-up (cuDNN algorithm choice)
     torch.cuda.synchronize()
-    total, n_kf = 0.0, 0
+    total, n_kf, enhanced = 0.0, 0, []
     for p in packets:
         t0 = time.perf_counter()
         out = stage.step(p)
         torch.cuda.synchronize()
         total += time.perf_counter() - t0
+        enhanced.append(out)
         k = len(p["keyframe_indices"])
         n_kf += k
         depth = out["frames_depth"]
@@ -281,6 +453,76 @@ def phase_enhancement(dev, packets):
           f"{REPLICA['enhancement_dpt_layers']} blocks at "
           f"{REPLICA['enhancement_image_size']}, {len(packets)} "
           f"packets, {n_kf} keyframes, {ms:.2f} ms per keyframe", flush=True)
+    return enhanced
+
+
+def phase_mapping(dev, enhanced, frame_of):
+    """The serial pipeline's order: a packet is inserted at the frame that
+    produced it, then up to STEPS_PER_FRAME paced train steps follow each
+    frame; after the last frame the stream ends (as ``finish`` does) and
+    training runs on to MAP_STEPS steps."""
+    from nerf_vo_tpu_torch.runtime.stages import MappingStage
+
+    args = SimpleNamespace(**REPLICA, **MAPPING)
+    stage = MappingStage(args, device=dev)
+    at = dict(zip(frame_of, enhanced))
+    history, times = [], []
+
+    def step():
+        t0 = time.perf_counter()
+        m = stage.train_step()
+        torch.cuda.synchronize()
+        if m is None:
+            return False
+        times.append(time.perf_counter() - t0)
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            fail(f"non-finite mapping metrics at step {len(history)}: {vals}")
+        history.append(vals)
+        return True
+
+    for i in range(N_FRAMES):
+        if i in at:
+            stage.update(at[i])
+        for _ in range(STEPS_PER_FRAME):
+            if len(history) >= MAP_STEPS or not step():
+                break
+    stage.stream_active = False  # end of stream, as finish() does
+    while len(history) < MAP_STEPS:
+        if not step():
+            fail("the mapping stage stopped training before its last step")
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    c2w = stage.trainer.optimized_c2w(stage.state, stage.buffer)[0]
+    img = stage.trainer.render_image(stage.state, c2w,
+                                     stage.buffer.intrinsics[0],
+                                     args.frame_height, args.frame_width)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    rgb, depth = img["rgb"], img["depth"]
+    if tuple(rgb.shape) != (args.frame_height, args.frame_width, 3):
+        fail(f"rendered rgb has shape {tuple(rgb.shape)}")
+    if not torch.isfinite(rgb).all() or rgb.min() < 0 or rgb.max() > 1:
+        fail("rendered rgb is not finite in [0, 1]")
+    if not torch.isfinite(depth).all():
+        fail("rendered depth is not finite")
+
+    steady = times[8:]
+    ms = sum(steady) / len(steady) * 1e3
+    first = np.mean([h["rgb_loss"] for h in history[:8]])
+    last = np.mean([h["rgb_loss"] for h in history[-8:]])
+    print(f"(d) mapping: {stage.num_inserted} keyframes inserted, "
+          f"{len(history)} steps, steady {ms:.2f} ms/step "
+          f"({args.rays_per_batch / ms * 1e3:.0f} rays/s) over steps "
+          f"8..{len(history) - 1}, first step {times[0] * 1e3:.1f} ms; "
+          f"rgb_loss first 8 {first:.5f} -> last 8 {last:.5f}; psnr "
+          f"{history[-1]['psnr']:.2f}; full-frame render "
+          f"{args.frame_height}x{args.frame_width} {render_s * 1e3:.1f} ms, "
+          f"depth {depth.min().item():.3f}..{depth.max().item():.3f}",
+          flush=True)
+    if not last < first:
+        fail(f"rgb_loss did not fall: {first} -> {last}")
     return ms
 
 
@@ -289,7 +531,7 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
                          "on an NVIDIA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from nerf_vo_tpu_torch.ops import correlation_cuda, cuda_build
+    from nerf_vo_tpu_torch.ops import correlation_cuda, cuda_build, gather_cuda
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -302,23 +544,35 @@ def main():
         f"CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    reports = cuda_build.build_all(["corr"])
+    reports = cuda_build.build_all(["corr", "gather"])
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         log(f"--- nvcc {name}:\n{rep}")
 
-    kernels = phase_kernels(dev)
+    kernels = phase_corr(dev) + phase_gather(dev)
     correlation_cuda.corr_level.launches = 0
-    packets, fps = phase_tracking(dev)
+    packets, frame_of, fps = phase_tracking(dev)
     launches = correlation_cuda.corr_level.launches
     kernels[0]["launches"] = launches
     print(f"(b) corr_level launches on the main path: {launches}",
           flush=True)
     if launches == 0:
         fail("the tracking path never launched the corr kernel")
-    phase_enhancement(dev, packets)
+    enhanced = phase_enhancement(dev, packets)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in gather_cuda.KERNELS:
+        k.launches = 0
+    phase_mapping(dev, enhanced, frame_of)
+    counts = {k.__name__: k.launches for k in gather_cuda.KERNELS}
+    print(f"(d) launches on the mapping path: {counts}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for entry in kernels[1:]:
+        entry["launches"] = counts[entry["name"]]
+        if entry["launches"] == 0:
+            fail(f"the mapping path never launched {entry['name']}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

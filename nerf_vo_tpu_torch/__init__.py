@@ -5,11 +5,13 @@ JAX or of ``nerf_vo_tpu``. The module layout mirrors the JAX package so that
 each module has an obvious counterpart:
 
 core         SE3/SO3 Lie algebra, cameras, coordinate conventions
-ops          patch correlation (plain + hand-written CUDA kernel), bundle
-             adjustment
-models       DPVO networks, Omnidata DPT
+ops          patch correlation and the hash grid's table gather / scatter
+             (plain versions + hand-written CUDA kernels), bundle
+             adjustment, rendering, losses, SH encoding
+models       DPVO networks, Omnidata DPT, nerfacto fields and model
 tracking     DPVO-style patch-graph visual odometry
 enhancement  dense depth/normal priors + sparse-depth alignment
+mapping      keyframe buffer + the NeRF mapping trainer
 runtime      pipeline stages, per-stage telemetry
 utils        float-precision policy
 

@@ -177,8 +177,17 @@ PORT_MODULES = [
     "nerf_vo_tpu_torch.ops.correlation_cuda",
     "nerf_vo_tpu_torch.ops.cuda_build",
     "nerf_vo_tpu_torch.ops.ba",
+    "nerf_vo_tpu_torch.ops.sh",
+    "nerf_vo_tpu_torch.ops.rendering",
+    "nerf_vo_tpu_torch.ops.losses",
+    "nerf_vo_tpu_torch.ops.hash_grid",
+    "nerf_vo_tpu_torch.ops.gather_cuda",
     "nerf_vo_tpu_torch.models.dpvo_net",
     "nerf_vo_tpu_torch.models.dpt",
+    "nerf_vo_tpu_torch.models.nerf_field",
+    "nerf_vo_tpu_torch.models.nerfacto",
+    "nerf_vo_tpu_torch.mapping.keyframe_buffer",
+    "nerf_vo_tpu_torch.mapping.trainer",
     "nerf_vo_tpu_torch.tracking.dpvo",
     "nerf_vo_tpu_torch.enhancement.omnidata",
     "nerf_vo_tpu_torch.enhancement.alignment",
