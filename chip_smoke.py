@@ -63,6 +63,11 @@ STEPS_PER_FRAME = 4  # the serial pipeline's mapping_steps_per_frame
 RAYS = MAPPING["rays_per_batch"]
 FIELD_SAMPLES, PROPOSAL_SAMPLES = 48, (96, 48)
 F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores
+SLEEP_CYCLES = 100_000_000  # ~50 ms of device clock
+# table-kernel launches of one train step without a proposal refresh: the
+# forward (one per route), the surface-normal pullback and the outer backward
+ORDINARY_STEP_LAUNCHES = dict(gather_cols=3, gather_interp=4,
+                              gather_interp_mm=2, scatter_cols_accum=3)
 
 
 def log(*a):
@@ -73,13 +78,18 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, queued=False):
     """Mean device time of one call, by CUDA events around ``reps`` calls
-    after one warm-up call."""
+    after one warm-up call. The kernels line carries this reading. With
+    ``queued`` the timed calls wait behind a device-side sleep (~50 ms), so
+    the host's time to enqueue a call cannot show: that is the device time
+    of a kernel shorter than the enqueue time, printed beside it."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -208,8 +218,9 @@ def gather_inputs(dev):
     samples = 196,608 points, uniform in the unit cube, through the field
     grid (3 levels x 8 features, 16,384 bricks a level; level 0's 512
     bricks on the one-hot route). Returns the table, the level-major ids and
-    trilinear weights of all levels, the number of level-0 descriptors, and
-    a cotangent of the encoded features."""
+    trilinear weights of all levels, the number of level-0 descriptors, a
+    cotangent of the encoded features, and the number of leading table rows
+    the hash grid keeps on chip (level 0's 512 bricks)."""
     from nerf_vo_tpu_torch.ops import hash_grid as hg
 
     cfg = hg.HashGridConfig(3, 8, 19, 16, 2048)
@@ -221,7 +232,7 @@ def gather_inputs(dev):
     x = torch.rand(n, 3, generator=gen, device=dev)
     idx, _, _, W, _ = hg._descriptors(x, cfg)
     cot = torch.randn(3 * n, 8, generator=gen, device=dev)
-    return tab, idx, W, n, cot
+    return tab, idx, W, n, cot, hg._hot_rows(cfg)
 
 
 def table_bytes(tab, idx):
@@ -237,14 +248,16 @@ def bound(nbytes, flops):
 
 def time_kernel(name, fn, plain, library, nbytes, flops, err, reps=20):
     ms = cuda_ms(fn, reps)
+    queued_ms = cuda_ms(fn, reps, queued=True)
     plain_ms = cuda_ms(plain, 3)
     library_ms = cuda_ms(library, reps) if library is not None else None
     bound_ms, bound_by = bound(nbytes, flops)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"(a) {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}), kernel at "
-          f"{bound_ms / ms:.1%} of the bound; max abs err {err:.3e}",
-          flush=True)
+          f"{bound_ms / ms:.1%} of the bound; max abs err {err:.3e}; "
+          f"queued behind a device sleep {queued_ms:.4f} ms "
+          f"({bound_ms / queued_ms:.1%} of the bound)", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, max_abs_err=err)
 
@@ -257,19 +270,66 @@ def check_close(name, got, want, rel):
     return err
 
 
+def stress_checks(tab, hot):
+    """gather_interp_mm and scatter_cols_accum against their plain versions
+    on adversarial ids: every id on one brick (inside and beyond the hot
+    rows), ids out of range (the plain reference drops them), ids on both
+    sides of the hot-row boundary; non-zero padding weights (entries
+    27..31) throughout. Same tolerances as the main checks."""
+    from nerf_vo_tpu_torch.ops import gather_cuda as gc
+
+    dev = tab.device
+    n_bricks, R = tab.shape
+    F = R // 32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    m = 4096
+
+    def ids(lo, hi):
+        return torch.randint(lo, hi, (m,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    cases = {
+        "one hot brick": torch.full((m,), 7, dtype=torch.int32, device=dev),
+        "one brick beyond the hot rows": torch.full(
+            (m,), hot + 5, dtype=torch.int32, device=dev),
+        "ids out of range": ids(-n_bricks, 2 * n_bricks),
+        "ids across the hot-row boundary": ids(max(hot - 64, 0), hot + 64),
+    }
+    w = torch.rand(m, 32, generator=gen, device=dev)
+    # positive rows: a one-brick sum grows like m, its rounding like
+    # m**1.5 * eps, so the 1e-5 relative tolerance holds with margin
+    rows = torch.rand(m, R, generator=gen, device=dev)
+    for name, i in cases.items():
+        ok = (i >= 0) & (i < n_bricks)
+        safe = torch.where(ok, i, torch.zeros_like(i))
+        want = gc.gather_interp_mm_plain(tab, safe, w, F) * ok[:, None]
+        got = gc.gather_interp_mm(tab, i, w, F, hot_rows=hot)
+        want_s = gc.scatter_cols_accum_plain(rows[ok], i[ok], n_bricks)
+        got_s = gc.scatter_cols_accum(rows, i, n_bricks, hot_rows=hot)
+        torch.cuda.synchronize()
+        e1 = check_close(f"gather_interp_mm ({name})", got, want, 1e-5)
+        e2 = check_close(f"scatter_cols_accum ({name})", got_s, want_s, 1e-5)
+        print(f"(a) stress, {name}: gather_interp_mm err {e1:.3e}, "
+              f"scatter_cols_accum err {e2:.3e}", flush=True)
+
+
 def phase_gather(dev):
     """Kernels 2-5 at the field's shapes; gather_interp also at the two
     proposal grids' (F = 1). Tolerances against the plain versions:
     gather_cols bitwise (the same bf16 rounding); the others 1e-5 of
     max(|plain|, 1) (f32 sums in another order, atomics in an order that
-    changes from run to run)."""
+    changes from run to run). gather_interp_mm and scatter_cols_accum are
+    timed with the hash grid's hot rows (level 0 kept on chip) and, for
+    comparison, with none; the scatter also on level 0's descriptors alone
+    and on the hashed levels' alone."""
     import torch.nn.functional as Fn
 
     from nerf_vo_tpu_torch.models.nerf_field import dense_grid
     from nerf_vo_tpu_torch.ops import gather_cuda as gc
     from nerf_vo_tpu_torch.ops import hash_grid as hg
 
-    tab, idx, W, n, cot = gather_inputs(dev)
+    tab, idx, W, n, cot, hot = gather_inputs(dev)
     M, R = idx.shape[0], tab.shape[1]
     src = "nerf_vo_tpu_torch/csrc/gather.cu"
     pallas = "nerf_vo_tpu/ops/gather_pallas.py"
@@ -290,7 +350,7 @@ def phase_gather(dev):
                         lambda: torch.index_select(tab, 0, idx_l),
                         nbytes, 0, 0.0)))
 
-    def interp_entry(name, line, fn, plain, t, i, w, F):
+    def interp_entry(name, line, fn, plain, t, i, w, F, label=None):
         m = i.shape[0]
         got = fn(t, i, w, F)
         torch.cuda.synchronize()
@@ -302,7 +362,8 @@ def phase_gather(dev):
         return dict(name=name, route="cuda", source=src,
                     replaces=f"{pallas}:{line}", launches=None,
                     **time_kernel(
-                        f"{name} M={m} F={F} over {t.shape[0]} bricks",
+                        f"{label or name} M={m} F={F} over {t.shape[0]} "
+                        "bricks",
                         lambda: fn(t, i, w, F), lambda: plain(t, i, w, F),
                         lambda: Fn.embedding_bag(flat, view,
                                                  per_sample_weights=w,
@@ -312,36 +373,75 @@ def phase_gather(dev):
     # 3: gather_interp, the hashed levels 1-2 of the field
     out.append(interp_entry("gather_interp", 133, gc.gather_interp,
                             gc.gather_interp_plain, tab, idx[n:], W[n:], 8))
-    # 4: gather_interp_mm, the field's one-hot level 0
-    e4 = interp_entry("gather_interp_mm", 219, gc.gather_interp_mm,
-                      gc.gather_interp_mm_plain, tab, idx[:n], W[:n], 8)
-    agree = (gc.gather_interp_mm(tab, idx[:n], W[:n], 8)
+    # 4: gather_interp_mm, the field's one-hot level 0, hot rows staged
+    def mm_hot(t, i, w, F):
+        return gc.gather_interp_mm(t, i, w, F, hot_rows=hot)
+
+    e4 = interp_entry("gather_interp_mm", 219, mm_hot,
+                      gc.gather_interp_mm_plain, tab, idx[:n], W[:n], 8,
+                      label=f"gather_interp_mm (hot rows {hot} staged)")
+    agree = (mm_hot(tab, idx[:n], W[:n], 8)
              - gc.gather_interp(tab, idx[:n], W[:n], 8)).abs().max().item()
     print(f"(a) gather_interp_mm vs gather_interp on level 0: max abs diff "
           f"{agree:.3e}", flush=True)
     if agree > 1e-5 * max(tab.abs().max().item(), 1.0):
         fail("gather_interp_mm and gather_interp disagree")
     out.append(e4)
+    # the other design (every row through L1/L2), and gather_interp, on the
+    # same level-0 descriptors
+    interp_entry("gather_interp_mm", 219, gc.gather_interp_mm,
+                 gc.gather_interp_mm_plain, tab, idx[:n], W[:n], 8,
+                 label="gather_interp_mm (no rows staged, L1/L2)")
+    interp_entry("gather_interp", 133, gc.gather_interp,
+                 gc.gather_interp_plain, tab, idx[:n], W[:n], 8,
+                 label="gather_interp on level 0")
+    # the staging's share: one round of 128 descriptors per block (one
+    # block per SM) is mostly the staging of the hot rows
+    m1 = torch.cuda.get_device_properties(dev).multi_processor_count * 128
+    i1, w1 = idx[:m1], W[:m1]
+    for queued in (False, True):
+        staged_ms = cuda_ms(lambda: mm_hot(tab, i1, w1, 8), 20, queued)
+        none_ms = cuda_ms(lambda: gc.gather_interp_mm(tab, i1, w1, 8), 20,
+                          queued)
+        how = "queued behind a device sleep" if queued else "back to back"
+        print(f"(a) gather_interp_mm, {m1} descriptors (one round per "
+              f"block), {how}: hot rows {hot} staged {staged_ms:.4f} ms, "
+              f"none staged {none_ms:.4f} ms", flush=True)
 
     # 5: scatter_cols_accum, the table gradient of every level
     rows = (W[:, :, None] * cot[:, None, :]).reshape(M, R)
-    got = gc.scatter_cols_accum(rows, idx, tab.shape[0])
+    nb = tab.shape[0]
+    got = gc.scatter_cols_accum(rows, idx, nb, hot_rows=hot)
     torch.cuda.synchronize()
     err = check_close("scatter_cols_accum", got,
-                      gc.scatter_cols_accum_plain(rows, idx, tab.shape[0]),
-                      1e-5)
+                      gc.scatter_cols_accum_plain(rows, idx, nb), 1e-5)
+    got0 = gc.scatter_cols_accum(rows, idx, nb)
+    torch.cuda.synchronize()
+    err = max(err, check_close("scatter_cols_accum (no hot rows)", got0,
+                               gc.scatter_cols_accum_plain(rows, idx, nb),
+                               1e-5))
     acc = torch.zeros_like(tab)
-    nbytes = M * R * 4 + M * 4 + tab.numel() * 4
+
+    def scatter_entry(label, r, i, h):
+        m = i.shape[0]
+        il = i.long()
+        return time_kernel(
+            f"scatter_cols_accum {label} M={m} R={R} into {nb} bricks",
+            lambda: gc.scatter_cols_accum(r, i, nb, hot_rows=h),
+            lambda: gc.scatter_cols_accum_plain(r, i, nb),
+            lambda: acc.index_add_(0, il, r),
+            m * R * 4 + m * 4 + tab.numel() * 4, m * R, err)
+
     out.append(dict(name="scatter_cols_accum", route="cuda", source=src,
-                    replaces=f"{pallas}:297", launches=None, **time_kernel(
-                        f"scatter_cols_accum M={M} R={R} into "
-                        f"{tab.shape[0]} bricks",
-                        lambda: gc.scatter_cols_accum(rows, idx,
-                                                      tab.shape[0]),
-                        lambda: gc.scatter_cols_accum_plain(rows, idx,
-                                                            tab.shape[0]),
-                        lambda: acc.index_add_(0, idx_l, rows),
-                        nbytes, M * R, err)))
+                    replaces=f"{pallas}:297", launches=None,
+                    **scatter_entry(f"(hot rows {hot} on chip)", rows, idx,
+                                    hot)))
+    scatter_entry("(no hot rows)", rows, idx, 0)
+    scatter_entry(f"level 0 alone (hot rows {hot})", rows[:n], idx[:n], hot)
+    scatter_entry("level 0 alone (no hot rows)", rows[:n], idx[:n], 0)
+    scatter_entry("hashed levels alone", rows[n:], idx[n:], hot)
+
+    stress_checks(tab, hot)
 
     # gather_interp at the proposal grids' shapes (F = 1, dense)
     gen = torch.Generator(device=dev)
@@ -461,20 +561,29 @@ def phase_mapping(dev, enhanced, frame_of):
     produced it, then up to STEPS_PER_FRAME paced train steps follow each
     frame; after the last frame the stream ends (as ``finish`` does) and
     training runs on to MAP_STEPS steps."""
+    from nerf_vo_tpu_torch.ops import gather_cuda
     from nerf_vo_tpu_torch.runtime.stages import MappingStage
 
     args = SimpleNamespace(**REPLICA, **MAPPING)
     stage = MappingStage(args, device=dev)
     at = dict(zip(frame_of, enhanced))
     history, times = [], []
+    per_step = {k.__name__: 0 for k in gather_cuda.KERNELS}
+    every = stage.model.config.proposal_refresh_every
 
     def step():
+        refresh = stage.state.step % every == 0
+        before = {k.__name__: k.launches for k in gather_cuda.KERNELS}
         t0 = time.perf_counter()
         m = stage.train_step()
         torch.cuda.synchronize()
         if m is None:
             return False
         times.append(time.perf_counter() - t0)
+        if not refresh:
+            for k in gather_cuda.KERNELS:
+                per_step[k.__name__] = max(per_step[k.__name__],
+                                           k.launches - before[k.__name__])
         vals = {k: float(v) for k, v in m.items()}
         if not all(np.isfinite(v) for v in vals.values()):
             fail(f"non-finite mapping metrics at step {len(history)}: {vals}")
@@ -521,6 +630,12 @@ def phase_mapping(dev, enhanced, frame_of):
           f"{args.frame_height}x{args.frame_width} {render_s * 1e3:.1f} ms, "
           f"depth {depth.min().item():.3f}..{depth.max().item():.3f}",
           flush=True)
+    print(f"(d) table-kernel launches per ordinary train step (most seen): "
+          f"{per_step}", flush=True)
+    for name, most in ORDINARY_STEP_LAUNCHES.items():
+        if per_step[name] > most:
+            fail(f"{name} launched {per_step[name]} times in one ordinary "
+                 f"train step (at most {most})")
     if not last < first:
         fail(f"rgb_loss did not fall: {first} -> {last}")
     return ms

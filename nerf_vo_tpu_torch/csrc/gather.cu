@@ -12,12 +12,10 @@
 //   gather_interp      <- gather_interp (:133, kernel :110)
 //       out[t, f] = sum_{e<32} w[t, e] * bf16(tab[idx[t], e*F + f])   f32
 //   gather_interp_mm   <- gather_interp_mm (:219, kernel :171)
-//       the same function, contracted as ((w @ E) * g) @ S with the 0/1
-//       matrices E[e, r] = [r / F == e] and S[r, f] = [r % F == f] over a
-//       tile of descriptors staged in shared memory (the identity at
-//       gather_pallas.py:177-181)
+//       the same function, for the dense small-table levels (the TPU kernel
+//       pinned the whole level in VMEM and contracted with one-hot matmuls)
 //   scatter_cols_accum <- scatter_cols_accum (:297, kernel :252)
-//       out[b, :] += g[t, :] for every t with idx[t] == b     f32 atomics
+//       out[b, :] += g[t, :] for every t with idx[t] == b     f32
 //
 // bf16(.) is round-to-nearest-even, done in registers on the f32 parameter
 // table: no bf16 copy of the table is made. Weights, sums and outputs of the
@@ -32,24 +30,46 @@
 // bytes over 3.35 TB/s. Per descriptor, gather_interp reads its w row
 // (128 B) and one table row (1 KB at F = 8) and writes 32 B; gather_cols
 // writes a 512 B bf16 row; scatter_cols_accum reads a 1 KB f32 cotangent row
-// and issues 256 atomics into one 1 KB table row. The table rows are random
-// (hashed) accesses of whole rows: each warp reads or writes 1 KB contiguous,
-// so the accesses stay coalesced. The level-0 scatter concentrates ~384
-// descriptors on each of 512 bricks: that atomic contention is timed, not
-// designed away here.
-//
-// Bounds at those shapes (bytes moved once over 3.35 TB/s, as chip_smoke.py
-// phase (a) computes them from its inputs):
+// and adds it into one 1 KB table row. Bounds at those shapes (bytes moved
+// once over 3.35 TB/s, as chip_smoke.py phase (a) computes them):
 //   gather_cols        M 589,824 x 256: 302 MB out + touched rows  ~0.10 ms
 //   gather_interp      M 393,216, F 8 (hashed levels 1-2): ~98 MB  ~0.029 ms
 //   gather_interp_mm   M 196,608, F 8 (level 0, 512 bricks): ~33 MB ~0.010 ms
 //   scatter_cols_accum M 589,824 x 256 into 49,152 bricks: 657 MB ~0.20 ms
 //
-// Design: one warp per descriptor for the row gathers (lane e holds brick
-// entry e, a warp-shuffle tree reduces over entries); one thread per
-// (descriptor, row) for the scatter. Simple and correct first; faster
-// versions (several descriptors per warp at F = 1, vector atomics, sorting
-// by brick) are later work.
+// Designs.
+//
+// gather_cols, gather_interp: one warp per descriptor (lane e holds brick
+// entry e, a warp-shuffle tree reduces over entries); each warp reads its
+// 1 KB row coalesced.
+//
+// gather_interp_mm: the level is small (512 bricks at F = 8: 221,184 B as
+// the 27 real entries in bf16), so the table is not what must move; the
+// 128 B weight row of each descriptor is. A persistent grid (one 1024-thread
+// block per SM) first stages the table's `hot` leading rows, bf16-rounded,
+// in dynamic shared memory, entry e of a brick at slot (e % 4) * 7 + e / 4
+// (so that the 7 lanes reading one entry column touch consecutive 16-byte
+// chunks). Then 8 lanes serve one descriptor, 4 descriptors per warp: lane
+// j loads w[t, 4j..4j+3] as one 16-byte streaming load (the next
+// descriptors' loads are issued before the current ones are summed), sums
+// its 4 entries x F features in registers, and a 3-step reduce-scatter over
+// the 8 lanes leaves each lane one output feature (8 lanes write 32 B).
+// There is no one-hot work. An id at or above `hot` (or `hot` = 0: every
+// row through L1/L2) reads the f32 row from global memory and rounds in
+// registers. Padding entries 27..31 are never staged: they are read from
+// global memory where their weight is non-zero (the hash grid's descriptors
+// give them weight 0), so any input is computed right.
+//
+// scatter_cols_accum: R = 32F is a template parameter. A block owns one
+// 32-column slab of the table and a strided share of the descriptors: 8
+// lanes take one descriptor's 128 B of the slab as one 16-byte load each (4
+// loads in flight per lane); the id is loaded once per descriptor batch and
+// broadcast by shuffle. Ids below `hot` (level 0's 512 bricks, where ~384
+// descriptors hit each brick) accumulate in the block's shared-memory copy
+// of those rows' slab (shared f32 atomics; rows rotated by their index to
+// spread banks), flushed once at the end with global vector atomics; every
+// other id adds straight into the table with sm_90's 16-byte atomicAdd on
+// float4 (4x fewer atomic operations than scalar adds).
 //
 // Plain C interface, bound with ctypes (nerf_vo_tpu_torch/ops/gather_cuda.py).
 
@@ -61,9 +81,61 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kEntries = 27;  // real entries of a brick
+constexpr int kSmemMax = 232448;  // dynamic shared memory of one sm_90 block
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+constexpr int kMaxDevices = 64;
+
+// What a launch site knows of its kernel on one device: whether the dynamic
+// shared-memory limit is raised, and its resident blocks per SM at the last
+// shared-memory size asked (a call site asks for one size). Each site keeps
+// one per device, so every card gets its own grid size and attribute.
+struct KernelFacts {
+  bool attr_set = false;
+  int smem = -1;
+  int blocks = 0;
+};
+
+int sm_count(int dev) {
+  static int counts[kMaxDevices] = {};
+  int n = dev < kMaxDevices ? counts[dev] : 0;
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 1;
+    if (dev < kMaxDevices) counts[dev] = n;
+  }
+  return n;
+}
+
+// Blocks of `kernel` at `threads` and `smem` that fit on the current device
+// at once (SMs x resident blocks per SM), raising the kernel's dynamic
+// shared-memory limit to `max_smem` on the device's first call.
+template <typename Kernel>
+cudaError_t resident_grid(Kernel kernel, KernelFacts* facts, int threads,
+                          int max_smem, int smem, long long* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  KernelFacts uncached;
+  KernelFacts& f = dev >= 0 && dev < kMaxDevices ? facts[dev] : uncached;
+  if (!f.attr_set) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    if (err != cudaSuccess) return err;
+    f.attr_set = true;
+  }
+  if (f.smem != smem) {
+    int n = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+    f.smem = smem;
+    f.blocks = n > 0 ? n : 1;
+  }
+  *blocks = static_cast<long long>(sm_count(dev)) * f.blocks;
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -141,135 +213,348 @@ __global__ void __launch_bounds__(kThreads) gather_interp_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// gather_interp_mm: a tile of T descriptors per block; the contraction is
-// written as the two 0/1-matrix products of the TPU kernel
+// gather_interp_mm: staged hot rows, 8 lanes per descriptor
 // ---------------------------------------------------------------------------
 
+constexpr int kMmThreads = 1024;
+constexpr int kMmWarps = kMmThreads / 32;
+constexpr int kMmUnroll = 2;  // descriptor sets per lane per loop trip
+
+// F f32 table values at p, rounded to bf16 (read-only path).
 template <int F>
-struct MmTile {
-  static constexpr int R = 32 * F;
-  // g tile [T][R] + w tile [T][32] floats, under the 48 KB static limit
-  static constexpr int T = F >= 8 ? 32 : (F >= 2 ? 64 : 128);
-};
+__device__ __forceinline__ void load_rounded(const float* p, float* v) {
+  if constexpr (F >= 4) {
+#pragma unroll
+    for (int i = 0; i < F / 4; ++i) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(p) + i);
+      v[4 * i + 0] = bf16_round(x.x);
+      v[4 * i + 1] = bf16_round(x.y);
+      v[4 * i + 2] = bf16_round(x.z);
+      v[4 * i + 3] = bf16_round(x.w);
+    }
+  } else if constexpr (F == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = bf16_round(x.x);
+    v[1] = bf16_round(x.y);
+  } else {
+    v[0] = bf16_round(__ldg(p));
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// F bf16-exact floats -> F bf16 at dst (2F bytes, aligned to 2F).
+template <int F>
+__device__ __forceinline__ void store_staged(__nv_bfloat16* dst,
+                                             const float* v) {
+  if constexpr (F == 8) {
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                   pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+  } else if constexpr (F == 4) {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+  } else if constexpr (F == 2) {
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(v[0], v[1]);
+  } else {
+    *dst = __float2bfloat16_rn(v[0]);
+  }
+}
 
 template <int F>
-__global__ void __launch_bounds__(kThreads) gather_interp_mm_kernel(
+__device__ __forceinline__ void load_staged(const __nv_bfloat16* src,
+                                            float* v) {
+  if constexpr (F == 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(src);
+    v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x);
+    v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
+    v[4] = bf16_lo(u.z); v[5] = bf16_hi(u.z);
+    v[6] = bf16_lo(u.w); v[7] = bf16_hi(u.w);
+  } else if constexpr (F == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x);
+    v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
+  } else if constexpr (F == 2) {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(src);
+    v[0] = bf16_lo(u);
+    v[1] = bf16_hi(u);
+  } else {
+    v[0] = __bfloat162float(*src);
+  }
+}
+
+// Reduce-scatter of v[N] over the lanes that differ in bits OFF, OFF/2, ...,
+// 1 of j: each step keeps half of the values (the upper half where bit OFF
+// of j is set) and adds the partner's copy of that half; once one value is
+// left, the remaining steps all-reduce it. `feat` collects which of the N
+// values the lane holds.
+template <int N, int OFF>
+__device__ __forceinline__ void reduce_scatter(float* v, int j, int& feat) {
+  if constexpr (OFF > 0) {
+    if constexpr (N > 1) {
+      constexpr int H = N / 2;
+      const bool up = (j & OFF) != 0;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const float send = up ? v[i] : v[i + H];
+        const float keep = up ? v[i + H] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+      if (up) feat += H;
+      reduce_scatter<H, OFF / 2>(v, j, feat);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], OFF);
+      reduce_scatter<1, OFF / 2>(v, j, feat);
+    }
+  }
+}
+
+// The weight quarter-rows (16-byte streaming loads) and ids of the
+// descriptors t0 + u * stride + q, u < kMmUnroll.
+__device__ __forceinline__ void mm_fetch(const float4* __restrict__ w4,
+                                         const int* __restrict__ idx, int M,
+                                         long long t0, long long stride,
+                                         int q, int j,
+                                         float4 (&wd)[kMmUnroll],
+                                         int (&bd)[kMmUnroll]) {
+#pragma unroll
+  for (int u = 0; u < kMmUnroll; ++u) {
+    const long long t = t0 + u * stride + q;
+    if (t < M) {
+      wd[u] = __ldcs(w4 + t * 8 + j);
+      bd[u] = __ldg(idx + t);
+    } else {
+      wd[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      bd[u] = -1;
+    }
+  }
+}
+
+template <int F>
+__global__ void __launch_bounds__(kMmThreads, 1) gather_interp_mm_kernel(
     const float* __restrict__ tab, const int* __restrict__ idx,
     const float* __restrict__ w, float* __restrict__ out, int M,
-    int n_bricks) {
-  constexpr int R = MmTile<F>::R;
-  constexpr int T = MmTile<F>::T;
-  __shared__ __align__(16) float gs[T * R];
-  __shared__ float ws[T * 32];
-  __shared__ int ids[T];
-  const long long t0 = static_cast<long long>(blockIdx.x) * T;
-  for (int i = threadIdx.x; i < T; i += kThreads) {
-    const long long t = t0 + i;
-    ids[i] = t < M ? idx[t] : -1;
-  }
-  for (int i = threadIdx.x; i < T * 32; i += kThreads) {
-    const long long t = t0 + i / 32;
-    ws[i] = t < M ? w[t0 * 32 + i] : 0.f;
+    int n_bricks, int hot) {
+  constexpr int R = 32 * F;
+  extern __shared__ __align__(16) unsigned char mm_smem[];
+  __nv_bfloat16* rows = reinterpret_cast<__nv_bfloat16*>(mm_smem);
+
+  const int lane = threadIdx.x & 31;
+  const int q = lane >> 3;  // descriptor of the warp's 4
+  const int j = lane & 7;   // entries 4j..4j+3
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * kMmWarps + (threadIdx.x >> 5)) * 4;
+  const long long stride = static_cast<long long>(gridDim.x) * kMmWarps * 4;
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  // the first descriptors' loads are in flight while the rows are staged
+  float4 wv[kMmUnroll];
+  int bv[kMmUnroll];
+  mm_fetch(w4, idx, M, first, stride, q, j, wv, bv);
+
+  // stage rows [0, hot): entry e < 27 of brick b at (b * 27 + slot(e)) * F;
+  // each block starts at another row, so that the blocks do not all ask
+  // the same L2 slices for the same lines at once
+  const int n_items = hot * kEntries;
+  const int shift = static_cast<int>(
+      static_cast<long long>(blockIdx.x) * n_items / gridDim.x);
+  for (int i = threadIdx.x; i < n_items; i += kMmThreads) {
+    const int ii = i + shift < n_items ? i + shift : i + shift - n_items;
+    const int b = ii / kEntries;
+    const int e = ii - b * kEntries;
+    float v[F];
+    load_rounded<F>(tab + static_cast<long long>(b) * R + e * F, v);
+    store_staged<F>(rows + (b * kEntries + (e & 3) * 7 + (e >> 2)) * F, v);
   }
   __syncthreads();
-  // stage the bf16-rounded table rows of the tile, 16 bytes per load
-  constexpr int nvec = R / 4;
-  for (int i = threadIdx.x; i < T * nvec; i += kThreads) {
-    const int tt = i / nvec;
-    const int v = i - tt * nvec;
-    const int b = ids[tt];
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (b >= 0 && b < n_bricks)
-      x = reinterpret_cast<const float4*>(tab + static_cast<long long>(b) * R)[v];
-    float4 y = make_float4(bf16_round(x.x), bf16_round(x.y), bf16_round(x.z),
-                           bf16_round(x.w));
-    reinterpret_cast<float4*>(gs)[i] = y;
-  }
-  __syncthreads();
-  // prod[t, r] = (w @ E)[t, r] * g[t, r], E[e, r] = [r / F == e]
-  for (int i = threadIdx.x; i < T * R; i += kThreads) {
-    const int tt = i / R;
-    const int r = i - tt * R;
-    float wexp = 0.f;
-#pragma unroll 8
-    for (int e = 0; e < 32; ++e) {
-      const float E = (r / F == e) ? 1.f : 0.f;
-      wexp = fmaf(ws[tt * 32 + e], E, wexp);
+
+  for (long long t0 = first; t0 < M; t0 += stride * kMmUnroll) {
+    float4 wn[kMmUnroll];
+    int bn[kMmUnroll];
+    // the next descriptors' loads are in flight while these are summed
+    mm_fetch(w4, idx, M, t0 + stride * kMmUnroll, stride, q, j, wn, bn);
+#pragma unroll
+    for (int u = 0; u < kMmUnroll; ++u) {
+      const int b = bv[u];
+      const bool ok = b >= 0 && b < n_bricks;
+      const bool staged = ok && b < hot;
+      const float we[4] = {wv[u].x, wv[u].y, wv[u].z, wv[u].w};
+      const float* grow = tab + static_cast<long long>(ok ? b : 0) * R;
+      float acc[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = 4 * j + k;
+        float v[F];
+        if (staged && e < kEntries) {
+          load_staged<F>(rows + (b * kEntries + k * 7 + j) * F, v);
+        } else if (ok && (e < kEntries || we[k] != 0.f)) {
+          load_rounded<F>(grow + e * F, v);
+        } else {
+#pragma unroll
+          for (int f = 0; f < F; ++f) v[f] = 0.f;
+        }
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = fmaf(we[k], v[f], acc[f]);
+      }
+      int feat = 0;
+      reduce_scatter<F, 4>(acc, j, feat);
+      const long long t = t0 + u * stride + q;
+      // for F < 8, the lanes of a group hold 8 / F copies of each feature
+      if (t < M && (j & (8 / F - 1)) == 0) out[t * F + feat] = acc[0];
     }
-    gs[i] = wexp * gs[i];
-  }
-  __syncthreads();
-  // out[t, f] = (prod @ S)[t, f], S[r, f] = [r % F == f]
-  for (int i = threadIdx.x; i < T * F; i += kThreads) {
-    const int tt = i / F;
-    const int f = i - tt * F;
-    const long long t = t0 + tt;
-    float acc = 0.f;
-    for (int r = 0; r < R; ++r) {
-      const float S = (r % F == f) ? 1.f : 0.f;
-      acc = fmaf(gs[tt * R + r], S, acc);
+#pragma unroll
+    for (int u = 0; u < kMmUnroll; ++u) {
+      wv[u] = wn[u];
+      bv[u] = bn[u];
     }
-    if (t < M) out[t * F + f] = acc;
   }
 }
 
-// ---------------------------------------------------------------------------
-// scatter_cols_accum: one thread per (descriptor, row), f32 atomics
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads) scatter_cols_accum_kernel(
-    const float* __restrict__ g, const int* __restrict__ idx,
-    float* __restrict__ out, long long total, int R, int n_bricks) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const long long t = i / R;
-  const int r = static_cast<int>(i - t * R);
-  const int b = idx[t];
-  if (b < 0 || b >= n_bricks) return;
-  atomicAdd(out + static_cast<long long>(b) * R + r, g[i]);
-}
+// rows of F-feature bricks that fit in shared memory as 27 bf16 entries
+constexpr int mm_capacity(int F) { return kSmemMax / (kEntries * F * 2); }
 
 template <int F>
-int launch_interp(bool mm, const float* tab, const int* idx, const float* w,
-                  float* out, int M, int n_bricks, cudaStream_t stream) {
-  if (mm) {
-    constexpr int T = MmTile<F>::T;
-    static_assert(sizeof(float) * (T * MmTile<F>::R + T * 32) + sizeof(int) * T
-                      <= 48 * 1024,
-                  "gather_interp_mm tile exceeds static shared memory");
-    const int blocks = (M + T - 1) / T;
-    gather_interp_mm_kernel<F><<<blocks, kThreads, 0, stream>>>(
-        tab, idx, w, out, M, n_bricks);
-  } else {
-    const int blocks = (M + kWarps - 1) / kWarps;
-    gather_interp_kernel<F><<<blocks, kThreads, 0, stream>>>(
-        tab, idx, w, out, M, n_bricks);
-  }
+int launch_interp_mm(const float* tab, const int* idx, const float* w,
+                     float* out, int M, int n_bricks, int hot,
+                     cudaStream_t stream) {
+  static KernelFacts facts[kMaxDevices];
+  hot = hot < 0 ? 0 : hot;
+  if (hot > n_bricks) hot = n_bricks;
+  if (hot > mm_capacity(F)) hot = mm_capacity(F);
+  const int smem = hot * kEntries * F * 2;
+  const long long per_block = kMmWarps * 4;
+  auto kernel = gather_interp_mm_kernel<F>;
+  long long blocks = 0;
+  cudaError_t err =
+      resident_grid(kernel, facts, kMmThreads, kSmemMax, smem, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long need = (M + per_block - 1) / per_block;
+  if (blocks > need) blocks = need;
+  kernel<<<static_cast<unsigned int>(blocks), kMmThreads, smem, stream>>>(
+      tab, idx, w, out, M, n_bricks, hot);
   return static_cast<int>(cudaGetLastError());
 }
 
-int interp(bool mm, const void* tab, const void* idx, const void* w, void* out,
-           int M, int F, int n_bricks, void* stream) {
-  if (M == 0) return 0;
-  const float* tb = static_cast<const float*>(tab);
-  const int* ix = static_cast<const int*>(idx);
-  const float* wt = static_cast<const float*>(w);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (F) {
-    case 1: return launch_interp<1>(mm, tb, ix, wt, o, M, n_bricks, s);
-    case 2: return launch_interp<2>(mm, tb, ix, wt, o, M, n_bricks, s);
-    case 4: return launch_interp<4>(mm, tb, ix, wt, o, M, n_bricks, s);
-    case 8: return launch_interp<8>(mm, tb, ix, wt, o, M, n_bricks, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// ---------------------------------------------------------------------------
+// scatter_cols_accum: 32-column slabs, hot rows in shared memory, vector
+// atomics
+// ---------------------------------------------------------------------------
+
+constexpr int kScThreads = 512;
+constexpr int kScWarps = kScThreads / 32;
+constexpr int kSlab = 32;         // columns of one block's slab
+constexpr int kScHotMax = 768;    // rows accumulated on chip: 96 KB a block
+
+// position of column c of hot row r in the shared slab
+__device__ __forceinline__ int slab_pos(int r, int c) {
+  return r * kSlab + ((c + r) & (kSlab - 1));
+}
+
+template <int F>
+__global__ void __launch_bounds__(kScThreads) scatter_cols_accum_kernel(
+    const float* __restrict__ g, const int* __restrict__ idx,
+    float* __restrict__ out, int M, int n_bricks, int hot) {
+  constexpr int R = 32 * F;  // F slabs of 32 columns
+  extern __shared__ __align__(16) float sc_smem[];
+  const int s = blockIdx.x % F;
+  const int chunk = blockIdx.x / F;
+  const int n_chunks = gridDim.x / F;
+  for (int i = threadIdx.x; i < hot * kSlab; i += kScThreads) sc_smem[i] = 0.f;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int q = lane >> 3;  // descriptor of the 4 served at once
+  const int c4 = lane & 7;  // columns 4*c4..4*c4+3 of the slab
+  const float4* g4 = reinterpret_cast<const float4*>(g) + s * 8 + c4;
+  float* out_s = out + s * kSlab + 4 * c4;
+  const long long batch0 =
+      static_cast<long long>(chunk) * kScWarps + (threadIdx.x >> 5);
+  const long long bstep = static_cast<long long>(n_chunks) * kScWarps;
+  for (long long bt = batch0 * 32; bt < M; bt += bstep * 32) {
+    const long long tl = bt + lane;
+    const int my_id = tl < M ? __ldg(idx + tl) : -1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 v[4];
+      int b[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int d = h * 16 + k * 4 + q;
+        b[k] = __shfl_sync(0xffffffffu, my_id, d);
+        v[k] = (b[k] >= 0 && b[k] < n_bricks)
+                   ? __ldcs(g4 + (bt + d) * (R / 4))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int bk = b[k];
+        if (bk < 0 || bk >= n_bricks) continue;
+        if (bk < hot) {
+          atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 0), v[k].x);
+          atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 1), v[k].y);
+          atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 2), v[k].z);
+          atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 3), v[k].w);
+        } else {
+          atomicAdd(reinterpret_cast<float4*>(
+                        out_s + static_cast<long long>(bk) * R), v[k]);
+        }
+      }
+    }
   }
+  __syncthreads();
+
+  // flush the hot rows' slab: one vector atomic per non-zero 16 bytes
+  for (int i = threadIdx.x; i < hot * 8; i += kScThreads) {
+    const int r = i >> 3;
+    const int c = (i & 7) * 4;
+    const float4 v = make_float4(
+        sc_smem[slab_pos(r, c + 0)], sc_smem[slab_pos(r, c + 1)],
+        sc_smem[slab_pos(r, c + 2)], sc_smem[slab_pos(r, c + 3)]);
+    if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
+      atomicAdd(reinterpret_cast<float4*>(
+                    out + static_cast<long long>(r) * R + s * kSlab + c), v);
+  }
+}
+
+template <int F>
+int launch_scatter(const float* g, const int* idx, float* out, int M,
+                   int n_bricks, int hot, cudaStream_t stream) {
+  static KernelFacts facts[kMaxDevices];
+  hot = hot < 0 ? 0 : hot;
+  if (hot > n_bricks) hot = n_bricks;
+  if (hot > kScHotMax) hot = kScHotMax;
+  const int smem = hot * kSlab * 4;
+  auto kernel = scatter_cols_accum_kernel<F>;
+  long long chunks = 0;
+  cudaError_t err = resident_grid(kernel, facts, kScThreads,
+                                  kScHotMax * kSlab * 4, smem, &chunks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  chunks /= F;
+  const long long need = (M + kScWarps * 32 - 1) / (kScWarps * 32);
+  if (chunks > need) chunks = need;
+  if (chunks < 1) chunks = 1;
+  kernel<<<static_cast<unsigned int>(chunks * F), kScThreads, smem, stream>>>(
+      g, idx, out, M, n_bricks, hot);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Every entry point launches on `stream` and returns the cudaError_t of the
 // launch (0 on success). The caller guarantees contiguous tensors, 16-byte
-// aligned table and output pointers, and R = 32 * F.
+// aligned table, weight, cotangent and output pointers, and R = 32 * F.
 
 // tab [n_bricks, R] f32, idx [M] int32 -> out [M, R] bf16. R % 4 == 0.
 extern "C" int gather_cols(const void* tab, const void* idx, void* out, int M,
@@ -287,24 +572,58 @@ extern "C" int gather_cols(const void* tab, const void* idx, void* out, int M,
 extern "C" int gather_interp(const void* tab, const void* idx, const void* w,
                              void* out, int M, int F, int n_bricks,
                              void* stream) {
-  return interp(false, tab, idx, w, out, M, F, n_bricks, stream);
+  if (M == 0) return 0;
+  const float* tb = static_cast<const float*>(tab);
+  const int* ix = static_cast<const int*>(idx);
+  const float* wt = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (M + kWarps - 1) / kWarps;
+  switch (F) {
+    case 1: gather_interp_kernel<1><<<blocks, kThreads, 0, s>>>(tb, ix, wt, o, M, n_bricks); break;
+    case 2: gather_interp_kernel<2><<<blocks, kThreads, 0, s>>>(tb, ix, wt, o, M, n_bricks); break;
+    case 4: gather_interp_kernel<4><<<blocks, kThreads, 0, s>>>(tb, ix, wt, o, M, n_bricks); break;
+    case 8: gather_interp_kernel<8><<<blocks, kThreads, 0, s>>>(tb, ix, wt, o, M, n_bricks); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
+// The same function; the table's rows [0, hot) (at most what 227 KB holds
+// as 27 bf16 entries: 538 rows at F = 8) are staged in shared memory.
 extern "C" int gather_interp_mm(const void* tab, const void* idx,
                                 const void* w, void* out, int M, int F,
-                                int n_bricks, void* stream) {
-  return interp(true, tab, idx, w, out, M, F, n_bricks, stream);
+                                int n_bricks, int hot, void* stream) {
+  if (M == 0) return 0;
+  const float* tb = static_cast<const float*>(tab);
+  const int* ix = static_cast<const int*>(idx);
+  const float* wt = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (F) {
+    case 1: return launch_interp_mm<1>(tb, ix, wt, o, M, n_bricks, hot, s);
+    case 2: return launch_interp_mm<2>(tb, ix, wt, o, M, n_bricks, hot, s);
+    case 4: return launch_interp_mm<4>(tb, ix, wt, o, M, n_bricks, hot, s);
+    case 8: return launch_interp_mm<8>(tb, ix, wt, o, M, n_bricks, hot, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// g [M, R] f32, idx [M] int32; out [n_bricks, R] f32, zeroed by the caller.
+// g [M, 32F] f32, idx [M] int32; out [n_bricks, 32F] f32, zeroed by the
+// caller. Rows [0, hot) (at most 768) accumulate in shared memory.
 extern "C" int scatter_cols_accum(const void* g, const void* idx, void* out,
-                                  int M, int R, int n_bricks, void* stream) {
+                                  int M, int F, int n_bricks, int hot,
+                                  void* stream) {
   if (M == 0) return 0;
-  const long long total = static_cast<long long>(M) * R;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  scatter_cols_accum_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const int*>(idx),
-      static_cast<float*>(out), total, R, n_bricks);
-  return static_cast<int>(cudaGetLastError());
+  const float* gp = static_cast<const float*>(g);
+  const int* ix = static_cast<const int*>(idx);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (F) {
+    case 1: return launch_scatter<1>(gp, ix, o, M, n_bricks, hot, s);
+    case 2: return launch_scatter<2>(gp, ix, o, M, n_bricks, hot, s);
+    case 4: return launch_scatter<4>(gp, ix, o, M, n_bricks, hot, s);
+    case 8: return launch_scatter<8>(gp, ix, o, M, n_bricks, hot, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

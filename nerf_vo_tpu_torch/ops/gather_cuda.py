@@ -10,7 +10,7 @@ wrapper                function
 =====================  ===================================================
 :func:`gather_cols`    ``out[t, :] = bf16(tab[idx[t], :])``, [M, 32F] bf16
 :func:`gather_interp`  ``out[t, f] = sum_e w[t, e] bf16(tab[idx[t], eF+f])``
-:func:`gather_interp_mm`  the same function as ``((w @ E) * g) @ S``
+:func:`gather_interp_mm`  the same function, for small dense tables
 :func:`scatter_cols_accum`  ``out[b, :] = sum_{t: idx[t] = b} g[t, :]``, f32
 =====================  ===================================================
 
@@ -18,6 +18,10 @@ Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor
 and launches its kernel for a CUDA tensor, or raises; it counts its kernel
 launches in ``<wrapper>.launches``. ``bf16`` rounds to nearest even (the
 JAX package's bf16 shadow of the table); weights, sums and outputs are f32.
+``gather_interp_mm`` and ``scatter_cols_accum`` take ``hot_rows``, the
+number of leading table rows the kernel keeps on chip (staged, or
+accumulated, in shared memory); the hash grid passes the rows of its
+one-hot levels. It changes where rows are read or added, never the result.
 What bounds each kernel, and its design, are noted at the top of
 ``csrc/gather.cu``.
 """
@@ -79,8 +83,8 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gather_cols.argtypes = [p, p, p, i, i, i, p]
     lib.gather_interp.argtypes = [p, p, p, p, i, i, i, p]
-    lib.gather_interp_mm.argtypes = [p, p, p, p, i, i, i, p]
-    lib.scatter_cols_accum.argtypes = [p, p, p, i, i, i, p]
+    lib.gather_interp_mm.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.scatter_cols_accum.argtypes = [p, p, p, i, i, i, i, p]
     for fn in (lib.gather_cols, lib.gather_interp, lib.gather_interp_mm,
                lib.scatter_cols_accum):
         fn.restype = ctypes.c_int
@@ -138,11 +142,11 @@ def gather_cols(tab, idx):
     return out
 
 
-def _interp(fn, name, tab, idx, w, features):
+def _interp(fn, name, tab, idx, w, features, *extra):
     dev = _cuda_device(tab, name)
     _check("tab", tab, torch.float32, 2, dev, align=16)
     _check("idx", idx, torch.int32, 1, dev)
-    _check("w", w, torch.float32, 2, dev)
+    _check("w", w, torch.float32, 2, dev, align=16)
     n_bricks, R = tab.shape
     if features not in FEATURES or R != 32 * features:
         raise ValueError(f"{name}: rows of {R} floats with F={features}; "
@@ -155,7 +159,7 @@ def _interp(fn, name, tab, idx, w, features):
     if M:
         _launched(fn, getattr(_lib(), name)(
             tab.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), M,
-            features, n_bricks, _stream(dev)))
+            features, n_bricks, *extra, _stream(dev)))
     return out
 
 
@@ -167,32 +171,47 @@ def gather_interp(tab, idx, w, features: int):
     return _interp(gather_interp, "gather_interp", tab, idx, w, features)
 
 
-def gather_interp_mm(tab, idx, w, features: int):
-    """:func:`gather_interp`'s function, contracted in the kernel as the
-    one-hot products ``((w @ E) * g) @ S`` over a staged descriptor tile."""
+def gather_interp_mm(tab, idx, w, features: int, hot_rows: int = 0):
+    """:func:`gather_interp`'s function for the dense small-table levels.
+
+    On the card the table's first ``hot_rows`` rows (at most what 227 KB of
+    shared memory holds as 27 bf16 entries a brick: 538 rows at F = 8,
+    4304 at F = 1) are staged once per block, and a descriptor whose id lies
+    there reads them on chip; any other id reads its row from global memory.
+    Padding entries 27..31 are read (from global memory) only where their
+    weight is non-zero, so the result is the plain version's for any
+    finite table."""
     if tab.device.type == "cpu":
         return gather_interp_mm_plain(tab, idx, w, features)
     return _interp(gather_interp_mm, "gather_interp_mm", tab, idx, w,
-                   features)
+                   features, int(hot_rows))
 
 
-def scatter_cols_accum(g, idx, n_bricks: int):
-    """Accumulate rows: g [M, R] f32, idx [M] int32 -> [n_bricks, R] f32
-    with ``out[b] = sum of g[t] over idx[t] == b`` (f32 atomics)."""
+def scatter_cols_accum(g, idx, n_bricks: int, hot_rows: int = 0):
+    """Accumulate rows: g [M, 32F] f32, idx [M] int32 -> [n_bricks, 32F]
+    f32 with ``out[b] = sum of g[t] over idx[t] == b`` (F in 1, 2, 4, 8).
+
+    On the card the first ``hot_rows`` rows (at most 768) accumulate in
+    shared memory and are added to the table once per block; every other
+    row is added with 16-byte float4 atomics. Sums are f32 in an order that
+    changes from run to run."""
     if g.device.type == "cpu":
         return scatter_cols_accum_plain(g, idx, n_bricks)
     dev = _cuda_device(g, "scatter_cols_accum")
-    _check("g", g, torch.float32, 2, dev)
+    _check("g", g, torch.float32, 2, dev, align=16)
     _check("idx", idx, torch.int32, 1, dev)
     M, R = g.shape
     if idx.shape[0] != M:
         raise ValueError(f"scatter_cols_accum: {idx.shape[0]} ids for {M} "
                          "rows")
+    if R % 32 or R // 32 not in FEATURES:
+        raise ValueError(f"scatter_cols_accum: rows of {R} floats; the "
+                         f"kernel takes R = 32F, F in {FEATURES}")
     out = torch.zeros(n_bricks, R, dtype=torch.float32, device=dev)
     if M:
         _launched(scatter_cols_accum, _lib().scatter_cols_accum(
-            g.data_ptr(), idx.data_ptr(), out.data_ptr(), M, R, n_bricks,
-            _stream(dev)))
+            g.data_ptr(), idx.data_ptr(), out.data_ptr(), M, R // 32,
+            n_bricks, int(hot_rows), _stream(dev)))
     return out
 
 

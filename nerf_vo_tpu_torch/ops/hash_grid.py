@@ -19,6 +19,9 @@ table and the positions. Its table operations are the kernels of
   rest, all those levels stacked level-major into one launch;
 - backward, table: the per-descriptor rows ``W[t, e] * cot[t, f]`` go
   through ``scatter_cols_accum`` into an f32 gradient of the table's shape;
+- on the card, ``gather_interp_mm`` and ``scatter_cols_accum`` keep the
+  one-hot levels' table rows (:func:`_hot_rows`; level 0's 512 bricks in
+  the field) in shared memory;
 - backward, positions: ``gather_cols`` re-gathers the bf16 brick rows (they
   are not kept from the forward) and the ``dW / dfrac * res`` contraction is
   plain torch.
@@ -127,6 +130,18 @@ def _n_onehot(config: HashGridConfig) -> int:
     return n
 
 
+def _hot_rows(config: HashGridConfig) -> int:
+    """Leading table rows read by the one-hot levels (level l's first
+    ``bpa**3`` bricks at row ``l * NB``): what ``gather_interp_mm`` stages
+    and ``scatter_cols_accum`` accumulates on chip. 0 without such a
+    level."""
+    n = _n_onehot(config)
+    if n == 0:
+        return 0
+    bpa = ((config.resolutions[n - 1] - 1) >> 1) + 1
+    return (n - 1) * config.bricks_per_level + bpa**3
+
+
 def _axis_weights(lo, f):
     """[M, 3] weights of the 3 lattice points on one axis:
     (i == lo) (1 - f) + (i == lo + 1) f."""
@@ -187,7 +202,7 @@ class _HashEncode(torch.autograd.Function):
         parts = []
         if split:
             parts.append(gc.gather_interp_mm(tables, idx[:split], W[:split],
-                                             F))
+                                             F, hot_rows=_hot_rows(config)))
         if split < L * n:
             parts.append(gc.gather_interp(tables, idx[split:], W[split:], F))
         feats = parts[0] if len(parts) == 1 else torch.cat(parts)  # [L*n, F]
@@ -211,7 +226,8 @@ class _HashEncode(torch.autograd.Function):
         grad_tables = grad_x = None
         if ctx.needs_input_grad[0]:
             rows = (W[:, :, None] * cot[:, None, :]).reshape(M, _BRICK_PAD * F)
-            grad_tables = gc.scatter_cols_accum(rows, idx, tables.shape[0])
+            grad_tables = gc.scatter_cols_accum(rows, idx, tables.shape[0],
+                                                hot_rows=_hot_rows(config))
         if ctx.needs_input_grad[1]:
             g = gc.gather_cols(tables, idx).float().reshape(M, _BRICK_PAD, F)
             dW = torch.sum(g * cot[:, None, :], dim=-1)[:, :_BRICK]

@@ -10,7 +10,10 @@ Tolerances: ``gather_cols`` bitwise (the same bf16 rounding);
 ``gather_interp`` / ``gather_interp_mm`` 1e-5 of the largest |output| (f32
 sums of 32 products in another order); ``scatter_cols_accum`` 1e-5 of the
 largest |output| (f32 atomics in arbitrary order against a sequential
-index_add_).
+index_add_). ``gather_interp_mm`` and ``scatter_cols_accum`` run both with
+leading rows kept on chip (``hot_rows``) and without; ids out of
+``[0, n_bricks)`` are held against a reference that reads zeros for them
+(gather) or drops them (scatter).
 """
 
 import pytest
@@ -46,6 +49,23 @@ def _close(got, want):
     assert err <= 1e-5 * max(want.abs().max().item(), 1.0), err
 
 
+def _interp_ref(tab, idx, w, F):
+    """The plain version, with zeros for ids outside [0, n_bricks)."""
+    ok = (idx >= 0) & (idx < tab.shape[0])
+    safe = torch.where(ok, idx, torch.zeros_like(idx))
+    return gc.gather_interp_plain(tab, safe, w, F) * ok[:, None]
+
+
+def _scatter_ref(rows, idx, n_bricks):
+    """The plain version, dropping ids outside [0, n_bricks)."""
+    ok = (idx >= 0) & (idx < n_bricks)
+    return gc.scatter_cols_accum_plain(rows[ok], idx[ok], n_bricks)
+
+
+def _mm_staged(tab, idx, w, F):
+    return gc.gather_interp_mm(tab, idx, w, F, hot_rows=64)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("F", [1, 2, 4, 8])
 def test_gather_cols_bitwise(dev, F):
@@ -59,31 +79,143 @@ def test_gather_cols_bitwise(dev, F):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mm", [False, True], ids=["interp", "interp_mm"])
+@pytest.mark.parametrize("mm", [False, True, "staged"],
+                         ids=["interp", "interp_mm", "interp_mm_staged"])
 @pytest.mark.parametrize("F", [1, 2, 4, 8])
 def test_gather_interp_matches_plain(dev, F, mm):
+    """interp_mm_staged keeps the first 64 of the 300 rows on chip, so the
+    ids fall on both sides of the staged rows."""
     tab, idx, w = _inputs(dev, F)
-    fn = gc.gather_interp_mm if mm else gc.gather_interp
-    before = fn.launches
+    fn = {False: gc.gather_interp, True: gc.gather_interp_mm,
+          "staged": _mm_staged}[mm]
+    counter = gc.gather_interp if mm is False else gc.gather_interp_mm
+    before = counter.launches
     got = fn(tab, idx, w, F)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    assert counter.launches == before + 1
     _close(got, gc.gather_interp_plain(tab, idx, w, F))
     # the two routes compute one function
-    _close(got, (gc.gather_interp if mm else gc.gather_interp_mm)(
+    _close(got, (gc.gather_interp_mm if mm is False else gc.gather_interp)(
         tab, idx, w, F))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("F", [1, 8])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
 def test_scatter_cols_accum_matches_plain(dev, F):
+    """With no rows on chip, and with the first 64 of 300 accumulated in
+    shared memory."""
     tab, idx, w = _inputs(dev, F)
     rows = torch.randn(idx.shape[0], 32 * F, device=dev)
-    before = gc.scatter_cols_accum.launches
-    got = gc.scatter_cols_accum(rows, idx, tab.shape[0])
+    want = gc.scatter_cols_accum_plain(rows, idx, tab.shape[0])
+    for hot in (0, 64):
+        before = gc.scatter_cols_accum.launches
+        got = gc.scatter_cols_accum(rows, idx, tab.shape[0], hot_rows=hot)
+        torch.cuda.synchronize()
+        assert gc.scatter_cols_accum.launches == before + 1
+        _close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", [0, 512])
+def test_scatter_cols_accum_level0_contention(dev, hot):
+    """The field's level 0: 512 bricks, 196,608 descriptors (~384 a
+    brick), F = 8."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    idx = torch.randint(0, 512, (196608,), generator=g, device=dev,
+                        dtype=torch.int32)
+    rows = torch.randn(196608, 256, generator=g, device=dev)
+    got = gc.scatter_cols_accum(rows, idx, 512, hot_rows=hot)
     torch.cuda.synchronize()
-    assert gc.scatter_cols_accum.launches == before + 1
-    _close(got, gc.scatter_cols_accum_plain(rows, idx, tab.shape[0]))
+    _close(got, gc.scatter_cols_accum_plain(rows, idx, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("brick", [5, 700], ids=["hot", "beyond_hot"])
+def test_every_id_on_one_brick(dev, brick):
+    """4096 descriptors on one brick of a 1024-row table whose first 512
+    rows are kept on chip."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    tab = torch.randn(1024, 256, generator=g, device=dev)
+    idx = torch.full((4096,), brick, dtype=torch.int32, device=dev)
+    w = torch.rand(4096, 32, generator=g, device=dev)
+    # positive rows: the f32 rounding of a 4096-term sum in another order
+    # stays well inside 1e-5 of the sum
+    rows = torch.rand(4096, 256, generator=g, device=dev)
+    got = gc.gather_interp_mm(tab, idx, w, 8, hot_rows=512)
+    got_s = gc.scatter_cols_accum(rows, idx, 1024, hot_rows=512)
+    torch.cuda.synchronize()
+    _close(got, gc.gather_interp_plain(tab, idx, w, 8))
+    _close(got_s, gc.scatter_cols_accum_plain(rows, idx, 1024))
+    assert got_s[:brick].abs().sum() == 0
+    assert got_s[brick + 1:].abs().sum() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", [0, 64])
+def test_ids_out_of_range(dev, hot):
+    """Negative ids and ids >= n_bricks read zeros and are dropped."""
+    tab, idx, w = _inputs(dev, 8)
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    idx = torch.randint(-400, 700, idx.shape, generator=g, device=dev,
+                        dtype=torch.int32)
+    idx[:3] = torch.tensor([-1, 300, 2**31 - 1], device=dev)
+    rows = torch.randn(idx.shape[0], 256, generator=g, device=dev)
+    got = gc.gather_interp_mm(tab, idx, w, 8, hot_rows=hot)
+    got_s = gc.scatter_cols_accum(rows, idx, 300, hot_rows=hot)
+    torch.cuda.synchronize()
+    _close(got, _interp_ref(tab, idx, w, 8))
+    assert not got[:3].any()
+    _close(got_s, _scatter_ref(rows, idx, 300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 8])
+def test_one_descriptor(dev, F):
+    """M = 1, staged and not."""
+    tab, idx, w = _inputs(dev, F)
+    idx, w = idx[:1].contiguous(), w[:1].contiguous()
+    rows = torch.randn(1, 32 * F, device=dev)
+    for hot in (0, 300):
+        got = gc.gather_interp_mm(tab, idx, w, F, hot_rows=hot)
+        got_s = gc.scatter_cols_accum(rows, idx, 300, hot_rows=hot)
+        torch.cuda.synchronize()
+        assert got.shape == (1, F)
+        _close(got, gc.gather_interp_plain(tab, idx, w, F))
+        _close(got_s, gc.scatter_cols_accum_plain(rows, idx, 300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_gather_interp_mm_beyond_the_staged_rows(dev, F):
+    """A 1024-row table with its first 512 rows staged, ids on both sides
+    of the boundary; and more hot rows asked than shared memory holds
+    (staging stops at its capacity, the rest reads from global memory)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    tab = torch.randn(6000, 32 * F, generator=g, device=dev)
+    w = torch.rand(20000, 32, generator=g, device=dev)
+    w[:, 27:] = 0.0
+    for lo, hi, hot in ((448, 576, 512), (0, 6000, 6000)):
+        idx = torch.randint(lo, hi, (20000,), generator=g, device=dev,
+                            dtype=torch.int32)
+        got = gc.gather_interp_mm(tab, idx, w, F, hot_rows=hot)
+        torch.cuda.synchronize()
+        _close(got, gc.gather_interp_plain(tab, idx, w, F))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", [0, 300])
+def test_gather_interp_mm_nonzero_padding_weights(dev, hot):
+    """Padding entries 27..31 with non-zero weights (the hash grid gives
+    them none) are read from global memory and counted."""
+    tab, idx, w = _inputs(dev, 8)
+    w = torch.rand_like(w) + 0.5
+    got = gc.gather_interp_mm(tab, idx, w, 8, hot_rows=hot)
+    torch.cuda.synchronize()
+    _close(got, gc.gather_interp_plain(tab, idx, w, 8))
 
 
 @pytest.mark.cuda
@@ -122,6 +254,8 @@ def test_wrappers_reject_bad_inputs(dev):
         gc.gather_interp(tab[:, ::2], idx, w, 4)  # not contiguous
     with pytest.raises(ValueError):
         gc.scatter_cols_accum(tab[:5], idx, 300)  # row count mismatch
+    with pytest.raises(ValueError):
+        gc.scatter_cols_accum(tab[:, :48].contiguous(), idx, 300)  # R 48
     with pytest.raises(ValueError):
         gc.gather_cols(tab, idx.cpu())
     empty = gc.gather_interp(tab, idx[:0], w[:0], 8)

@@ -103,6 +103,67 @@ def test_hash_encode_matches_jax(case):
     assert outside.any() and not gx_t.numpy()[outside].any()
 
 
+def _jax_onehot_rows(jcfg):
+    """Leading table rows of the JAX one-hot levels, by the rule of
+    ``nerf_vo_tpu/ops/hash_grid.py`` (dense prefix levels whose brick
+    lattice fits ``min(NB, _ONEHOT_MAX_BRICKS)``; level l's bricks start at
+    column l * NB)."""
+    NB = jcfg.bricks_per_level
+    n_oh = 0
+    for l, res in enumerate(jcfg.resolutions):
+        bpa = ((res - 1) >> 1) + 1
+        if bpa**3 <= min(NB, jhg._ONEHOT_MAX_BRICKS):
+            n_oh = l + 1
+        else:
+            break
+    if n_oh == 0:
+        return 0
+    bpa = ((jcfg.resolutions[n_oh - 1] - 1) >> 1) + 1
+    return (n_oh - 1) * NB + bpa**3
+
+
+@pytest.mark.parametrize("case", ["field", "replica_field", "proposal128",
+                                  "proposal160", "proposal16",
+                                  "proposal24"])
+def test_hot_rows_follow_the_jax_onehot_rule(case, monkeypatch):
+    """The leading rows ``hash_encode`` asks ``gather_interp_mm`` and
+    ``scatter_cols_accum`` to keep on chip are the rows of the JAX
+    package's one-hot levels: the test field, the replica field (3 x 8, log2
+    19, 16 -> 2048) and the replica's two dense proposal grids (128, 160),
+    and the small proposal grids of the parity test."""
+    grids = dict(_grid_cases(),
+                 replica_field=jhg.HashGridConfig(3, 8, 19, 16, 2048),
+                 proposal128=jfield.DenseProposalField(resolution=128).grid,
+                 proposal160=jfield.DenseProposalField(resolution=160).grid)
+    jcfg = grids[case]
+    tcfg = thg.HashGridConfig(**vars(jcfg))
+    want = _jax_onehot_rows(jcfg)
+    assert thg._hot_rows(tcfg) == want
+    assert want == {"field": 512, "replica_field": 512, "proposal16": 512
+                    }.get(case, 0)
+
+    seen = {}
+
+    def spy(name):
+        real = getattr(thg.gc, name)
+
+        def call(*args, hot_rows=0):
+            seen.setdefault(name, []).append(hot_rows)
+            return real(*args, hot_rows=hot_rows)
+        return call
+
+    for name in ("gather_interp_mm", "scatter_cols_accum"):
+        monkeypatch.setattr(thg.gc, name, spy(name))
+    L, F = tcfg.n_levels, tcfg.features_per_level
+    rng = np.random.default_rng(3)
+    tab = torch.tensor(rng.normal(size=(L * tcfg.bricks_per_level, 32 * F)),
+                       dtype=torch.float32, requires_grad=True)
+    x = torch.tensor(rng.uniform(0, 1, (64, 3)), dtype=torch.float32)
+    thg.hash_encode(tab, x, tcfg).sum().backward()
+    assert seen["scatter_cols_accum"] == [want]
+    assert seen.get("gather_interp_mm", []) == ([want] if want else [])
+
+
 def test_contractions_match_jax():
     rng = np.random.default_rng(2)
     x = (rng.normal(size=(256, 3)) * 3).astype(np.float32)
