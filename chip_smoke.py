@@ -64,6 +64,7 @@ RAYS = MAPPING["rays_per_batch"]
 FIELD_SAMPLES, PROPOSAL_SAMPLES = 48, (96, 48)
 F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores
 SLEEP_CYCLES = 100_000_000  # ~50 ms of device clock
+L2_FLUSH_BYTES = 128 << 20  # written before each cold call: > the 50 MB L2
 # table-kernel launches of one train step without a proposal refresh: the
 # forward (one per route), the surface-normal pullback and the outer backward
 ORDINARY_STEP_LAUNCHES = dict(gather_cols=3, gather_interp=4,
@@ -96,6 +97,27 @@ def cuda_ms(fn, reps, queued=False):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps):
+    """Mean device time of one call with a cold L2: each call is queued
+    behind a device-side sleep after a 128 MB buffer is written, and timed
+    by CUDA events around it alone. Repeated calls on the same inputs find
+    them in the 50 MB L2 otherwise, and a bound that counts bytes from
+    memory is then no floor."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in ev:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in ev) / reps
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +184,12 @@ def corr_bound(pf, f1, f2, ring, ctr):
 
 
 def phase_corr(dev):
+    """Row 1 at the replica shapes: the two-level kernel (one launch per
+    update, the edges sorted by target slot inside the launch, as the
+    tracker's wrapper calls it) against the plain version of both levels;
+    timed as the tracker calls it and, for comparison, as two one-level
+    launches (``scripts/exp_torch_corr_phases.py`` times other edge
+    orders)."""
     from nerf_vo_tpu_torch.ops import correlation_cuda as cc
 
     gen = torch.Generator(device=dev)
@@ -169,42 +197,66 @@ def phase_corr(dev):
     pf, f1, f2, ring, ctr = corr_inputs(gen, dev)
     E = pf.shape[0]
     n = 9 * (2 * RADIUS + 1) ** 2
+    pf9 = pf.reshape(E, 9, -1)
 
     def plain():
-        pf9 = pf.reshape(E, 9, -1)
         return torch.cat([
             cc.corr_level_plain(f1, pf9, ring, ctr, RADIUS),
             cc.corr_level_plain(f2, pf9, ring, ctr * 0.5, RADIUS),
         ], dim=1)
 
-    got = cc.patch_correlation_kernel(pf, f1, f2, ring, ctr, RADIUS)
-    torch.cuda.synchronize()
+    def kernel():
+        return cc.patch_correlation_kernel(pf, f1, f2, ring, ctr, RADIUS)
+
+    half = (ctr * 0.5).contiguous()
+
+    def one_level():  # the same update as two launches of one level each
+        return torch.cat([cc.corr_level(f1, pf9, ring, ctr, RADIUS),
+                          cc.corr_level(f2, pf9, ring, half, RADIUS)], dim=1)
     want = plain()
-    err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     tol = 1e-3 * scale  # both accumulate in f32, in another order
     zero_rows = (want == 0).all(1)
-    print(f"(a) corr_level: E={E} edges, max|ref| {scale:.4f}, max abs err "
-          f"{err:.3e} (tol {tol:.3e}), rel {err / scale:.3e}; "
-          f"{int(zero_rows.sum())} all-zero rows (off-frame centres)",
-          flush=True)
-    if not np.isfinite(err) or err > tol:
-        fail(f"corr kernel disagrees with its plain version: {err} > {tol}")
-    if not torch.equal(got[zero_rows], want[zero_rows]):
-        fail("corr kernel wrote non-zero values for off-frame centres")
-    if got[:, :n].abs().sum() == 0:
-        fail("corr kernel output is all zero")
+    err = 0.0
+    for name, fn in (("as the tracker calls it", kernel),
+                     ("two one-level launches", one_level)):
+        got = fn()
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        print(f"(a) corr_two_level ({name}): E={E} edges, max|ref| "
+              f"{scale:.4f}, max abs err {e:.3e} (tol {tol:.3e}), rel "
+              f"{e / scale:.3e}; {int(zero_rows.sum())} all-zero rows "
+              f"(off-frame centres)", flush=True)
+        if not np.isfinite(e) or e > tol:
+            fail(f"corr kernel ({name}) disagrees with its plain version: "
+                 f"{e} > {tol}")
+        if not torch.equal(got[zero_rows], want[zero_rows]):
+            fail(f"corr kernel ({name}) wrote non-zero values for off-frame "
+                 "centres")
+        if got[:, :n].abs().sum() == 0 or got[:, n:].abs().sum() == 0:
+            fail(f"corr kernel ({name}) output is all zero at a level")
+        err = max(err, e)
 
-    ms = cuda_ms(lambda: cc.patch_correlation_kernel(pf, f1, f2, ring, ctr,
-                                                     RADIUS), 50)
+    before = cc.corr_two_level.launches
+    kernel()
+    if cc.corr_two_level.launches != before + 1:
+        fail("patch_correlation_kernel did not make exactly one launch")
+    ms = cuda_ms(kernel, 50)
+    queued_ms = cuda_ms(kernel, 50, queued=True)
+    cold_ms = cuda_ms_cold(kernel, 50)
     plain_ms = cuda_ms(plain, 5)
     bound_ms, bound_by = corr_bound(pf, f1, f2, ring, ctr)
-    print(f"(a) corr_level per update (2 launches): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}), kernel at {bound_ms / ms:.1%} of the bound",
-          flush=True)
+    print(f"(a) corr_two_level per update (1 launch, slot sort inside): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), kernel at {bound_ms / ms:.1%} of the bound; queued "
+          f"behind a device sleep {queued_ms:.4f} ms "
+          f"({bound_ms / queued_ms:.1%} of the bound); cold L2 "
+          f"{cold_ms:.4f} ms ({bound_ms / cold_ms:.1%})", flush=True)
+    print(f"(a) corr_level x 2 (two one-level launches): "
+          f"{cuda_ms(one_level, 50):.4f} ms, queued "
+          f"{cuda_ms(one_level, 50, queued=True):.4f} ms", flush=True)
     return [{
-        "name": "corr_level", "route": "cuda",
+        "name": "corr_two_level", "route": "cuda",
         "source": "nerf_vo_tpu_torch/csrc/corr.cu",
         "replaces": "nerf_vo_tpu/ops/correlation_pallas.py:65",
         "launches": None, "max_abs_err": err, "ms": ms,
@@ -235,6 +287,25 @@ def gather_inputs(dev):
     return tab, idx, W, n, cot, hg._hot_rows(cfg)
 
 
+def proposal_inputs(dev):
+    """The proposal grids' gather_interp inputs at the replica
+    configuration: dense F = 1 grids at resolution 128 and 160, 4096 rays x
+    96 / 48 samples uniform in the unit cube. Yields (res, table, ids,
+    trilinear weights)."""
+    from nerf_vo_tpu_torch.models.nerf_field import dense_grid
+    from nerf_vo_tpu_torch.ops import hash_grid as hg
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for res, samples in zip((128, 160), PROPOSAL_SAMPLES):
+        cfg = dense_grid(res)
+        ptab = torch.randn(cfg.bricks_per_level, 32, generator=gen,
+                           device=dev)
+        x = torch.rand(RAYS * samples, 3, generator=gen, device=dev)
+        pidx, _, _, pw, _ = hg._descriptors(x, cfg)
+        yield res, ptab, pidx, pw
+
+
 def table_bytes(tab, idx):
     """Bytes of the table rows a descriptor list touches, each read once."""
     return int(torch.unique(idx).numel()) * tab.shape[1] * 4
@@ -249,6 +320,7 @@ def bound(nbytes, flops):
 def time_kernel(name, fn, plain, library, nbytes, flops, err, reps=20):
     ms = cuda_ms(fn, reps)
     queued_ms = cuda_ms(fn, reps, queued=True)
+    cold_ms = cuda_ms_cold(fn, reps)
     plain_ms = cuda_ms(plain, 3)
     library_ms = cuda_ms(library, reps) if library is not None else None
     bound_ms, bound_by = bound(nbytes, flops)
@@ -257,7 +329,8 @@ def time_kernel(name, fn, plain, library, nbytes, flops, err, reps=20):
           f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}), kernel at "
           f"{bound_ms / ms:.1%} of the bound; max abs err {err:.3e}; "
           f"queued behind a device sleep {queued_ms:.4f} ms "
-          f"({bound_ms / queued_ms:.1%} of the bound)", flush=True)
+          f"({bound_ms / queued_ms:.1%} of the bound); cold L2 "
+          f"{cold_ms:.4f} ms ({bound_ms / cold_ms:.1%})", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, max_abs_err=err)
 
@@ -314,6 +387,74 @@ def stress_checks(tab, hot):
               f"scatter_cols_accum err {e2:.3e}", flush=True)
 
 
+def live_groups(t, i, w, F, group_bytes):
+    """[m, 32F*4 / group_bytes] bool: the groups of ``group_bytes`` bytes of
+    each descriptor's table row that hold an entry with a non-zero weight
+    (none for an id out of range)."""
+    per = group_bytes // (4 * F)  # entries in a group
+    ok = ((i >= 0) & (i < t.shape[0]))[:, None]
+    return ((w != 0) & ok).reshape(i.shape[0], 32 // per, per).any(-1)
+
+
+def interp_table_bytes(t, i, w, F):
+    """Bytes of the table that gather_interp's function needs for these
+    descriptors: of each touched brick, once, the 32-byte sectors (at F = 1
+    the 16-byte groups of 4 entries) that hold an entry with a non-zero
+    weight in some descriptor. Zero-weight entries, the padding entries
+    27..31 among them, are not needed."""
+    group = 16 if F == 1 else 32
+    live = live_groups(t, i, w, F, group)
+    G = live.shape[1]
+    flat = (i.long().clamp(0, t.shape[0] - 1)[:, None] * G
+            + torch.arange(G, device=i.device)[None, :])
+    touched = torch.zeros(t.shape[0] * G, dtype=torch.bool, device=i.device)
+    touched[flat[live]] = True
+    return int(touched.sum()) * group
+
+
+def interp_requests(t, i, w, F):
+    """Bytes gather_interp requests from L2 for these descriptors: the ids,
+    the weight rows, the outputs and, of each table row, the 32-byte
+    sectors that hold an entry with a non-zero weight (ids out of range
+    read nothing); and the bytes of the same descriptors with whole rows,
+    as one warp per descriptor read them before."""
+    m = i.shape[0]
+    ok = (i >= 0) & (i < t.shape[0])
+    fixed = m * (4 + 32 * 4 + F * 4)
+    return (fixed + int(live_groups(t, i, w, F, 32).sum()) * 32,
+            fixed + int(ok.sum()) * 32 * F * 4)
+
+
+def interp_stress(tab):
+    """gather_interp against its plain version on weights the hash grid
+    never makes: all 32 entries non-zero, and only the padding entries
+    27..31 non-zero; ids out of range read zeros. Tolerance 1e-5 of
+    max(|ref|, 1)."""
+    from nerf_vo_tpu_torch.ops import gather_cuda as gc
+
+    dev = tab.device
+    n_bricks, R = tab.shape
+    F = R // 32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    m = 65536
+    i = torch.randint(-1000, n_bricks + 1000, (m,), generator=gen,
+                      device=dev, dtype=torch.int32)
+    ok = (i >= 0) & (i < n_bricks)
+    safe = torch.where(ok, i, torch.zeros_like(i))
+    dense = torch.rand(m, 32, generator=gen, device=dev) + 0.1
+    pad = dense.clone()
+    pad[:, :27] = 0.0
+    for name, w in (("dense weights", dense),
+                    ("only padding entries 27..31", pad)):
+        want = gc.gather_interp_plain(tab, safe, w, F) * ok[:, None]
+        got = gc.gather_interp(tab, i, w, F)
+        torch.cuda.synchronize()
+        e = check_close(f"gather_interp ({name})", got, want, 1e-5)
+        print(f"(a) stress, gather_interp F={F}, {name}, ids out of range: "
+              f"err {e:.3e}", flush=True)
+
+
 def phase_gather(dev):
     """Kernels 2-5 at the field's shapes; gather_interp also at the two
     proposal grids' (F = 1). Tolerances against the plain versions:
@@ -325,9 +466,7 @@ def phase_gather(dev):
     and on the hashed levels' alone."""
     import torch.nn.functional as Fn
 
-    from nerf_vo_tpu_torch.models.nerf_field import dense_grid
     from nerf_vo_tpu_torch.ops import gather_cuda as gc
-    from nerf_vo_tpu_torch.ops import hash_grid as hg
 
     tab, idx, W, n, cot, hot = gather_inputs(dev)
     M, R = idx.shape[0], tab.shape[1]
@@ -358,7 +497,7 @@ def phase_gather(dev):
         flat = (i.long()[:, None] * 32
                 + torch.arange(32, device=dev)[None, :])
         view = t.view(-1, F)
-        nbytes = table_bytes(t, i) + m * 4 + m * 32 * 4 + m * F * 4
+        nbytes = interp_table_bytes(t, i, w, F) + m * (4 + 32 * 4 + F * 4)
         return dict(name=name, route="cuda", source=src,
                     replaces=f"{pallas}:{line}", launches=None,
                     **time_kernel(
@@ -373,6 +512,11 @@ def phase_gather(dev):
     # 3: gather_interp, the hashed levels 1-2 of the field
     out.append(interp_entry("gather_interp", 133, gc.gather_interp,
                             gc.gather_interp_plain, tab, idx[n:], W[n:], 8))
+    req, whole = interp_requests(tab, idx[n:], W[n:], 8)
+    print(f"(a) gather_interp F=8 requests {req / 1e6:.1f} MB (live entries "
+          f"only; whole rows would be {whole / 1e6:.1f} MB); its bound moves "
+          f"{out[-1]['bound_ms'] * HBM_BYTES_PER_S / 1e9:.1f} MB", flush=True)
+    interp_stress(tab)
     # 4: gather_interp_mm, the field's one-hot level 0, hot rows staged
     def mm_hot(t, i, w, F):
         return gc.gather_interp_mm(t, i, w, F, hot_rows=hot)
@@ -444,17 +588,14 @@ def phase_gather(dev):
     stress_checks(tab, hot)
 
     # gather_interp at the proposal grids' shapes (F = 1, dense)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-    for res, samples in zip((128, 160), PROPOSAL_SAMPLES):
-        cfg = dense_grid(res)
-        ptab = torch.randn(cfg.bricks_per_level, 32, generator=gen,
-                           device=dev)
-        x = torch.rand(RAYS * samples, 3, generator=gen, device=dev)
-        pidx, _, _, pw, _ = hg._descriptors(x, cfg)
-        interp_entry(f"gather_interp (proposal res {res})", 133,
-                     gc.gather_interp, gc.gather_interp_plain, ptab, pidx,
-                     pw, 1)
+    for res, ptab, pidx, pw in proposal_inputs(dev):
+        e1 = interp_entry(f"gather_interp (proposal res {res})", 133,
+                          gc.gather_interp, gc.gather_interp_plain, ptab,
+                          pidx, pw, 1)
+        req, whole = interp_requests(ptab, pidx, pw, 1)
+        print(f"(a) gather_interp F=1 res {res} requests {req / 1e6:.1f} MB "
+              f"(whole rows {whole / 1e6:.1f} MB; bound "
+              f"{e1['bound_ms'] * HBM_BYTES_PER_S / 1e9:.1f} MB)", flush=True)
     return out
 
 
@@ -488,6 +629,14 @@ def phase_tracking(dev):
     stage = TrackingStage(args, device=dev)
     intr = dict(fx=320.0, fy=320.0, cx=W / 2, cy=H / 2)
     packets, frame_of, times = [], [], []
+    updates = [0]
+    vo_update = stage.tracker._vo_update
+
+    def counted(*a, **k):  # one update of the patch graph
+        updates[0] += 1
+        return vo_update(*a, **k)
+
+    stage.tracker._vo_update = counted
     for i, img in enumerate(frames):
         t0 = time.perf_counter()
         pkt = stage.step(dict(frame_index=i, frame_color=img,
@@ -521,7 +670,7 @@ def phase_tracking(dev):
             fail("camera_extrinsics are not rigid")
         if not np.isfinite(p["dpvo_patches"].cpu().numpy()).all():
             fail("non-finite patches in a packet")
-    return packets, frame_of, fps
+    return packets, frame_of, fps, updates[0]
 
 
 def phase_enhancement(dev, packets):
@@ -666,13 +815,18 @@ def main():
 
     kernels = phase_corr(dev) + phase_gather(dev)
     correlation_cuda.corr_level.launches = 0
-    packets, frame_of, fps = phase_tracking(dev)
-    launches = correlation_cuda.corr_level.launches
+    correlation_cuda.corr_two_level.launches = 0
+    packets, frame_of, fps, updates = phase_tracking(dev)
+    launches = correlation_cuda.corr_two_level.launches
     kernels[0]["launches"] = launches
-    print(f"(b) corr_level launches on the main path: {launches}",
-          flush=True)
+    print(f"(b) corr_two_level launches on the main path: {launches} in "
+          f"{updates} updates ({launches / max(updates, 1):.3f} per update); "
+          f"one-level corr_level launches: "
+          f"{correlation_cuda.corr_level.launches}", flush=True)
     if launches == 0:
         fail("the tracking path never launched the corr kernel")
+    if launches > updates or correlation_cuda.corr_level.launches:
+        fail("the tracking path made more than one corr launch per update")
     enhanced = phase_enhancement(dev, packets)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB", flush=True)

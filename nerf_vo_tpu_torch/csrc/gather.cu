@@ -28,7 +28,8 @@
 // 256; proposals F = 1, R = 32): all four move bytes and do next to no
 // arithmetic (at most 32F multiply-adds per descriptor), so the bound is
 // bytes over 3.35 TB/s. Per descriptor, gather_interp reads its w row
-// (128 B) and one table row (1 KB at F = 8) and writes 32 B; gather_cols
+// (128 B) and the 8 live entries of one table row (256 B of 1 KB at F = 8)
+// and writes 32 B; gather_cols
 // writes a 512 B bf16 row; scatter_cols_accum reads a 1 KB f32 cotangent row
 // and adds it into one 1 KB table row. Bounds at those shapes (bytes moved
 // once over 3.35 TB/s, as chip_smoke.py phase (a) computes them):
@@ -39,9 +40,27 @@
 //
 // Designs.
 //
-// gather_cols, gather_interp: one warp per descriptor (lane e holds brick
-// entry e, a warp-shuffle tree reduces over entries); each warp reads its
-// 1 KB row coalesced.
+// gather_cols: one warp per descriptor; each warp reads its row coalesced.
+//
+// gather_interp: a persistent grid; L lanes serve one descriptor (L = 8,
+// 4 descriptors a warp; at F = 1 the L of kGiLanesF1). Lane j loads its
+// 32 / L weights with 16-byte streaming loads; the ids and weights of the
+// next descriptors are in flight while the current rows are read and
+// summed, and the row loads of kGiUnroll descriptors are all issued before
+// any sum. A lane reads table entry e only where w[t, e] != 0: a point's
+// trilinear weights are non-zero on the 8 corners of its cell, so at F = 8
+// a descriptor requests 8 sectors of 32 B (256 B) of its 1 KB row. A
+// zero-weight entry adds exactly 0 to the plain version's sum when the
+// table is finite, so the result is the same; dense weights read every
+// entry. At F = 1 an entry is 4 B and four of them are one 16-byte load,
+// read where any of its four weights is non-zero; 2, 4 and 8 lanes a
+// descriptor came within 3% of one another on an H100, 4 the fastest at
+// both proposal grids' shapes (scripts/exp_torch_gather_lanes.py). The row
+// loads are predicated, not branched around: with a branch each load
+// waited for the one before it (0.0965 ms against 0.0488 at the field's
+// hashed levels). A reduce-scatter over the L
+// lanes leaves each lane one output feature (a 32 B store per descriptor
+// at F = 8).
 //
 // gather_interp_mm: the level is small (512 bricks at F = 8: 221,184 B as
 // the 27 real entries in bf16), so the table is not what must move; the
@@ -163,52 +182,6 @@ __global__ void __launch_bounds__(kThreads) gather_cols_kernel(
     pack.x = *reinterpret_cast<uint32_t*>(&lo);
     pack.y = *reinterpret_cast<uint32_t*>(&hi);
     dst[v] = pack;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// gather_interp: one warp per descriptor, lane e = brick entry e
-// ---------------------------------------------------------------------------
-
-template <int F>
-__global__ void __launch_bounds__(kThreads) gather_interp_kernel(
-    const float* __restrict__ tab, const int* __restrict__ idx,
-    const float* __restrict__ w, float* __restrict__ out, int M,
-    int n_bricks) {
-  constexpr int R = 32 * F;
-  const int lane = threadIdx.x & 31;
-  const long long t =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (t >= M) return;
-  const int b = idx[t];
-  const bool ok = b >= 0 && b < n_bricks;
-  const float we = w[t * 32 + lane];
-  float acc[F];
-  const float* row = tab + static_cast<long long>(ok ? b : 0) * R + lane * F;
-  if constexpr (F % 4 == 0) {
-#pragma unroll
-    for (int v = 0; v < F / 4; ++v) {
-      float4 x = ok ? reinterpret_cast<const float4*>(row)[v]
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      acc[4 * v + 0] = we * bf16_round(x.x);
-      acc[4 * v + 1] = we * bf16_round(x.y);
-      acc[4 * v + 2] = we * bf16_round(x.z);
-      acc[4 * v + 3] = we * bf16_round(x.w);
-    }
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] = ok ? we * bf16_round(row[f]) : 0.f;
-  }
-  // sum over the 32 entries (lanes)
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int f = 0; f < F; ++f)
-      acc[f] += __shfl_xor_sync(0xffffffffu, acc[f], off);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int f = 0; f < F; ++f) out[t * F + f] = acc[f];
   }
 }
 
@@ -448,6 +421,187 @@ int launch_interp_mm(const float* tab, const int* idx, const float* w,
 }
 
 // ---------------------------------------------------------------------------
+// gather_interp: L lanes per descriptor, only the live entries read
+// ---------------------------------------------------------------------------
+
+constexpr int kGiThreads = 256;
+constexpr int kGiWarps = kGiThreads / 32;
+constexpr int kGiUnroll = 2;  // descriptor sets per lane per loop trip
+// lanes per descriptor at F = 1, measured (scripts/exp_torch_gather_lanes.py
+// builds 2, 4 and 8 with -DGI_LANES_F1)
+#ifndef GI_LANES_F1
+#define GI_LANES_F1 4
+#endif
+constexpr int kGiLanesF1 = GI_LANES_F1;
+
+// The weight slices (NV 16-byte streaming loads: entries EP j .. EP j +
+// EP - 1) and ids of the descriptors t0 + u * stride + q, u < kGiUnroll.
+template <int NV>
+__device__ __forceinline__ void gi_fetch(const float4* __restrict__ w4,
+                                         const int* __restrict__ idx, int M,
+                                         long long t0, long long stride,
+                                         int q, int j,
+                                         float4 (&wd)[kGiUnroll][NV],
+                                         int (&bd)[kGiUnroll]) {
+#pragma unroll
+  for (int u = 0; u < kGiUnroll; ++u) {
+    const long long t = t0 + u * stride + q;
+#pragma unroll
+    for (int g = 0; g < NV; ++g)
+      wd[u][g] = t < M ? __ldcs(w4 + t * 8 + j * NV + g)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    bd[u] = t < M ? __ldg(idx + t) : -1;
+  }
+}
+
+// 16 / 8 bytes at p where pred holds, else zeros: a predicated load, so
+// that no branch separates a descriptor's row loads from one another.
+__device__ __forceinline__ float4 ldg_f4_if(const float* p, bool pred) {
+  float4 v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %5, 0;\n\t"
+      "mov.f32 %0, 0f00000000;\n\tmov.f32 %1, 0f00000000;\n\t"
+      "mov.f32 %2, 0f00000000;\n\tmov.f32 %3, 0f00000000;\n\t"
+      "@q ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+__device__ __forceinline__ float2 ldg_f2_if(const float* p, bool pred) {
+  float2 v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %3, 0;\n\t"
+      "mov.f32 %0, 0f00000000;\n\tmov.f32 %1, 0f00000000;\n\t"
+      "@q ld.global.nc.v2.f32 {%0, %1}, [%2];\n\t}"
+      : "=f"(v.x), "=f"(v.y)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+template <int F, int L>
+__global__ void __launch_bounds__(kGiThreads) gather_interp_kernel(
+    const float* __restrict__ tab, const int* __restrict__ idx,
+    const float* __restrict__ w, float* __restrict__ out, int M,
+    int n_bricks) {
+  static_assert(F <= L && 32 % L == 0 && L <= 8, "lanes per descriptor");
+  constexpr int R = 32 * F;
+  constexpr int EP = 32 / L;  // entries per lane
+  constexpr int NV = EP / 4;  // 16-byte weight loads per lane
+  constexpr int DPW = 32 / L;  // descriptors per warp
+  const int lane = threadIdx.x & 31;
+  const int q = lane / L;  // descriptor of the warp's DPW
+  const int j = lane % L;  // entries EP j .. EP j + EP - 1
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * kGiWarps + (threadIdx.x >> 5)) *
+      DPW;
+  const long long stride = static_cast<long long>(gridDim.x) * kGiWarps * DPW;
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  float4 wv[kGiUnroll][NV];
+  int bv[kGiUnroll];
+  gi_fetch<NV>(w4, idx, M, first, stride, q, j, wv, bv);
+
+  for (long long t0 = first; t0 < M; t0 += stride * kGiUnroll) {
+    float4 wn[kGiUnroll][NV];
+    int bn[kGiUnroll];
+    // the next descriptors' weights and ids are in flight while these rows
+    // are read and summed
+    gi_fetch<NV>(w4, idx, M, t0 + stride * kGiUnroll, stride, q, j, wn, bn);
+    // every row load of the kGiUnroll descriptors is issued (predicated,
+    // no branch) before any sum; an entry is read only where its weight is
+    // non-zero
+    float we[kGiUnroll][EP];
+    float v[kGiUnroll][EP][F];
+#pragma unroll
+    for (int u = 0; u < kGiUnroll; ++u) {
+      const int b = bv[u];
+      const bool ok = b >= 0 && b < n_bricks;
+      const float* row =
+          tab + static_cast<long long>(ok ? b : 0) * R + j * EP * F;
+#pragma unroll
+      for (int g = 0; g < NV; ++g) {
+        we[u][4 * g + 0] = wv[u][g].x;
+        we[u][4 * g + 1] = wv[u][g].y;
+        we[u][4 * g + 2] = wv[u][g].z;
+        we[u][4 * g + 3] = wv[u][g].w;
+      }
+      if constexpr (F == 1) {
+        // 4 entries are one 16-byte load: read where any weight is live
+#pragma unroll
+        for (int g = 0; g < NV; ++g) {
+          const bool live = ok && (wv[u][g].x != 0.f || wv[u][g].y != 0.f ||
+                                   wv[u][g].z != 0.f || wv[u][g].w != 0.f);
+          const float4 x = ldg_f4_if(row + 4 * g, live);
+          v[u][4 * g + 0][0] = x.x;
+          v[u][4 * g + 1][0] = x.y;
+          v[u][4 * g + 2][0] = x.z;
+          v[u][4 * g + 3][0] = x.w;
+        }
+      } else if constexpr (F == 2) {
+#pragma unroll
+        for (int k = 0; k < EP; ++k) {
+          const float2 x = ldg_f2_if(row + k * F, ok && we[u][k] != 0.f);
+          v[u][k][0] = x.x;
+          v[u][k][1] = x.y;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < EP; ++k) {
+#pragma unroll
+          for (int h = 0; h < F / 4; ++h) {
+            const float4 x =
+                ldg_f4_if(row + k * F + 4 * h, ok && we[u][k] != 0.f);
+            v[u][k][4 * h + 0] = x.x;
+            v[u][k][4 * h + 1] = x.y;
+            v[u][k][4 * h + 2] = x.z;
+            v[u][k][4 * h + 3] = x.w;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGiUnroll; ++u) {
+      float acc[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] = 0.f;
+#pragma unroll
+      for (int k = 0; k < EP; ++k) {
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          acc[f] = fmaf(we[u][k], bf16_round(v[u][k][f]), acc[f]);
+      }
+      int feat = 0;
+      reduce_scatter<F, L / 2>(acc, j, feat);
+      const long long t = t0 + u * stride + q;
+      // for F < L, the lanes of a group hold L / F copies of each feature
+      if (t < M && (j & (L / F - 1)) == 0) out[t * F + feat] = acc[0];
+    }
+#pragma unroll
+    for (int u = 0; u < kGiUnroll; ++u) {
+      bv[u] = bn[u];
+#pragma unroll
+      for (int g = 0; g < NV; ++g) wv[u][g] = wn[u][g];
+    }
+  }
+}
+
+template <int F, int L>
+int launch_interp(const float* tab, const int* idx, const float* w,
+                  float* out, int M, int n_bricks, cudaStream_t stream) {
+  static KernelFacts facts[kMaxDevices];
+  auto kernel = gather_interp_kernel<F, L>;
+  long long blocks = 0;
+  cudaError_t err = resident_grid(kernel, facts, kGiThreads, 0, 0, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long per_block = kGiWarps * (32 / L);
+  const long long need = (M + per_block - 1) / per_block;
+  if (blocks > need) blocks = need;
+  kernel<<<static_cast<unsigned int>(blocks), kGiThreads, 0, stream>>>(
+      tab, idx, w, out, M, n_bricks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // scatter_cols_accum: 32-column slabs, hot rows in shared memory, vector
 // atomics
 // ---------------------------------------------------------------------------
@@ -578,15 +732,13 @@ extern "C" int gather_interp(const void* tab, const void* idx, const void* w,
   const float* wt = static_cast<const float*>(w);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (M + kWarps - 1) / kWarps;
   switch (F) {
-    case 1: gather_interp_kernel<1><<<blocks, kThreads, 0, s>>>(tb, ix, wt, o, M, n_bricks); break;
-    case 2: gather_interp_kernel<2><<<blocks, kThreads, 0, s>>>(tb, ix, wt, o, M, n_bricks); break;
-    case 4: gather_interp_kernel<4><<<blocks, kThreads, 0, s>>>(tb, ix, wt, o, M, n_bricks); break;
-    case 8: gather_interp_kernel<8><<<blocks, kThreads, 0, s>>>(tb, ix, wt, o, M, n_bricks); break;
+    case 1: return launch_interp<1, kGiLanesF1>(tb, ix, wt, o, M, n_bricks, s);
+    case 2: return launch_interp<2, 8>(tb, ix, wt, o, M, n_bricks, s);
+    case 4: return launch_interp<4, 8>(tb, ix, wt, o, M, n_bricks, s);
+    case 8: return launch_interp<8, 8>(tb, ix, wt, o, M, n_bricks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The same function; the table's rows [0, hot) (at most what 227 KB holds

@@ -165,7 +165,15 @@ def _interp(fn, name, tab, idx, w, features, *extra):
 
 def gather_interp(tab, idx, w, features: int):
     """Fused gather + trilinear reduce: tab [n_bricks, 32F] f32, idx [M]
-    int32, w [M, 32] f32 (rows 27..31 zero) -> [M, F] f32."""
+    int32, w [M, 32] f32 -> [M, F] f32.
+
+    On the card a table entry is read only where its weight is non-zero
+    (the 8 corners of a point's cell for the hash grid's descriptors; at
+    F = 1 four entries are one load, read where any of their weights is
+    non-zero). A skipped entry would add ``0 * bf16(value)``, which is 0
+    for a finite value, so the result is the plain version's for any finite
+    table; an Inf or NaN entry under a zero weight gives NaN in the plain
+    version and is skipped here."""
     if tab.device.type == "cpu":
         return gather_interp_plain(tab, idx, w, features)
     return _interp(gather_interp, "gather_interp", tab, idx, w, features)

@@ -7,8 +7,9 @@ of ``chip_smoke.py`` (random weights from a seed), then times ``--window``
 steady-state frames and profiles the next ``--window`` with
 ``torch.profiler``. Prints the wall time per frame,
 the device-busy share of that wall time (sum of kernel times / wall), the
-top device kernels, and the time per tracker phase (encode, host half of
-the update, device update), measured with ``torch.cuda.synchronize`` around each.
+correlation kernel's device time and launches per frame, the top device
+kernels, and the time per tracker phase (encode, host half of the update,
+device update), measured with ``torch.cuda.synchronize`` around each.
 """
 
 from __future__ import annotations
@@ -94,6 +95,11 @@ def main():
     print(f"device busy {dev_us / a.window / 1e3:.2f} ms/frame of "
           f"{wall * 1e3:.2f} ms wall ({dev_us / a.window / 1e3 / (wall * 1e3):.1%}"
           " busy, profiler on)")
+    corr = [e for e in events if e.device_type == DeviceType.CUDA
+            and "corr" in e.key]
+    corr_us = sum(e.self_device_time_total for e in corr)
+    print(f"corr kernel: {corr_us / a.window / 1e3:.4f} ms/frame device "
+          f"time, {sum(e.count for e in corr) / a.window:.2f} launches/frame")
     print(events.table(sort_by="self_device_time_total", row_limit=25,
                        max_name_column_width=60))
 

@@ -70,6 +70,37 @@ def test_gather_interp_matches_pallas(data, mm):
     assert err < 0.05, err
 
 
+@pytest.mark.parametrize("F", [8, 1])
+def test_gather_interp_on_trilinear_descriptors_matches_pallas(F):
+    """The hash grid's own descriptors, hashed (res 24 over 64 bricks):
+    their weights are non-zero on at most the 8 corners of the point's
+    cell and never on the padding entries 27..31, the entries the CUDA
+    kernel reads alone. On them the plain version matches the Pallas
+    kernel, and a sum over the live entries alone equals the full sum."""
+    from nerf_vo_tpu_torch.ops import hash_grid as hg
+
+    cfg = hg.HashGridConfig(1, F, 11, 24, 24)
+    rng = np.random.default_rng(6)
+    tab = rng.normal(size=(cfg.bricks_per_level, 32 * F)).astype(np.float32)
+    x = torch.tensor(rng.uniform(0, 1, (M, 3)).astype(np.float32))
+    idx, _, _, w, _ = hg._descriptors(x, cfg)
+    live = w != 0
+    assert int(live.sum(1).max()) <= 8 and int(live.sum(1).min()) >= 1
+    assert not live[:, 27:].any()
+    w = torch.tensor(_bf16(w.numpy()))
+    got = gc.gather_interp(torch.tensor(tab), idx, w, F)
+    want = gp.gather_interp(jnp.asarray(tab, jnp.bfloat16),
+                            jnp.asarray(idx.numpy()),
+                            jnp.asarray(w.numpy(), jnp.bfloat16), features=F,
+                            interpret=True, tile=TILE)
+    err = np.abs(got.numpy() - np.asarray(want, np.float32)).max()
+    assert err < 0.05, err
+    rows = torch.tensor(_bf16(tab))[idx.long()].reshape(M, 32, F)
+    sparse = (rows * w[:, :, None] * live[:, :, None]).sum(1)
+    np.testing.assert_allclose(got.numpy(), sparse.numpy(), rtol=0,
+                               atol=1e-5)
+
+
 def test_scatter_cols_accum_matches_pallas(data):
     g, idx = data["g"], data["idx"]
     want = gp.scatter_cols_accum(jnp.asarray(g, jnp.bfloat16),

@@ -101,6 +101,47 @@ def test_gather_interp_matches_plain(dev, F, mm):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_gather_interp_on_trilinear_descriptors(dev, F):
+    """The hash grid's own descriptors (at most 8 live entries a row: the
+    corners of the point's cell), which the kernel reads alone."""
+    cfg = hg.HashGridConfig(2, F, 14, 16, 64)
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    tab = torch.randn(2 * cfg.bricks_per_level, 32 * F, generator=g,
+                      device=dev)
+    x = torch.rand(5001, 3, generator=g, device=dev)
+    idx, _, _, w, _ = hg._descriptors(x, cfg)
+    assert int((w != 0).sum(1).max()) <= 8
+    want = gc.gather_interp_plain(tab, idx, w, F)
+    _close(gc.gather_interp(tab, idx, w, F), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["dense", "padding_only"])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_gather_interp_weight_patterns(dev, F, weights):
+    """All 32 weights non-zero, and only the padding entries 27..31
+    non-zero: the live-entry skip depends on the data alone. Ids out of
+    range read zeros."""
+    tab, idx, w = _inputs(dev, F)
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    idx = torch.randint(-50, 350, idx.shape, generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand(w.shape, generator=g, device=dev) + 0.25
+    if weights == "padding_only":
+        w[:, :27] = 0.0
+    got = gc.gather_interp(tab, idx, w, F)
+    torch.cuda.synchronize()
+    want = _interp_ref(tab, idx, w, F)
+    _close(got, want)
+    ok = (idx >= 0) & (idx < tab.shape[0])
+    assert not got[~ok].any()
+    assert got[ok].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
 def test_scatter_cols_accum_matches_plain(dev, F):
     """With no rows on chip, and with the first 64 of 300 accumulated in
     shared memory."""
