@@ -5,7 +5,7 @@
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``/usr/local/cuda``) and PyTorch built for CUDA. It builds every kernel of
 the path from ``nerf_vo_tpu_torch/csrc/`` (into ``nerf_vo_tpu_torch/_build/``,
-one ``nvcc`` per source, all started together), then runs four phases; any
+one ``nvcc`` per source, all started together), then runs five phases; any
 failure ends the run with a non-zero exit:
 
   (a) kernels: each kernel against its plain PyTorch version on the card at
@@ -21,7 +21,14 @@ failure ends the run with a non-zero exit:
       keyframes of 360x640, 4096 rays per step, full field and proposal
       grids, random weights from a seed) fed the enhanced packets of (c)
       with train steps interleaved as the serial pipeline does, 64 steps in
-      all, then one full-frame render.
+      all, then one full-frame render;
+  (e) the pipeline: ``runtime.pipeline.execute`` at the replica
+      configuration's full width and its own threaded mode, fed the
+      synthetic frames through ``DataStage`` (the card has no OpenCV to
+      decode Replica's JPEGs) with ``mapping_iterations`` cut to 512; it
+      checks the prediction directory, counts every kernel's launches on
+      that path, and restores the train-state snapshot into a fresh mapping
+      stage, which must hold the same tensors and render the same image.
 
 Output: progress on stderr; on stdout the card's name and power limit, the
 per-phase results, one JSON line with every kernel's numbers, and as the
@@ -31,10 +38,13 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -56,6 +66,19 @@ MAPPING = dict(  # configs/nerf_vo_replica.yaml, mapping
     num_keyframes=192, mapping_iterations=8192, rays_per_batch=4096,
     mapping_module="nerfstudio",
 )
+PIPELINE = dict(  # configs/nerf_vo_replica.yaml, the pipeline's own keys
+    frame_stride=2, multithreading=True, performance_tracking=True,
+    mapping_snapshot_iterations=8192,
+)
+# phase (e)'s cut of the config: the pacing budget is mapping_iterations /
+# num_keyframes train steps between keyframe packets
+PIPELINE_CUTS = dict(mapping_iterations=512, mapping_snapshot_iterations=512)
+# keys of the config that name the dataset on disk, the output directory
+# and evaluation: phase (e) hands the pipeline its frames in memory and
+# writes into a temporary directory
+SOURCE_KEYS = ("dir_dataset", "dataset_name", "scene_names", "cache_dataset",
+               "first_frame_index", "last_frame_index", "dir_prediction",
+               "num_evaluation_frames")
 N_FRAMES = 48
 RADIUS = 3
 MAP_STEPS = 64
@@ -790,6 +813,200 @@ def phase_mapping(dev, enhanced, frame_of):
     return ms
 
 
+# ---------------------------------------------------------------------------
+# (e) the pipeline
+# ---------------------------------------------------------------------------
+
+PREDICTION_FILES = {
+    "dataset.npz", "mapping_keyframe2frame.json",
+    "matrices/matrices_origin2frame_keyframes_tracking.json",
+    "matrices/matrices_origin2frame_training.json",
+}
+
+
+def files_under(d):
+    return {os.path.relpath(os.path.join(root, f), d)
+            for root, _, names in os.walk(d) for f in names}
+
+
+def check_rigid(name, mats):
+    for k, m in mats.items():
+        m = np.asarray(m, np.float64)
+        if m.shape != (4, 4) or not np.isfinite(m).all():
+            fail(f"{name}[{k}] is not a finite 4x4 matrix")
+        if (not np.allclose(m[:3, :3] @ m[:3, :3].T, np.eye(3), atol=1e-4)
+                or not np.allclose(m[3], [0, 0, 0, 1])):
+            fail(f"{name}[{k}] is not rigid")
+
+
+def equal_tree(x, y):
+    """Bitwise equality of nested dicts / lists of tensors and scalars."""
+    if isinstance(x, torch.Tensor):
+        return (isinstance(y, torch.Tensor) and x.device == y.device
+                and torch.equal(x, y))
+    if isinstance(x, dict):
+        return x.keys() == y.keys() and all(equal_tree(x[k], y[k])
+                                            for k in x)
+    if isinstance(x, (list, tuple)):
+        return len(x) == len(y) and all(map(equal_tree, x, y))
+    return x == y
+
+
+def stage_summary(dir_result, stage):
+    """``PerformanceTracker.summary`` of one stage, from the runtime CSV
+    the pipeline wrote, and the per-step times."""
+    from nerf_vo_tpu_torch.runtime.perf import PerformanceTracker
+
+    with open(os.path.join(dir_result, f"runtime_{stage}.csv")) as f:
+        rows = [(int(a), float(b)) for a, b in
+                (line.split(",") for line in f.read().split()[1:])]
+    perf = PerformanceTracker()
+    perf.rows[stage] = rows
+    return perf.summary(stage), [dt for _, dt in rows]
+
+
+def phase_pipeline(dev, smi, tracking_fps):
+    """``execute`` as a user calls it, on the card, then the snapshot's
+    round trip. Returns the kernels' launches on the pipeline's path."""
+    from nerf_vo_tpu_torch.ops import correlation_cuda, gather_cuda
+    from nerf_vo_tpu_torch.runtime import pipeline, stages
+
+    cfg = {**REPLICA, **MAPPING, **PIPELINE, **PIPELINE_CUTS}
+    H, W, K = cfg["frame_height"], cfg["frame_width"], cfg["num_keyframes"]
+    iters = cfg["mapping_iterations"]
+    intr = dict(fx=320.0, fy=320.0, cx=W / 2, cy=H / 2)
+    dataset = [dict(frame_index=i, camera_intrinsics=intr, frame_color=img,
+                    last_frame=i == N_FRAMES - 1)
+               for i, img in enumerate(synthetic_frames(N_FRAMES, H, W))]
+    print(f"(e) cuts: random weights from a seed; {N_FRAMES} synthetic "
+          f"{H}x{W} frames handed to DataStage in memory, in place of "
+          f"{', '.join(SOURCE_KEYS[:2])} (the card has no cv2 to decode the "
+          f"Replica JPEGs); mapping_iterations and "
+          f"mapping_snapshot_iterations {iters} in place of "
+          f"{MAPPING['mapping_iterations']}, so the pacing budget is "
+          f"{iters}/{K} = {iters / K:.2f} train steps per keyframe packet "
+          f"(not {MAPPING['mapping_iterations'] / K:.2f}); dir_prediction "
+          "and dir_result in a temporary directory", flush=True)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        args = SimpleNamespace(**cfg, dir_prediction=f"{tmp}/prediction",
+                               dir_result=f"{tmp}/result")
+        marks = {}
+        finish = stages.MappingStage.finish
+
+        def timed_finish(self):  # observes finish(), changes nothing
+            torch.cuda.synchronize()
+            marks["start"] = (time.perf_counter(), self.step_count)
+            finish(self)
+            torch.cuda.synchronize()
+            marks["end"] = (time.perf_counter(), self.step_count)
+
+        stages.MappingStage.finish = timed_finish
+        correlation_cuda.corr_level.launches = 0
+        correlation_cuda.corr_two_level.launches = 0
+        for k in gather_cuda.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            mapping = pipeline.execute(args, device=dev, dataset=dataset)
+            torch.cuda.synchronize()
+        finally:
+            stages.MappingStage.finish = finish
+        wall = time.perf_counter() - t0
+        counts = {"corr_two_level": correlation_cuda.corr_two_level.launches,
+                  **{k.__name__: k.launches for k in gather_cuda.KERNELS}}
+        print(f"(e) launches on the pipeline's path: {counts}; one-level "
+              f"corr_level: {correlation_cuda.corr_level.launches}",
+              flush=True)
+        for name, n in counts.items():
+            if n == 0:
+                fail(f"the pipeline never launched {name}")
+        if correlation_cuda.corr_level.launches:
+            fail("the pipeline launched the one-level corr kernel")
+
+        pred = args.dir_prediction
+        want = PREDICTION_FILES | {f"snapshots/{s}{iters:06d}.pt"
+                                   for s in ("trainstate", "snapshot")}
+        if files_under(pred) != want:
+            fail(f"prediction directory holds {sorted(files_under(pred))}, "
+                 f"not {sorted(want)}")
+        runtimes = {f"runtime_{s}.csv" for s in ("data", "tracking",
+                                                 "enhancement", "mapping")}
+        if files_under(args.dir_result) != runtimes:
+            fail(f"result directory holds {files_under(args.dir_result)}")
+        with open(f"{pred}/mapping_keyframe2frame.json") as f:
+            kf2frame = json.load(f)
+        if len(kf2frame) != mapping.num_inserted:
+            fail(f"{len(kf2frame)} keyframes in mapping_keyframe2frame.json,"
+                 f" {mapping.num_inserted} inserted")
+        for name in sorted(want):
+            if name.endswith(".json") and name.startswith("matrices/"):
+                with open(f"{pred}/{name}") as f:
+                    check_rigid(name, json.load(f))
+        if mapping.step_count != iters:
+            fail(f"the mapper took {mapping.step_count} steps, not {iters}")
+
+        summaries = {s: stage_summary(args.dir_result, s)
+                     for s in ("data", "tracking", "enhancement", "mapping")}
+        init = getattr(args, "tracking_init_frames", 8)
+        steady = summaries["tracking"][1][init:-1]
+        fps = len(steady) / sum(steady)
+        (t_start, s_start), (t_end, s_end) = marks["start"], marks["end"]
+        ms_step = (t_end - t_start) / max(s_end - s_start, 1) * 1e3
+        print(f"(e) pipeline, {smi}: {N_FRAMES} frames, "
+              f"{mapping.num_inserted} keyframes, {mapping.step_count} "
+              f"mapping steps ({s_start} while the stream ran); wall "
+              f"{wall:.2f} s, to the end of finish() "
+              f"{t_end - t0:.2f} s", flush=True)
+        for s, (summ, _) in summaries.items():
+            print(f"(e) stage {s}: {summ['steps']} spans, total "
+                  f"{summ['total']:.3f} s, average "
+                  f"{summ['average'] * 1e3:.2f} ms without the first and "
+                  "last", flush=True)
+        print(f"(e) tracking inside the pipeline: steady {fps:.2f} frames/s "
+              f"(frames {init}..{len(summaries['tracking'][1]) - 2}), "
+              f"against {tracking_fps:.2f} alone in phase (b); mapping "
+              f"inside the pipeline: {ms_step:.2f} ms/step over the "
+              f"{s_end - s_start} steps of finish()", flush=True)
+
+        # the train-state snapshot, restored into a fresh stage on the card
+        fresh = stages.MappingStage(args, device=dev)
+        fresh.buffer, fresh.num_inserted = mapping.buffer, mapping.num_inserted
+        fresh.restore_snapshot(f"{pred}/snapshots/trainstate{iters:06d}.pt")
+        live, back = mapping.state, fresh.state
+        grids = [k for k in mapping.model.state_dict() if "proposal" in k]
+        same = {
+            "model (proposal grids too)": equal_tree(
+                mapping.model.state_dict(), fresh.model.state_dict()),
+            "pose_deltas": torch.equal(live.pose_deltas, back.pose_deltas),
+            "field Adam": equal_tree(live.opt.state_dict(),
+                                     back.opt.state_dict()),
+            "camera Adam": equal_tree(live.cam_opt.state_dict(),
+                                      back.cam_opt.state_dict()),
+            "step": fresh.step_count == live.step == iters,
+        }
+        c2w = mapping.trainer.optimized_c2w(live, mapping.buffer)[0]
+        intr0 = mapping.buffer.intrinsics[0]
+        img = mapping.trainer.render_image(live, c2w, intr0, H, W)
+        img2 = fresh.trainer.render_image(back, c2w, intr0, H, W)
+        torch.cuda.synchronize()
+        diff = max((img[k] - img2[k]).abs().max().item() for k in img)
+        same["render"] = all(torch.equal(img[k], img2[k]) for k in img)
+        print(f"(e) snapshot round trip on the card ({len(grids)} proposal "
+              f"grid tensors among {len(mapping.model.state_dict())}): "
+              f"{same}; {H}x{W} render max abs diff {diff:.3e}", flush=True)
+        for what, ok in same.items():
+            if not ok:
+                fail(f"the restored snapshot differs from the live stage: "
+                     f"{what}")
+        if not all(torch.isfinite(v).all() for v in img.values()):
+            fail("the pipeline's render is not finite")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -818,7 +1035,6 @@ def main():
     correlation_cuda.corr_two_level.launches = 0
     packets, frame_of, fps, updates = phase_tracking(dev)
     launches = correlation_cuda.corr_two_level.launches
-    kernels[0]["launches"] = launches
     print(f"(b) corr_two_level launches on the main path: {launches} in "
           f"{updates} updates ({launches / max(updates, 1):.3f} per update); "
           f"one-level corr_level launches: "
@@ -838,10 +1054,19 @@ def main():
     counts = {k.__name__: k.launches for k in gather_cuda.KERNELS}
     print(f"(d) launches on the mapping path: {counts}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    for entry in kernels[1:]:
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"the mapping path never launched {name}")
+
+    del packets, enhanced  # phases (b)-(d) hold nothing on the card now
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts = phase_pipeline(dev, smi, fps)
+    print(f"(e) peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for entry in kernels:  # the launches of the user's entry point
         entry["launches"] = counts[entry["name"]]
-        if entry["launches"] == 0:
-            fail(f"the mapping path never launched {entry['name']}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@ JAX or of ``nerf_vo_tpu``. The module layout mirrors the JAX package so that
 each module has an obvious counterpart:
 
 core         SE3/SO3 Lie algebra, cameras, coordinate conventions
+data         dataset loaders (Replica, 7-Scenes, ScanNet, TUM-RGBD, ETH3D)
 ops          patch correlation and the hash grid's table gather / scatter
              (plain versions + hand-written CUDA kernels), bundle
              adjustment, rendering, losses, SH encoding
@@ -12,8 +13,10 @@ models       DPVO networks, Omnidata DPT, nerfacto fields and model
 tracking     DPVO-style patch-graph visual odometry
 enhancement  dense depth/normal priors + sparse-depth alignment
 mapping      keyframe buffer + the NeRF mapping trainer
-runtime      pipeline stages, per-stage telemetry
+runtime      the pipeline (serial or with a frame-prefetch thread), its
+             stages and their artifacts, per-stage telemetry, live viewer
 utils        float-precision policy
+run          the CLI: ``python -m nerf_vo_tpu_torch.run --config <name>``
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -193,6 +193,11 @@ PORT_MODULES = [
     "nerf_vo_tpu_torch.enhancement.alignment",
     "nerf_vo_tpu_torch.runtime.stages",
     "nerf_vo_tpu_torch.runtime.perf",
+    "nerf_vo_tpu_torch.runtime.viewer",
+    "nerf_vo_tpu_torch.runtime.pipeline",
+    "nerf_vo_tpu_torch.data.utils",
+    "nerf_vo_tpu_torch.data.datasets",
+    "nerf_vo_tpu_torch.run",
     "nerf_vo_tpu_torch.utils.torch_setup",
 ]
 
