@@ -5,7 +5,7 @@
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``/usr/local/cuda``) and PyTorch built for CUDA. It builds every kernel of
 the path from ``nerf_vo_tpu_torch/csrc/`` (into ``nerf_vo_tpu_torch/_build/``,
-one ``nvcc`` per source, all started together), then runs five phases; any
+one ``nvcc`` per source, all started together), then runs six phases; any
 failure ends the run with a non-zero exit:
 
   (a) kernels: each kernel against its plain PyTorch version on the card at
@@ -28,7 +28,16 @@ failure ends the run with a non-zero exit:
       decode Replica's JPEGs) with ``mapping_iterations`` cut to 512; it
       checks the prediction directory, counts every kernel's launches on
       that path, and restores the train-state snapshot into a fresh mapping
-      stage, which must hold the same tensors and render the same image.
+      stage, which must hold the same tensors and render the same image;
+  (f) evaluation: the steps of ``evaluation.runner.render_and_evaluate``
+      on (e)'s mapping stage and prediction directory, against an analytic
+      box room seen through Replica's 1200x680 camera (frames ray-cast on
+      the card and handed over as arrays): the pred->GT scale from a depth
+      render per keyframe, the rescaled trajectories, the evaluation
+      frames, TSDF meshes from them and from the GT frames (fused on the
+      card, held once against the CPU), the NeRF's density-grid mesh, and
+      every metric, which must be finite; only the two forward table
+      kernels may launch.
 
 Output: progress on stderr; on stdout the card's name and power limit, the
 per-phase results, one JSON line with every kernel's numbers, and as the
@@ -340,7 +349,8 @@ def bound(nbytes, flops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_kernel(name, fn, plain, library, nbytes, flops, err, reps=20):
+def time_kernel(name, fn, plain, library, nbytes, flops, err, reps=20,
+                tag="(a)"):
     ms = cuda_ms(fn, reps)
     queued_ms = cuda_ms(fn, reps, queued=True)
     cold_ms = cuda_ms_cold(fn, reps)
@@ -348,7 +358,7 @@ def time_kernel(name, fn, plain, library, nbytes, flops, err, reps=20):
     library_ms = cuda_ms(library, reps) if library is not None else None
     bound_ms, bound_by = bound(nbytes, flops)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    print(f"(a) {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"{tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}), kernel at "
           f"{bound_ms / ms:.1%} of the bound; max abs err {err:.3e}; "
           f"queued behind a device sleep {queued_ms:.4f} ms "
@@ -865,9 +875,10 @@ def stage_summary(dir_result, stage):
     return perf.summary(stage), [dt for _, dt in rows]
 
 
-def phase_pipeline(dev, smi, tracking_fps):
-    """``execute`` as a user calls it, on the card, then the snapshot's
-    round trip. Returns the kernels' launches on the pipeline's path."""
+def phase_pipeline(dev, smi, tracking_fps, tmp):
+    """``execute`` as a user calls it, on the card, writing into ``tmp``,
+    then the snapshot's round trip. Returns the kernels' launches on the
+    pipeline's path, the mapping stage and the run's ``args``."""
     from nerf_vo_tpu_torch.ops import correlation_cuda, gather_cuda
     from nerf_vo_tpu_torch.runtime import pipeline, stages
 
@@ -888,123 +899,475 @@ def phase_pipeline(dev, smi, tracking_fps):
           f"(not {MAPPING['mapping_iterations'] / K:.2f}); dir_prediction "
           "and dir_result in a temporary directory", flush=True)
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        args = SimpleNamespace(**cfg, dir_prediction=f"{tmp}/prediction",
-                               dir_result=f"{tmp}/result")
-        marks = {}
-        finish = stages.MappingStage.finish
+    args = SimpleNamespace(**cfg, dir_prediction=f"{tmp}/prediction",
+                           dir_result=f"{tmp}/result")
+    marks = {}
+    finish = stages.MappingStage.finish
 
-        def timed_finish(self):  # observes finish(), changes nothing
-            torch.cuda.synchronize()
-            marks["start"] = (time.perf_counter(), self.step_count)
-            finish(self)
-            torch.cuda.synchronize()
-            marks["end"] = (time.perf_counter(), self.step_count)
-
-        stages.MappingStage.finish = timed_finish
-        correlation_cuda.corr_level.launches = 0
-        correlation_cuda.corr_two_level.launches = 0
-        for k in gather_cuda.KERNELS:
-            k.launches = 0
-        t0 = time.perf_counter()
-        try:
-            mapping = pipeline.execute(args, device=dev, dataset=dataset)
-            torch.cuda.synchronize()
-        finally:
-            stages.MappingStage.finish = finish
-        wall = time.perf_counter() - t0
-        counts = {"corr_two_level": correlation_cuda.corr_two_level.launches,
-                  **{k.__name__: k.launches for k in gather_cuda.KERNELS}}
-        print(f"(e) launches on the pipeline's path: {counts}; one-level "
-              f"corr_level: {correlation_cuda.corr_level.launches}",
-              flush=True)
-        for name, n in counts.items():
-            if n == 0:
-                fail(f"the pipeline never launched {name}")
-        if correlation_cuda.corr_level.launches:
-            fail("the pipeline launched the one-level corr kernel")
-
-        pred = args.dir_prediction
-        want = PREDICTION_FILES | {f"snapshots/{s}{iters:06d}.pt"
-                                   for s in ("trainstate", "snapshot")}
-        if files_under(pred) != want:
-            fail(f"prediction directory holds {sorted(files_under(pred))}, "
-                 f"not {sorted(want)}")
-        runtimes = {f"runtime_{s}.csv" for s in ("data", "tracking",
-                                                 "enhancement", "mapping")}
-        if files_under(args.dir_result) != runtimes:
-            fail(f"result directory holds {files_under(args.dir_result)}")
-        with open(f"{pred}/mapping_keyframe2frame.json") as f:
-            kf2frame = json.load(f)
-        if len(kf2frame) != mapping.num_inserted:
-            fail(f"{len(kf2frame)} keyframes in mapping_keyframe2frame.json,"
-                 f" {mapping.num_inserted} inserted")
-        for name in sorted(want):
-            if name.endswith(".json") and name.startswith("matrices/"):
-                with open(f"{pred}/{name}") as f:
-                    check_rigid(name, json.load(f))
-        if mapping.step_count != iters:
-            fail(f"the mapper took {mapping.step_count} steps, not {iters}")
-
-        summaries = {s: stage_summary(args.dir_result, s)
-                     for s in ("data", "tracking", "enhancement", "mapping")}
-        init = getattr(args, "tracking_init_frames", 8)
-        steady = summaries["tracking"][1][init:-1]
-        fps = len(steady) / sum(steady)
-        (t_start, s_start), (t_end, s_end) = marks["start"], marks["end"]
-        ms_step = (t_end - t_start) / max(s_end - s_start, 1) * 1e3
-        print(f"(e) pipeline, {smi}: {N_FRAMES} frames, "
-              f"{mapping.num_inserted} keyframes, {mapping.step_count} "
-              f"mapping steps ({s_start} while the stream ran); wall "
-              f"{wall:.2f} s, to the end of finish() "
-              f"{t_end - t0:.2f} s", flush=True)
-        for s, (summ, _) in summaries.items():
-            print(f"(e) stage {s}: {summ['steps']} spans, total "
-                  f"{summ['total']:.3f} s, average "
-                  f"{summ['average'] * 1e3:.2f} ms without the first and "
-                  "last", flush=True)
-        print(f"(e) tracking inside the pipeline: steady {fps:.2f} frames/s "
-              f"(frames {init}..{len(summaries['tracking'][1]) - 2}), "
-              f"against {tracking_fps:.2f} alone in phase (b); mapping "
-              f"inside the pipeline: {ms_step:.2f} ms/step over the "
-              f"{s_end - s_start} steps of finish()", flush=True)
-
-        # the train-state snapshot, restored into a fresh stage on the card
-        fresh = stages.MappingStage(args, device=dev)
-        fresh.buffer, fresh.num_inserted = mapping.buffer, mapping.num_inserted
-        fresh.restore_snapshot(f"{pred}/snapshots/trainstate{iters:06d}.pt")
-        live, back = mapping.state, fresh.state
-        grids = [k for k in mapping.model.state_dict() if "proposal" in k]
-        same = {
-            "model (proposal grids too)": equal_tree(
-                mapping.model.state_dict(), fresh.model.state_dict()),
-            "pose_deltas": torch.equal(live.pose_deltas, back.pose_deltas),
-            "field Adam": equal_tree(live.opt.state_dict(),
-                                     back.opt.state_dict()),
-            "camera Adam": equal_tree(live.cam_opt.state_dict(),
-                                      back.cam_opt.state_dict()),
-            "step": fresh.step_count == live.step == iters,
-        }
-        c2w = mapping.trainer.optimized_c2w(live, mapping.buffer)[0]
-        intr0 = mapping.buffer.intrinsics[0]
-        img = mapping.trainer.render_image(live, c2w, intr0, H, W)
-        img2 = fresh.trainer.render_image(back, c2w, intr0, H, W)
+    def timed_finish(self):  # observes finish(), changes nothing
         torch.cuda.synchronize()
-        diff = max((img[k] - img2[k]).abs().max().item() for k in img)
-        same["render"] = all(torch.equal(img[k], img2[k]) for k in img)
-        print(f"(e) snapshot round trip on the card ({len(grids)} proposal "
-              f"grid tensors among {len(mapping.model.state_dict())}): "
-              f"{same}; {H}x{W} render max abs diff {diff:.3e}", flush=True)
-        for what, ok in same.items():
-            if not ok:
-                fail(f"the restored snapshot differs from the live stage: "
-                     f"{what}")
-        if not all(torch.isfinite(v).all() for v in img.values()):
-            fail("the pipeline's render is not finite")
-        return counts
+        marks["start"] = (time.perf_counter(), self.step_count)
+        finish(self)
+        torch.cuda.synchronize()
+        marks["end"] = (time.perf_counter(), self.step_count)
+
+    stages.MappingStage.finish = timed_finish
+    correlation_cuda.corr_level.launches = 0
+    correlation_cuda.corr_two_level.launches = 0
+    for k in gather_cuda.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        mapping = pipeline.execute(args, device=dev, dataset=dataset)
+        torch.cuda.synchronize()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        stages.MappingStage.finish = finish
+    wall = time.perf_counter() - t0
+    counts = {"corr_two_level": correlation_cuda.corr_two_level.launches,
+              **{k.__name__: k.launches for k in gather_cuda.KERNELS}}
+    print(f"(e) launches on the pipeline's path: {counts}; one-level "
+          f"corr_level: {correlation_cuda.corr_level.launches}",
+          flush=True)
+    for name, n in counts.items():
+        if n == 0:
+            fail(f"the pipeline never launched {name}")
+    if correlation_cuda.corr_level.launches:
+        fail("the pipeline launched the one-level corr kernel")
+
+    pred = args.dir_prediction
+    want = PREDICTION_FILES | {f"snapshots/{s}{iters:06d}.pt"
+                               for s in ("trainstate", "snapshot")}
+    if files_under(pred) != want:
+        fail(f"prediction directory holds {sorted(files_under(pred))}, "
+             f"not {sorted(want)}")
+    runtimes = {f"runtime_{s}.csv" for s in ("data", "tracking",
+                                             "enhancement", "mapping")}
+    if files_under(args.dir_result) != runtimes:
+        fail(f"result directory holds {files_under(args.dir_result)}")
+    with open(f"{pred}/mapping_keyframe2frame.json") as f:
+        kf2frame = json.load(f)
+    if len(kf2frame) != mapping.num_inserted:
+        fail(f"{len(kf2frame)} keyframes in mapping_keyframe2frame.json,"
+             f" {mapping.num_inserted} inserted")
+    for name in sorted(want):
+        if name.endswith(".json") and name.startswith("matrices/"):
+            with open(f"{pred}/{name}") as f:
+                check_rigid(name, json.load(f))
+    if mapping.step_count != iters:
+        fail(f"the mapper took {mapping.step_count} steps, not {iters}")
+
+    summaries = {s: stage_summary(args.dir_result, s)
+                 for s in ("data", "tracking", "enhancement", "mapping")}
+    init = getattr(args, "tracking_init_frames", 8)
+    steady = summaries["tracking"][1][init:-1]
+    fps = len(steady) / sum(steady)
+    (t_start, s_start), (t_end, s_end) = marks["start"], marks["end"]
+    ms_step = (t_end - t_start) / max(s_end - s_start, 1) * 1e3
+    print(f"(e) pipeline, {smi}: {N_FRAMES} frames, "
+          f"{mapping.num_inserted} keyframes, {mapping.step_count} "
+          f"mapping steps ({s_start} while the stream ran); wall "
+          f"{wall:.2f} s, to the end of finish() "
+          f"{t_end - t0:.2f} s", flush=True)
+    for s, (summ, _) in summaries.items():
+        print(f"(e) stage {s}: {summ['steps']} spans, total "
+              f"{summ['total']:.3f} s, average "
+              f"{summ['average'] * 1e3:.2f} ms without the first and "
+              "last", flush=True)
+    print(f"(e) tracking inside the pipeline: steady {fps:.2f} frames/s "
+          f"(frames {init}..{len(summaries['tracking'][1]) - 2}), "
+          f"against {tracking_fps:.2f} alone in phase (b); mapping "
+          f"inside the pipeline: {ms_step:.2f} ms/step over the "
+          f"{s_end - s_start} steps of finish()", flush=True)
+
+    # the train-state snapshot, restored into a fresh stage on the card
+    fresh = stages.MappingStage(args, device=dev)
+    fresh.buffer, fresh.num_inserted = mapping.buffer, mapping.num_inserted
+    fresh.restore_snapshot(f"{pred}/snapshots/trainstate{iters:06d}.pt")
+    live, back = mapping.state, fresh.state
+    grids = [k for k in mapping.model.state_dict() if "proposal" in k]
+    same = {
+        "model (proposal grids too)": equal_tree(
+            mapping.model.state_dict(), fresh.model.state_dict()),
+        "pose_deltas": torch.equal(live.pose_deltas, back.pose_deltas),
+        "field Adam": equal_tree(live.opt.state_dict(),
+                                 back.opt.state_dict()),
+        "camera Adam": equal_tree(live.cam_opt.state_dict(),
+                                  back.cam_opt.state_dict()),
+        "step": fresh.step_count == live.step == iters,
+    }
+    c2w = mapping.trainer.optimized_c2w(live, mapping.buffer)[0]
+    intr0 = mapping.buffer.intrinsics[0]
+    img = mapping.trainer.render_image(live, c2w, intr0, H, W)
+    img2 = fresh.trainer.render_image(back, c2w, intr0, H, W)
+    torch.cuda.synchronize()
+    diff = max((img[k] - img2[k]).abs().max().item() for k in img)
+    same["render"] = all(torch.equal(img[k], img2[k]) for k in img)
+    print(f"(e) snapshot round trip on the card ({len(grids)} proposal "
+          f"grid tensors among {len(mapping.model.state_dict())}): "
+          f"{same}; {H}x{W} render max abs diff {diff:.3e}", flush=True)
+    for what, ok in same.items():
+        if not ok:
+            fail(f"the restored snapshot differs from the live stage: "
+                 f"{what}")
+    if not all(torch.isfinite(v).all() for v in img.values()):
+        fail("the pipeline's render is not finite")
+    return counts, mapping, args
+
+
+# ---------------------------------------------------------------------------
+# (f) evaluation
+# ---------------------------------------------------------------------------
+
+# phase (f)'s cut of the config: evaluation frames; the frame size is
+# Replica's own (datasets/replica.json)
+EVALUATION_CUTS = dict(num_evaluation_frames=8)
+# the analytic room phase (f) evaluates against, in metres: a box the size
+# of a Replica room, seen from inside
+ROOM_LO, ROOM_HI = (-2.5, -1.25, -1.5), (2.5, 1.25, 3.0)
+
+
+def replica_camera():
+    """Replica's camera (``datasets/replica.json``) as an evaluation
+    dataset's intrinsics."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "datasets", "replica.json")) as f:
+        c = json.load(f)["replica"]
+    return dict(height=c["h"], width=c["w"], fx=c["fx"], fy=c["fy"],
+                cx=c["cx"], cy=c["cy"], depth_scale=c["depth_scale"])
+
+
+def room_pose(i):
+    """A slow pan from inside the room: 0.5 degrees of yaw and 1 cm of
+    dolly a frame (OpenCV camera-to-world)."""
+    ang = np.radians(0.5) * i - 0.2
+    c2w = np.eye(4)
+    c2w[:3, :3] = [[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                   [-np.sin(ang), 0, np.cos(ang)]]
+    c2w[:3, 3] = [0.01 * i - 0.4, 0.1, 0.0]
+    return c2w
+
+
+@torch.no_grad()
+def room_frame(c2w, cam, dev):
+    """Ray-cast the box room from inside: color uint8 [H, W, 3] (a
+    checker of 25 cm on each wall, one base color a wall) and the z-depth
+    [H, W] quantized to the dataset's depth scale, as a depth PNG holds
+    it."""
+    H, W = cam["height"], cam["width"]
+    f64 = dict(dtype=torch.float64, device=dev)
+    ys, xs = torch.meshgrid(torch.arange(H, **f64), torch.arange(W, **f64),
+                            indexing="ij")
+    d = torch.stack([(xs - cam["cx"]) / cam["fx"],
+                     (ys - cam["cy"]) / cam["fy"], torch.ones_like(xs)], -1)
+    c2w = torch.as_tensor(c2w, **f64)
+    dw = d @ c2w[:3, :3].T
+    o = c2w[:3, 3]
+    lo, hi = torch.tensor(ROOM_LO, **f64), torch.tensor(ROOM_HI, **f64)
+    bound = torch.where(dw > 0, hi, lo)
+    t_axis = torch.where(dw.abs() > 1e-12, (bound - o) / dw,
+                         torch.full_like(dw, float("inf")))
+    t, axis = t_axis.min(-1)  # the wall the ray leaves through
+    p = o + dw * t[..., None]
+    wall = axis * 2 + (dw.gather(-1, axis[..., None])[..., 0] > 0).long()
+    u = p.gather(-1, ((axis + 1) % 3)[..., None])[..., 0]
+    v = p.gather(-1, ((axis + 2) % 3)[..., None])[..., 0]
+    check = (torch.floor(u * 4) + torch.floor(v * 4)) % 2
+    base = torch.tensor([[0.8, 0.3, 0.2], [0.2, 0.6, 0.8], [0.7, 0.7, 0.3],
+                         [0.3, 0.7, 0.4], [0.6, 0.4, 0.7], [0.9, 0.8, 0.6]],
+                        **f64)[wall]
+    color = base * (0.55 + 0.45 * check[..., None])
+    color = (color * 255).clamp(0, 255).to(torch.uint8).cpu().numpy()
+    scale = cam["depth_scale"]
+    depth = torch.round(t * scale).clamp(0, 65535).cpu().numpy() / scale
+    return color, depth
+
+
+def room_dataset(cam, num_frames, dir_dataset, dev):
+    """The port's Replica evaluation dataset over the box room, its frames
+    ray-cast on ``dev`` when they are read (the card has no cv2 to decode
+    files); the GT mesh is fused on ``dev`` into ``dir_dataset``'s
+    parent."""
+    from nerf_vo_tpu_torch.evaluation.datasets import EvaluationDataset
+
+    class RoomDataset(EvaluationDataset):
+        def _load_files(self):
+            return [None] * num_frames, [None] * num_frames
+
+        def _load_camera_intrinsics(self):
+            return dict(cam)
+
+        def _load_camera_extrinsics(self):
+            return [room_pose(i) for i in range(num_frames)]
+
+        def _load_frame_color(self, i):
+            return room_frame(self.camera_extrinsics[i], cam, dev)[0]
+
+        def _load_frame_depth(self, i):
+            return room_frame(self.camera_extrinsics[i], cam, dev)[1]
+
+    return RoomDataset(dir_dataset, "replica",
+                       EVALUATION_CUTS["num_evaluation_frames"],
+                       cam["height"], cam["width"], device=dev)
+
+
+def chunk_shape_timings(mapping):
+    """Rows 3 and 4 at an evaluation render's shapes: the inputs of every
+    table-kernel launch of one 16,384-ray render chunk of the map (one
+    128x128 render), each launch then held against its plain version and
+    timed as phase (a) times it."""
+    import torch.nn.functional as Fn
+
+    from nerf_vo_tpu_torch.ops import gather_cuda as gc
+
+    plain = {"gather_interp": gc.gather_interp_plain,
+             "gather_interp_mm": gc.gather_interp_mm_plain}
+    kernel = {name: getattr(gc, name) for name in plain}
+    calls = []
+
+    def recorder(name):
+        def record(*a, **kw):
+            calls.append((name, a, kw))
+            return kernel[name](*a, **kw)
+        # the wrapper counts its launches on the module's function, which
+        # this stands in for while it records
+        record.launches = 0
+        return record
+
+    for name in plain:
+        setattr(gc, name, recorder(name))
+    try:
+        st = mapping.trainer
+        c2w = st.optimized_c2w(mapping.state, mapping.buffer)[0]
+        intr = mapping.buffer.intrinsics[0] * 0.2
+        st.render_image(mapping.state, c2w, intr, 128, 128)
+    finally:
+        for name, fn in kernel.items():
+            setattr(gc, name, fn)
+    torch.cuda.synchronize()
+    for name, a, kw in calls:
+        t, i, w, F = a[:4]
+        m = i.shape[0]
+        got = kernel[name](*a, **kw)
+        torch.cuda.synchronize()
+        err = check_close(f"{name} at a render chunk", got,
+                          plain[name](t, i, w, F), 1e-5)
+        flat = i.long()[:, None] * 32 + torch.arange(32, device=i.device)
+        view = t.view(-1, F)
+        nbytes = interp_table_bytes(t, i, w, F) + m * (4 + 32 * 4 + F * 4)
+        time_kernel(
+            f"{name} at a 16,384-ray render chunk: M={m} F={F} over "
+            f"{t.shape[0]} bricks{', hot rows ' if kw else ''}"
+            f"{kw.get('hot_rows', '')}",
+            lambda: kernel[name](*a, **kw), lambda: plain[name](t, i, w, F),
+            lambda: Fn.embedding_bag(flat, view, per_sample_weights=w,
+                                     mode="sum"),
+            nbytes, 2 * m * 32 * F, err, tag="(f)")
+    return len(calls)
+
+
+def phase_evaluation(dev, smi, mapping, args, tmp):
+    """The evaluation layer on (e)'s mapping stage and prediction
+    directory, against the box room at Replica's frame size: the steps of
+    ``render_and_evaluate``, with the evaluation frames handed over as
+    arrays. Returns every kernel's launches in this phase and the
+    metrics."""
+    from nerf_vo_tpu_torch.evaluation import meshio, tsdf
+    from nerf_vo_tpu_torch.evaluation.evaluator import Evaluator
+    from nerf_vo_tpu_torch.evaluation.nerf_renderer import MapRenderer
+    from nerf_vo_tpu_torch.evaluation.renderer import Renderer
+    from nerf_vo_tpu_torch.ops import correlation_cuda, gather_cuda
+
+    cam = replica_camera()
+    H, W = cam["height"], cam["width"]
+    pred = args.dir_prediction
+    with open(f"{pred}/mapping_keyframe2frame.json") as f:
+        kf2frame = json.load(f)
+    n_kf, n_frames = len(kf2frame), max(kf2frame.values()) + 1
+    os.makedirs(f"{tmp}/dataset", exist_ok=True)
+    dataset = room_dataset(cam, n_frames, f"{tmp}/dataset/room0", dev)
+    n_eval = len(dataset.evaluation_frames)
+    print(f"(f) cuts: num_evaluation_frames "
+          f"{EVALUATION_CUTS['num_evaluation_frames']} in place of 125 "
+          f"({n_eval} of {n_frames} frames); frames at Replica's full "
+          f"{W}x{H} (datasets/replica.json), ray-cast from an analytic "
+          f"{np.subtract(ROOM_HI, ROOM_LO).tolist()} m box room on a slow "
+          "pan and handed over as arrays: the card has no cv2, so the 2D "
+          "metrics and the mesh from frames skip the JPEG / PNG round trip "
+          "that render_and_evaluate makes; the map is phase (e)'s, trained "
+          "on other frames", flush=True)
+
+    kernels = {"corr_level": correlation_cuda.corr_level,
+               "corr_two_level": correlation_cuda.corr_two_level,
+               **{k.__name__: k for k in gather_cuda.KERNELS}}
+    for k in kernels.values():
+        k.launches = 0
+
+    def launches():
+        return {name: k.launches for name, k in kernels.items()}
+
+    # observers: they time and count, and change nothing
+    fused, meshed, grids = [], [], []
+    fuse, extract = tsdf.fuse_tsdf, tsdf.extract_mesh
+    nerf = MapRenderer(mapping)
+    density_grid = nerf.density_grid
+
+    def timed_fuse(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vol = fuse(*a, **kw)
+        torch.cuda.synchronize()
+        fused.append((len(a[0]), vol["tsdf"].shape, vol["voxel_size"],
+                      time.perf_counter() - t0))
+        return vol
+
+    def timed_extract(*a, **kw):
+        t0 = time.perf_counter()
+        out = extract(*a, **kw)
+        meshed.append((a[0].shape, len(out[1]), time.perf_counter() - t0))
+        return out
+
+    def timed_density_grid(res, lo, hi, chunk=1 << 18):
+        torch.cuda.synchronize()
+        before = launches()
+        t0 = time.perf_counter()
+        out = density_grid(res, lo, hi, chunk)
+        torch.cuda.synchronize()
+        n = int(np.prod(out.shape))
+        grids.append((out.shape, time.perf_counter() - t0, -(-n // chunk),
+                      {k: v - before[k] for k, v in launches().items()}))
+        return out
+
+    steps = []
+
+    def step(name, fn, renders=0):
+        torch.cuda.synchronize()
+        before = launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        steps.append((name, sec, renders,
+                      {k: v - before[k] for k, v in launches().items()}))
+        print(f"(f) step {len(steps)}, {name}: {sec:.2f} s", flush=True)
+        return out
+
+    tsdf.fuse_tsdf, tsdf.extract_mesh = timed_fuse, timed_extract
+    nerf.density_grid = timed_density_grid
+    try:
+        config = dict(dir_prediction=pred, dir_result=args.dir_result,
+                      dataset_name="replica",
+                      dir_dataset=dataset.dir_dataset)
+        renderer = step("pred->GT scale, one depth render a keyframe",
+                        lambda: Renderer(config, dataset, nerf), n_kf)
+        step("keyframe trajectories rescaled",
+             renderer.render_camera_extrinsics_keyframes)
+        frames = step("evaluation frames rendered to arrays",
+                      renderer.render_frame_arrays, n_eval)
+        step("mesh from the evaluation frames (TSDF on the card)",
+             lambda: renderer.render_mesh("frames", frames=frames))
+        (_, _), gt_path = step("GT mesh, dataset.mesh() (TSDF on the card)",
+                               dataset.mesh)
+        evaluator = Evaluator(config, dataset, device=dev)
+        if os.path.exists(f"{pred}/mesh/mesh_from_nerf.ply"):
+            fail("a NeRF mesh exists before the metrics: the 3D metrics "
+                 "would not score the mesh from the evaluation frames")
+        metrics = step("metrics: trajectory, 2D from the arrays, 3D of the "
+                       "mesh from the evaluation frames",
+                       lambda: {
+                           "trajectory":
+                               evaluator.calculate_metrics_trajectory(),
+                           "2d": evaluator.calculate_metrics_2d(frames),
+                           "3d": evaluator.calculate_metrics_3d()})
+        # the evaluation path's launches and steps end here
+        counts = launches()
+        path_steps, path_meshed = list(steps), len(meshed)
+        # the NeRF's own mesh: render_and_evaluate does not make it, so it
+        # runs after the metrics, apart from their launches and seconds
+        step("mesh from the NeRF (density grid on the card), not on "
+             "render_and_evaluate's path", lambda: renderer.render_mesh("nerf"))
+    finally:
+        tsdf.fuse_tsdf, tsdf.extract_mesh = fuse, extract
+    nerf_counts = steps[-1][3]
+
+    renders = sum(r for _, _, r, _ in path_steps)
+    t_render = sum(sec for _, sec, r, _ in path_steps if r)
+    per = {k: sum(c[k] for _, _, r, c in path_steps if r) / renders
+           for k in ("gather_interp", "gather_interp_mm")}
+    print(f"(f) {renders} renders of {H}x{W} ({n_kf} keyframes, {n_eval} "
+          f"evaluation frames): {t_render / renders * 1e3:.1f} ms a render "
+          f"with its copy to the host, {renders * H * W / t_render:.0f} "
+          f"rays/s; launches a render: {per}", flush=True)
+    for shape, sec, chunks, grid_counts in grids:
+        print(f"(f) density grid {shape} ({int(np.prod(shape))} points, "
+              f"{chunks} chunks): {sec:.2f} s; launches a chunk: "
+              f"gather_interp {grid_counts['gather_interp'] / chunks:.1f}, "
+              f"gather_interp_mm "
+              f"{grid_counts['gather_interp_mm'] / chunks:.1f}", flush=True)
+    for n, dims, vox, sec in fused:
+        print(f"(f) TSDF fusion of {n} frames: grid {dims} "
+              f"({int(np.prod(dims))} voxels) at {vox * 100:.3f} cm, "
+              f"{sec:.2f} s with the volume's copy to the host, "
+              f"{sec / n * 1e3:.1f} ms a frame", flush=True)
+    for dims, n_faces, sec in meshed:
+        print(f"(f) host meshing of a {dims} grid: {n_faces} faces, "
+              f"{sec:.2f} s", flush=True)
+    print(f"(f) host meshing on render_and_evaluate's path "
+          f"{sum(m[2] for m in meshed[:path_meshed]):.2f} s; metrics "
+          f"{path_steps[-1][1]:.2f} s; render_and_evaluate's steps in all "
+          f"{sum(sec for _, sec, _, _ in path_steps):.2f} s, {smi}",
+          flush=True)
+    print(f"(f) the NeRF mesh, apart: {steps[-1][1]:.2f} s, launches "
+          f"{nerf_counts}", flush=True)
+    for name in ("gather_cols", "scatter_cols_accum", "corr_two_level",
+                 "corr_level"):
+        if nerf_counts[name]:
+            fail(f"the density grid launched {name} {nerf_counts[name]} "
+                 "times: a gradient or tracking")
+    for name in ("gather_interp", "gather_interp_mm"):
+        if not nerf_counts[name]:
+            fail(f"the density grid never launched {name}")
+
+    for name, path in (
+            ("the evaluation frames",
+             f"{pred}/mesh/mesh_from_evaluation_frames.ply"),
+            ("the NeRF", f"{pred}/mesh/mesh_from_nerf.ply"),
+            ("the GT frames", gt_path)):
+        v, fcs = meshio.read_ply(path)
+        print(f"(f) mesh from {name}: {len(v)} vertices, "
+              f"{0 if fcs is None else len(fcs)} faces", flush=True)
+        if fcs is None or not len(fcs):
+            fail(f"the mesh from {name} is empty")
+
+    n_calls = chunk_shape_timings(mapping)
+    print(f"(f) {n_calls} table-kernel launches in one render chunk",
+          flush=True)
+
+    # the card's fusion against the CPU's, on a small volume
+    idx = dataset.evaluation_frames[:4]
+    small = [np.stack([dataset._load_frame_depth(i) for i in idx]),
+             np.stack([dataset._load_frame_color(i) for i in idx]
+                      ).astype(np.float32) / 255.0,
+             np.asarray([cam["fx"], cam["fy"], cam["cx"], cam["cy"]],
+                        np.float32),
+             np.stack([dataset.camera_extrinsics[i] for i in idx])]
+    on_card = tsdf.fuse_tsdf(*small, voxel_size=1 / 16, device=dev)
+    on_cpu = tsdf.fuse_tsdf(*small, voxel_size=1 / 16, device="cpu")
+    err = max(float(np.abs(on_card[k] - on_cpu[k]).max())
+              for k in ("tsdf", "weight", "color"))
+    print(f"(f) fuse_tsdf on the card against the CPU, {len(idx)} GT frames "
+          f"on a {on_cpu['tsdf'].shape} grid: max abs diff {err:.3e} "
+          "(tolerance 1e-5)", flush=True)
+    if not err <= 1e-5:
+        fail(f"fuse_tsdf on the card differs from the CPU by {err}")
+
+    print(f"(f) metrics: {json.dumps(metrics)}", flush=True)
+    for group, vals in metrics.items():
+        if not vals:
+            fail(f"no {group} metrics")
+        for k, v in vals.items():
+            if k != "lpips" and not np.isfinite(v):
+                fail(f"{group} metric {k} is {v}")
+    return counts, metrics
 
 
 def main():
@@ -1062,11 +1425,30 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counts = phase_pipeline(dev, smi, fps)
-    print(f"(e) peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        counts, mapping, args = phase_pipeline(dev, smi, fps, tmp)
+        print(f"(e) peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        eval_counts, _ = phase_evaluation(dev, smi, mapping, args, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"(f) launches on the evaluation path: {eval_counts}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    for name in ("gather_interp", "gather_interp_mm"):
+        if not eval_counts[name]:
+            fail(f"the evaluation path never launched {name}")
+    for name in ("gather_cols", "scatter_cols_accum", "corr_two_level",
+                 "corr_level"):
+        if eval_counts[name]:
+            fail(f"the evaluation path launched {name} "
+                 f"{eval_counts[name]} times: a gradient or tracking")
     for entry in kernels:  # the launches of the user's entry point
         entry["launches"] = counts[entry["name"]]
+        entry["evaluation_launches"] = eval_counts[entry["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

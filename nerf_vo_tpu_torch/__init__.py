@@ -15,6 +15,8 @@ enhancement  dense depth/normal priors + sparse-depth alignment
 mapping      keyframe buffer + the NeRF mapping trainer
 runtime      the pipeline (serial or with a frame-prefetch thread), its
              stages and their artifacts, per-stage telemetry, live viewer
+evaluation   renders at GT poses, TSDF fusion, meshes, trajectory / 2D / 3D
+             metrics, LPIPS
 utils        float-precision policy
 run          the CLI: ``python -m nerf_vo_tpu_torch.run --config <name>``
 

@@ -8,10 +8,10 @@ The same flags, ``configs/<name>.yaml`` files (read from the working
 directory), per-scene overrides and prediction-directory tree as the JAX
 package's ``run.py`` (reference run.py:96-174):
 ``<dir_prediction>/<config>_<stamp>_<experiment>/{config.json, <scene>/,
-results/<scene>/}``. Each scene runs :func:`runtime.pipeline.execute` on
-the card. Evaluation (rendering and metrics) is not ported yet: for each
-scene the CLI prints a line that says so and names the scene's
-prediction directory.
+results/<scene>/}``. Each scene runs :func:`runtime.pipeline.execute` and
+then :func:`evaluation.runner.render_and_evaluate` on the card: renders at
+the GT poses, meshes, and the trajectory / 2D / 3D metrics in
+``results/<scene>/``.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from nerf_vo_tpu_torch.evaluation.runner import render_and_evaluate
 from nerf_vo_tpu_torch.runtime.pipeline import execute
 
 
@@ -95,10 +96,8 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> None:
                 "extrinsic_learning_rates"
             ][index]
         args = argparse.Namespace(**config)
-        execute(args, device=device)
-        print(f"[{scene_name}] evaluation is not ported to "
-              f"nerf_vo_tpu_torch yet; predictions in "
-              f"{config['dir_prediction']}", flush=True)
+        mapping = execute(args, device=device)
+        render_and_evaluate(args, config, mapping)
 
 
 if __name__ == "__main__":

@@ -437,7 +437,9 @@ class MappingStage:
         """Mid-run resume from a ``trainstate*.pt`` that
         :meth:`save_snapshot` wrote: every model tensor (the proposal grids
         too), the pose deltas, both Adam states and the step, loaded in
-        place, so the optimizers keep their parameter tensors. The
+        place, so the optimizers keep their parameter tensors. A
+        ``snapshot*.pt`` (what evaluation loads) holds no Adam state: the
+        optimizers are then left as they are. The
         trainer's generator is not saved (the JAX stage does not save its
         key either): a resumed run draws other rays than an unbroken one.
         Goes beyond the reference, whose snapshots serve post-hoc
@@ -447,8 +449,9 @@ class MappingStage:
         blob = torch.load(path, map_location="cpu", weights_only=True)
         self.model.load_state_dict(blob["model"])
         self.state.pose_deltas.copy_(blob["pose_deltas"])
-        self.state.opt.load_state_dict(blob["opt"])
-        self.state.cam_opt.load_state_dict(blob["cam_opt"])
+        if "opt" in blob:
+            self.state.opt.load_state_dict(blob["opt"])
+            self.state.cam_opt.load_state_dict(blob["cam_opt"])
         self.state.step = int(blob["step"])
         self.step_count = self.state.step
 

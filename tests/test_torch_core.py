@@ -199,7 +199,9 @@ PORT_MODULES = [
     "nerf_vo_tpu_torch.data.datasets",
     "nerf_vo_tpu_torch.run",
     "nerf_vo_tpu_torch.utils.torch_setup",
-]
+] + [f"nerf_vo_tpu_torch.evaluation.{m}" for m in (
+    "meshio", "metrics", "lpips", "tsdf", "poisson", "datasets",
+    "nerf_renderer", "renderer", "evaluator", "runner")]
 
 
 def test_port_imports_no_jax_in_subprocess():

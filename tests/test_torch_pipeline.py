@@ -7,8 +7,8 @@ One synthetic Replica scene (10 frames of 48x64, written with OpenCV as
 once and through the port's several times with the same ``args``: the
 prediction trees match file for file (``.msgpack`` -> ``.pt``), two serial
 runs of the port and a threaded one are bitwise equal, the train-state
-snapshot restores every tensor, and the CLI lays out the run directory and
-applies the per-scene overrides. Values of the trajectories are not
+snapshot restores every tensor, and the CLI lays out the run directory,
+applies the per-scene overrides and evaluates each scene. Values of the trajectories are not
 compared across packages: random-weight tracking is chaotic (ROADMAP,
 Queue 3).
 """
@@ -16,10 +16,13 @@ Queue 3).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
+import io
 import json
 import os
 from pathlib import Path
+from types import SimpleNamespace
 
 import cv2
 import numpy as np
@@ -54,16 +57,23 @@ SNAP = f"trainstate{ITERS:06d}"
 
 
 def _write_scene(scene: Path) -> None:
+    """Frames, GT depth and GT poses (``traj.txt``); the pipeline reads
+    only the frames, evaluation all three."""
     (scene / "results").mkdir(parents=True)
+    traj = []
     for i in range(N_FRAMES):
         c2w = np.eye(4)
         c2w[0, 3] = 0.04 * i  # slow lateral motion
         ang = 0.01 * i
         c2w[:3, :3] = [[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
                        [-np.sin(ang), 0, np.cos(ang)]]
-        color, _ = _scene_sdf_depth_color(c2w)
+        color, depth = _scene_sdf_depth_color(c2w)
         cv2.imwrite(str(scene / "results" / f"frame{i:06d}.jpg"),
                     cv2.cvtColor(color, cv2.COLOR_RGB2BGR))
+        cv2.imwrite(str(scene / "results" / f"depth{i:06d}.png"),
+                    (depth * INTR["depth_scale"]).astype(np.uint16))
+        traj.append(" ".join(str(v) for v in c2w.flatten()))
+    (scene / "traj.txt").write_text("\n".join(traj))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -298,25 +308,31 @@ def cli_run(replica_root, tmp_path_factory):
     (work / "configs").mkdir()
     (work / "configs" / "tiny.yaml").write_text(yaml.safe_dump(config))
 
-    seen = []
+    seen, tracked = [], {}
 
     def spy(args, device="cuda", dataset=None):
         seen.append(args.depth_supervision_lambda)
         mapping = tpipeline.execute(args, device, dataset)
         seen.append(mapping.model.config.depth_loss_mult)
+        # as execute wrote it: evaluation rewrites it as a scaled list
+        tracked[args.scene_name] = json.loads(
+            Path(args.dir_prediction, TRACK_JSON).read_text())
         return mapping
 
-    with pytest.MonkeyPatch.context() as mp:
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, \
+            contextlib.redirect_stdout(out):
         mp.setattr(trun, "execute", spy)
         mp.chdir(work)
         trun.main(["--config", "tiny", "--experiment", "t",
                    "--first_scene", "0", "--last_scene", "1"], device="cpu")
     (run_dir,) = (work / "predictions").iterdir()
-    return run_dir, config, seen
+    return SimpleNamespace(run_dir=run_dir, config=config, seen=seen,
+                           out=out.getvalue(), tracked=tracked)
 
 
 def test_cli_lays_out_the_run_and_applies_overrides(cli_run):
-    run_dir, config, seen = cli_run
+    run_dir, config, seen = cli_run.run_dir, cli_run.config, cli_run.seen
     assert run_dir.name.startswith("tiny_") and run_dir.name.endswith("_t")
     assert json.loads((run_dir / "config.json").read_text()) == config
     for scene in config["scene_names"]:
@@ -325,37 +341,46 @@ def test_cli_lays_out_the_run_and_applies_overrides(cli_run):
     assert seen == [LAMBDAS[0], LAMBDAS[0], LAMBDAS[1], LAMBDAS[1]]
 
 
-def test_cli_prints_that_evaluation_is_not_ported(replica_root, tmp_path,
-                                                  capsys, monkeypatch):
-    """One scene through ``main`` with the pipeline stubbed: the CLI
-    names the scene's prediction directory and fakes no metrics."""
-    import yaml
-
-    config = dict(CFG, dir_dataset=str(replica_root),
-                  dir_prediction=str(tmp_path / "predictions"),
-                  scene_names=["room0", "room1"])
-    (tmp_path / "configs").mkdir()
-    (tmp_path / "configs" / "one.yaml").write_text(yaml.safe_dump(config))
-    monkeypatch.setattr(trun, "execute", lambda args, device: None)
-    monkeypatch.chdir(tmp_path)
-    trun.main(["--config", "one", "--experiment", "", "--last_scene", "0"],
-              device="cpu")
-    out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 1 and out[0].startswith("[room0] evaluation is not "
-                                               "ported")
-    assert out[0].endswith("/room0") and "one_" in out[0]
+def test_cli_writes_the_evaluation_metrics(cli_run):
+    """After each scene's ``execute`` the CLI renders and evaluates it:
+    ``results/<scene>/`` holds the trajectory, 2D and 3D metrics, and the
+    printed metrics are finite."""
+    run_dir, config = cli_run.run_dir, cli_run.config
+    assert "not ported" not in cli_run.out
+    for scene in config["scene_names"]:
+        res = run_dir / "results" / scene
+        for name in ("metrics_trajectory.csv", "metrics_2d.csv",
+                     "metrics_2d_frames.csv", "metrics_3d.csv",
+                     "metrics_2d.json"):
+            assert (res / name).is_file(), (scene, name)
+        m2d = json.loads((res / "metrics_2d.json").read_text())
+        assert m2d["lpips"] is None
+        assert all(np.isfinite(v) for k, v in m2d.items() if k != "lpips")
+        with open(res / "metrics_trajectory.csv") as f:
+            head, row = list(csv.reader(f))
+        assert "keyframes_mapping/ate_rmse" in head
+        assert all(np.isfinite(float(v)) for v in row)
+        pred = run_dir / scene
+        assert (pred / "mesh" / "mesh_from_evaluation_frames.ply").is_file()
+        # num_evaluation_frames 4 of 10 frames: every int(10 / 4) = 2nd
+        assert len(list((pred / "evaluation_frames" / "color").iterdir())) \
+            == 5
 
 
 def test_frame_stride_doubles_frame_indices(cli_run):
     """``frame_stride: 2`` keeps every second file, and both JSON files
-    count frames in files, as the JAX stage does: keyframe i is file 2i."""
-    run_dir, _, _ = cli_run
+    count frames in files, as the JAX stage does: keyframe i is file 2i.
+    Evaluation then rewrites the tracking JSON as a list in key order
+    (positions scaled to GT), as the JAX renderer does."""
     n = N_FRAMES // 2
     for scene in ("room0", "room1"):
-        pred = run_dir / scene
+        pred = cli_run.run_dir / scene
         kf2frame = json.loads((pred / "mapping_keyframe2frame.json")
                               .read_text())
         assert kf2frame == {str(i): 2 * i for i in range(n)}
-        mats = json.loads((pred / TRACK_JSON).read_text())
+        mats = cli_run.tracked[scene]
         assert sorted(mats, key=int) == [str(2 * i) for i in range(n)]
         _assert_rigid(mats)
+        scaled = json.loads((pred / TRACK_JSON).read_text())
+        assert isinstance(scaled, list) and len(scaled) == n
+        _assert_rigid(dict(enumerate(scaled)))

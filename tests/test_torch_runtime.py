@@ -408,13 +408,18 @@ def test_pick_device():
                                  "mapping", "cpu")
 
 
-BLOCKED = ("cv2", "yaml", "jax", "jaxlib", "flax", "optax", "nerf_vo_tpu")
+BLOCKED = ("cv2", "yaml", "pandas", "jax", "jaxlib", "flax", "optax",
+           "nerf_vo_tpu")
+EVALUATION = tuple(f"nerf_vo_tpu_torch.evaluation.{m}" for m in (
+    "meshio", "metrics", "lpips", "tsdf", "poisson", "datasets",
+    "nerf_renderer", "renderer", "evaluator", "runner"))
 
 
 def test_runtime_imports_without_host_packages(tmp_path, rng):
-    """With cv2, yaml, JAX and the JAX package unimportable, the runtime
-    modules import; a dataset loader that must decode, the viewer and
-    the preview renders then raise an ImportError that names them."""
+    """With cv2, yaml, pandas, JAX and the JAX package unimportable, the
+    runtime and evaluation modules import; a dataset loader (ingest or
+    evaluation) that must decode, the viewer and the preview renders then
+    raise an ImportError that names them."""
     args = _replica(tmp_path, rng)
     code = f"""
 import argparse, importlib, sys
@@ -423,9 +428,11 @@ for m in {BLOCKED!r}:
 for m in ("nerf_vo_tpu_torch.data.utils", "nerf_vo_tpu_torch.data.datasets",
           "nerf_vo_tpu_torch.runtime.viewer",
           "nerf_vo_tpu_torch.runtime.stages",
-          "nerf_vo_tpu_torch.runtime.pipeline", "nerf_vo_tpu_torch.run"):
+          "nerf_vo_tpu_torch.runtime.pipeline", "nerf_vo_tpu_torch.run"
+          ) + {EVALUATION!r}:
     importlib.import_module(m)
 from nerf_vo_tpu_torch.data.datasets import make_dataset
+from nerf_vo_tpu_torch.evaluation.datasets import ReplicaDataset
 from nerf_vo_tpu_torch.runtime.stages import MappingStage
 args = argparse.Namespace(**{vars(args)!r})
 try:
@@ -434,6 +441,12 @@ except ImportError as e:
     assert "ReplicaDataset" in str(e), e
 else:
     raise AssertionError("the Replica loader decoded without cv2")
+try:
+    ReplicaDataset(args.dir_dataset, 3, device="cpu")
+except ImportError as e:
+    assert "ReplicaDataset" in str(e), e
+else:
+    raise AssertionError("the Replica evaluation dataset decoded without cv2")
 for key in ("viewer", "preview_iterations"):
     margs = argparse.Namespace(mapping_module="nerfstudio", **{{key: 1}})
     try:
@@ -471,8 +484,9 @@ def _jax_stage_defaults():
 
 def test_chip_smoke_runs_the_replica_config():
     """Every key of phases (b)-(e) equals ``configs/nerf_vo_replica.yaml``
-    or, where the file omits it, the JAX stages' default; phase (e)
-    differs from the file only in its listed cuts."""
+    or, where the file omits it, the JAX stages' default; phases (e) and
+    (f) differ from the file only in their listed cuts, and (f) uses
+    Replica's camera."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -491,6 +505,16 @@ def test_chip_smoke_runs_the_replica_config():
     for key in config:
         assert (key in phases) != (key in smoke.SOURCE_KEYS), key
     assert set(smoke.SOURCE_KEYS) <= set(config)
+    # phase (f) cuts only the evaluation frames, at Replica's camera
+    assert set(smoke.EVALUATION_CUTS) == {"num_evaluation_frames"}
+    assert set(smoke.EVALUATION_CUTS) <= set(smoke.SOURCE_KEYS)
+    cut = smoke.EVALUATION_CUTS["num_evaluation_frames"]
+    assert 0 < cut < config["num_evaluation_frames"]
+    cam = json.loads((REPO / "datasets/replica.json").read_text())["replica"]
+    assert smoke.replica_camera() == dict(
+        height=cam["h"], width=cam["w"], fx=cam["fx"], fy=cam["fy"],
+        cx=cam["cx"], cy=cam["cy"], depth_scale=cam["depth_scale"])
+    assert (cam["w"], cam["h"]) == (1200, 680)
 
 
 # ---------------------------------------------------------------------------
