@@ -1,12 +1,13 @@
-"""Drive the PyTorch port's nerf_vo main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's nerf_vo and nerf_slam main paths on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``/usr/local/cuda``) and PyTorch built for CUDA. It builds every kernel of
 the path from ``nerf_vo_tpu_torch/csrc/`` (into ``nerf_vo_tpu_torch/_build/``,
-one ``nvcc`` per source, all started together), then runs six phases; any
-failure ends the run with a non-zero exit:
+one ``nvcc`` per source, all started together), then runs seven phases;
+any failure ends the run with a non-zero exit:
 
   (a) kernels: each kernel against its plain PyTorch version on the card at
       the replica configuration's shapes, with its time, the plain
@@ -37,11 +38,20 @@ failure ends the run with a non-zero exit:
       frames, TSDF meshes from them and from the GT frames (fused on the
       card, held once against the CPU), the NeRF's density-grid mesh, and
       every metric, which must be finite; only the two forward table
-      kernels may launch.
+      kernels may launch;
+  (g) the nerf_slam pipeline at ``configs/nerf_slam_replica.yaml``'s full
+      width (360x640, 192 keyframes, 48 factors, frontend window 25, global
+      BA and covariances on): (g1) ``TrackingStage(droid-slam)`` alone on
+      the synthetic frames, which must run both global BA passes with
+      finite covariances; (g2) ``execute`` threaded with the same cuts as
+      (e), which must launch each table kernel and never the correlation
+      kernel, and fill the keyframe buffer's covariance channel; (g3)
+      renders of (g2)'s map through ``MapRenderer`` and the occupancy grid.
 
 Output: progress on stderr; on stdout the card's name and power limit, the
-per-phase results, one JSON line with every kernel's numbers, and as the
-last line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
+per-phase results, one JSON line with every kernel's numbers (its
+launches on the (e), (f) and (g2) paths among them), and as the last line
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result.
 """
 
@@ -366,6 +376,16 @@ def time_kernel(name, fn, plain, library, nbytes, flops, err, reps=20,
           f"{cold_ms:.4f} ms ({bound_ms / cold_ms:.1%})", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, max_abs_err=err)
+
+
+def kernel_launches():
+    """Every counted kernel wrapper by name; each carries its launches in
+    ``.launches``."""
+    from nerf_vo_tpu_torch.ops import correlation_cuda, gather_cuda
+
+    return {"corr_level": correlation_cuda.corr_level,
+            "corr_two_level": correlation_cuda.corr_two_level,
+            **{k.__name__: k for k in gather_cuda.KERNELS}}
 
 
 def check_close(name, got, want, rel):
@@ -1110,58 +1130,83 @@ def room_dataset(cam, num_frames, dir_dataset, dev):
                        cam["height"], cam["width"], device=dev)
 
 
-def chunk_shape_timings(mapping):
-    """Rows 3 and 4 at an evaluation render's shapes: the inputs of every
-    table-kernel launch of one 16,384-ray render chunk of the map (one
-    128x128 render), each launch then held against its plain version and
-    timed as phase (a) times it."""
+def record_interp_calls(fn):
+    """Runs ``fn()`` with rows 3 and 4 observed: each call's inputs are
+    kept (tensors cloned, so that later in-place updates of a table do not
+    reach them) and the call goes on to the kernel, whose launch is counted
+    on the kernel's own wrapper as usual. Returns fn's result and the
+    calls."""
+    from nerf_vo_tpu_torch.ops import gather_cuda as gc
+
+    kernel = {name: getattr(gc, name)
+              for name in ("gather_interp", "gather_interp_mm")}
+    calls = []
+
+    def recorder(name):
+        def record(*a, **kw):
+            calls.append((name, tuple(x.detach().clone()
+                                      if torch.is_tensor(x) else x
+                                      for x in a), dict(kw)))
+            out = kernel[name](*a, **kw)
+            # the wrapper counts on the module's function, which this
+            # stands in for while it records: hand the count back
+            kernel[name].launches += record.launches
+            record.launches = 0
+            return out
+        record.launches = 0
+        return record
+
+    for name in kernel:
+        setattr(gc, name, recorder(name))
+    try:
+        out = fn()
+    finally:
+        for name, k in kernel.items():
+            setattr(gc, name, k)
+    return out, calls
+
+
+def hold_interp_calls(calls, label, tag):
+    """Each recorded row-3 / row-4 call, launched again on its own inputs,
+    held against its plain version and timed as phase (a) times it."""
     import torch.nn.functional as Fn
 
     from nerf_vo_tpu_torch.ops import gather_cuda as gc
 
     plain = {"gather_interp": gc.gather_interp_plain,
              "gather_interp_mm": gc.gather_interp_mm_plain}
-    kernel = {name: getattr(gc, name) for name in plain}
-    calls = []
-
-    def recorder(name):
-        def record(*a, **kw):
-            calls.append((name, a, kw))
-            return kernel[name](*a, **kw)
-        # the wrapper counts its launches on the module's function, which
-        # this stands in for while it records
-        record.launches = 0
-        return record
-
-    for name in plain:
-        setattr(gc, name, recorder(name))
-    try:
-        st = mapping.trainer
-        c2w = st.optimized_c2w(mapping.state, mapping.buffer)[0]
-        intr = mapping.buffer.intrinsics[0] * 0.2
-        st.render_image(mapping.state, c2w, intr, 128, 128)
-    finally:
-        for name, fn in kernel.items():
-            setattr(gc, name, fn)
     torch.cuda.synchronize()
     for name, a, kw in calls:
+        kernel = getattr(gc, name)
         t, i, w, F = a[:4]
         m = i.shape[0]
-        got = kernel[name](*a, **kw)
+        got = kernel(*a, **kw)
         torch.cuda.synchronize()
-        err = check_close(f"{name} at a render chunk", got,
+        err = check_close(f"{name} at {label}", got,
                           plain[name](t, i, w, F), 1e-5)
         flat = i.long()[:, None] * 32 + torch.arange(32, device=i.device)
         view = t.view(-1, F)
         nbytes = interp_table_bytes(t, i, w, F) + m * (4 + 32 * 4 + F * 4)
         time_kernel(
-            f"{name} at a 16,384-ray render chunk: M={m} F={F} over "
-            f"{t.shape[0]} bricks{', hot rows ' if kw else ''}"
-            f"{kw.get('hot_rows', '')}",
-            lambda: kernel[name](*a, **kw), lambda: plain[name](t, i, w, F),
+            f"{name} at {label}: M={m} F={F} over {t.shape[0]} bricks"
+            f"{', hot rows ' if kw else ''}{kw.get('hot_rows', '')}",
+            lambda: kernel(*a, **kw), lambda: plain[name](t, i, w, F),
             lambda: Fn.embedding_bag(flat, view, per_sample_weights=w,
                                      mode="sum"),
-            nbytes, 2 * m * 32 * F, err, tag="(f)")
+            nbytes, 2 * m * 32 * F, err, tag=tag)
+
+
+def chunk_shape_timings(mapping):
+    """Rows 3 and 4 at an evaluation render's shapes: the inputs of every
+    table-kernel launch of one 16,384-ray render chunk of the map (one
+    128x128 render), each launch then held against its plain version and
+    timed as phase (a) times it."""
+    st = mapping.trainer
+    c2w = st.optimized_c2w(mapping.state, mapping.buffer)[0]
+    intr = mapping.buffer.intrinsics[0] * 0.2
+    _, calls = record_interp_calls(
+        lambda: st.render_image(mapping.state, c2w, intr, 128, 128))
+    hold_interp_calls(calls, "a 16,384-ray render chunk", "(f)")
     return len(calls)
 
 
@@ -1175,7 +1220,6 @@ def phase_evaluation(dev, smi, mapping, args, tmp):
     from nerf_vo_tpu_torch.evaluation.evaluator import Evaluator
     from nerf_vo_tpu_torch.evaluation.nerf_renderer import MapRenderer
     from nerf_vo_tpu_torch.evaluation.renderer import Renderer
-    from nerf_vo_tpu_torch.ops import correlation_cuda, gather_cuda
 
     cam = replica_camera()
     H, W = cam["height"], cam["width"]
@@ -1196,9 +1240,7 @@ def phase_evaluation(dev, smi, mapping, args, tmp):
           "that render_and_evaluate makes; the map is phase (e)'s, trained "
           "on other frames", flush=True)
 
-    kernels = {"corr_level": correlation_cuda.corr_level,
-               "corr_two_level": correlation_cuda.corr_two_level,
-               **{k.__name__: k for k in gather_cuda.KERNELS}}
+    kernels = kernel_launches()
     for k in kernels.values():
         k.launches = 0
 
@@ -1370,6 +1412,305 @@ def phase_evaluation(dev, smi, mapping, args, tmp):
     return counts, metrics
 
 
+# ---------------------------------------------------------------------------
+# (g) the nerf_slam pipeline
+# ---------------------------------------------------------------------------
+
+SLAM = dict(  # configs/nerf_slam_replica.yaml, the keys the stages read
+    frame_height=360, frame_width=640, num_keyframes=192,
+    keyframe_threshold=8.0, tracking_module="droid-slam",
+    enhancement_module="none", mapping_module="instant-ngp",
+    perform_global_bundle_adjustment=True, compute_covariances=True,
+    frame_stride=2, multithreading=True, performance_tracking=True,
+    mapping_iterations=8192, mapping_snapshot_iterations=8192,
+)
+# phase (g)'s cut of the tracker: with random weights the motion filter's
+# mean predicted flow says nothing of the synthetic pan, so every frame is
+# a keyframe candidate; the keyframe policy and both global BA passes then
+# run as on a real stream
+SLAM_TRACKING_CUTS = dict(motion_threshold=0.0)
+SLAM_RENDERS = 2
+
+
+def phase_slam_tracking(dev, smi):
+    """(g1) ``TrackingStage(droid-slam)`` alone on the synthetic frames at
+    the nerf_slam replica width: frames/s, keyframes kept and removed,
+    frontend and backend edges, the time of each global BA pass, and the
+    last packet's depth-covariance range."""
+    from nerf_vo_tpu_torch.runtime.stages import TrackingStage
+    from nerf_vo_tpu_torch.tracking.droid_slam import DroidConfig
+
+    args = SimpleNamespace(**SLAM, **SLAM_TRACKING_CUTS)
+    H, W = args.frame_height, args.frame_width
+    frames = synthetic_frames(N_FRAMES, H, W)
+    stage = TrackingStage(args, device=dev)
+    tr = stage.tracker
+    cfg = tr.cfg
+    print(f"(g1) cuts: random weights from a seed; {N_FRAMES} synthetic "
+          f"{H}x{W} frames; motion_threshold "
+          f"{SLAM_TRACKING_CUTS['motion_threshold']} in place of "
+          f"{DroidConfig.motion_threshold} (the tracker's default): every "
+          "frame is a keyframe "
+          f"candidate. Full width: buffer {cfg.buffer_size}, "
+          f"{cfg.max_factors} factors, frontend window "
+          f"{cfg.frontend_window}, global BA "
+          f"{cfg.perform_global_ba}, covariances "
+          f"{cfg.compute_covariances}", flush=True)
+    removed, passes, edges = [], [], []
+    remove, backend, backend_edges = (tr.remove_keyframe, tr.backend,
+                                      tr._backend_edges)
+
+    def counted_remove(g):  # observers: they count and time, change nothing
+        removed.append(g)
+        remove(g)
+
+    def timed_backend(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        backend(steps)
+        torch.cuda.synchronize()
+        passes.append((steps, time.perf_counter() - t0))
+
+    def counted_edges():
+        order, pairs = backend_edges()
+        edges.append((len(order), len(pairs)))
+        return order, pairs
+
+    tr.remove_keyframe, tr.backend = counted_remove, timed_backend
+    tr._backend_edges = counted_edges
+    intr = dict(fx=320.0, fy=320.0, cx=W / 2, cy=H / 2)
+    torch.cuda.reset_peak_memory_stats()
+    times, packets, live = [], [], []
+    for i, img in enumerate(frames):
+        t0 = time.perf_counter()
+        pkt = stage.step(dict(frame_index=i, frame_color=img,
+                              camera_intrinsics=intr,
+                              last_frame=i == N_FRAMES - 1))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        live.append(int(tr.e_valid.sum()))
+        if pkt is not None:
+            packets.append(pkt)
+    steady = times[4:-1]  # updates run from the 4th keyframe on
+    fps = len(steady) / sum(steady)
+    kept = len(tr.retired)
+    print(f"(g1) DROID tracking, {smi}: {N_FRAMES} frames, steady "
+          f"{fps:.2f} frames/s ({1e3 / fps:.1f} ms/frame, frames "
+          f"4..{N_FRAMES - 2}); last frame with the flush "
+          f"{times[-1]:.2f} s; keyframes kept {kept}, removed "
+          f"{len(removed)}; frontend edges at most {max(live)} of "
+          f"{cfg.max_factors}", flush=True)
+    for (steps, sec), (nk, ne) in zip(passes, edges):
+        print(f"(g1) global BA pass backend({steps}): {nk} keyframes, "
+              f"{ne} edges, {sec:.2f} s", flush=True)
+    last = packets[-1]
+    cov = last["droid_slam_depth_covariance"]
+    inv = last["droid_slam_inverse_depth"]
+    print(f"(g1) last packet: {len(last['keyframe_indices'])} keyframes, "
+          f"inverse depth {inv.min().item():.4g}..{inv.max().item():.4g}, "
+          f"depth covariance {cov.min().item():.4g}..{cov.max().item():.4g};"
+          f" peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if len(passes) != 2:
+        fail(f"the flush ran {len(passes)} global BA passes, not 2")
+    if not all(ne for _, ne in edges):
+        fail("a global BA pass had no edges")
+    for p in packets:
+        for k in ("droid_slam_depth_covariance", "droid_slam_inverse_depth",
+                  "camera_extrinsics"):
+            if not torch.isfinite(p[k]).all():
+                fail(f"non-finite {k} in a DROID packet")
+    mats = np.stack(list(tr.trajectory().values()))
+    if not np.isfinite(mats).all():
+        fail("DROID tracking produced non-finite poses")
+    return fps
+
+
+def phase_slam_pipeline(dev, smi, tmp):
+    """(g2) ``execute`` threaded with the nerf_slam replica keys, the cuts
+    of (e) and (g1): DROID tracking, DROID depth, the Instant-NGP mapper.
+    Returns the kernels' launches on this path and the mapping stage."""
+    from nerf_vo_tpu_torch.models import nerfacto
+    from nerf_vo_tpu_torch.ops import occupancy
+    from nerf_vo_tpu_torch.runtime import pipeline, stages
+
+    cfg = {**SLAM, **SLAM_TRACKING_CUTS, **PIPELINE_CUTS}
+    H, W, K = cfg["frame_height"], cfg["frame_width"], cfg["num_keyframes"]
+    iters = cfg["mapping_iterations"]
+    intr = dict(fx=320.0, fy=320.0, cx=W / 2, cy=H / 2)
+    dataset = [dict(frame_index=i, camera_intrinsics=intr, frame_color=img,
+                    last_frame=i == N_FRAMES - 1)
+               for i, img in enumerate(synthetic_frames(N_FRAMES, H, W))]
+    print(f"(g2) cuts: as (e), {N_FRAMES} synthetic {H}x{W} frames in "
+          f"memory and mapping_iterations {iters} in place of "
+          f"{SLAM['mapping_iterations']} (pacing budget {iters / K:.2f} "
+          f"steps a packet); as (g1), motion_threshold "
+          f"{SLAM_TRACKING_CUTS['motion_threshold']}", flush=True)
+    args = SimpleNamespace(**cfg, dir_prediction=f"{tmp}/slam_prediction",
+                           dir_result=f"{tmp}/slam_result")
+    marks, refreshes, refresh_calls = {}, [], []
+    every = stages.mapping_model_config(
+        SimpleNamespace(**cfg)).occupancy.update_every
+    finish = stages.MappingStage.finish
+    refresh = nerfacto.NerfactoModel.refresh_occupancy
+
+    def timed_finish(self):  # observers: they count and time
+        torch.cuda.synchronize()
+        marks["start"] = (time.perf_counter(), self.step_count)
+        finish(self)
+        torch.cuda.synchronize()
+        marks["end"] = (time.perf_counter(), self.step_count)
+
+    def counted_refresh(self, occ_grid, step, jitter):
+        refreshes.append(step)
+        if step + every < iters:
+            return refresh(self, occ_grid, step, jitter)
+        # the last refresh: its rows 3 and 4 inputs are kept for (g2)'s
+        # check of those launches against their plain versions
+        grid, calls = record_interp_calls(
+            lambda: refresh(self, occ_grid, step, jitter))
+        refresh_calls[:] = calls
+        return grid
+
+    stages.MappingStage.finish = timed_finish
+    nerfacto.NerfactoModel.refresh_occupancy = counted_refresh
+    kernels = kernel_launches()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        mapping = pipeline.execute(args, device=dev, dataset=dataset)
+        torch.cuda.synchronize()
+    finally:
+        stages.MappingStage.finish = finish
+        nerfacto.NerfactoModel.refresh_occupancy = refresh
+    wall = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+    (t_start, s_start), (t_end, s_end) = marks["start"], marks["end"]
+    ms_step = (t_end - t_start) / max(s_end - s_start, 1) * 1e3
+    grid = mapping.state.occ_grid
+    occ = mapping.model.config.occupancy
+    occupied = (grid > occ.occ_threshold).float().mean().item()
+    n = mapping.num_inserted
+    cov = mapping.buffer.depth_cov[:n]
+    summ = {s: stage_summary(args.dir_result, s)[0]["total"]
+            for s in ("data", "tracking", "enhancement", "mapping")}
+    print(f"(g2) nerf_slam pipeline, {smi}: {N_FRAMES} frames, {n} "
+          f"keyframes, {mapping.step_count} mapping steps "
+          f"({s_start} while the stream ran); wall {wall:.2f} s, to the "
+          f"end of finish() {t_end - t0:.2f} s; mapping "
+          f"{ms_step:.2f} ms/step over the {s_end - s_start} steps of "
+          f"finish(); stage totals (s) "
+          f"{json.dumps({k: round(v, 3) for k, v in summ.items()})}",
+          flush=True)
+    print(f"(g2) occupancy: {len(refreshes)} refreshes, "
+          f"{occupied * 100:.2f}% of {grid.numel()} cells above "
+          f"{occ.occ_threshold}; buffer depth covariance "
+          f"{cov.min().item():.4g}..{cov.max().item():.4g}; launches "
+          f"{counts}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for name in ("gather_cols", "gather_interp", "gather_interp_mm",
+                 "scatter_cols_accum"):
+        if not counts[name]:
+            fail(f"the nerf_slam pipeline never launched {name}")
+    for name in ("corr_two_level", "corr_level"):
+        if counts[name]:
+            fail(f"the nerf_slam pipeline launched {name}: the DPVO kernel")
+    if mapping.step_count != iters or not refreshes:
+        fail(f"the NGP mapper took {mapping.step_count} steps and "
+             f"{len(refreshes)} refreshes")
+    if not n or bool((cov == 1).all()):
+        fail("the keyframe buffer's covariance channel is all 1")
+    if not torch.isfinite(cov).all() or not torch.isfinite(grid).all():
+        fail("non-finite covariance or occupancy grid")
+    if not refresh_calls:
+        fail("the last occupancy refresh launched no field kernel")
+    print(f"(g2) the last occupancy refresh (step {refreshes[-1]}): "
+          f"{len(refresh_calls)} table-kernel launches on its "
+          f"{occupancy.slab_size(occ)}-cell slab, held against their plain "
+          "versions on the same inputs:", flush=True)
+    hold_interp_calls(refresh_calls, "an occupancy refresh's slab", "(g2)")
+    pred = args.dir_prediction
+    want = PREDICTION_FILES | {f"snapshots/{s}{iters:06d}.pt"
+                               for s in ("trainstate", "snapshot")}
+    if files_under(pred) != want:
+        fail(f"prediction directory holds {sorted(files_under(pred))}")
+    for name in sorted(want):
+        if name.endswith(".json") and name.startswith("matrices/"):
+            with open(f"{pred}/{name}") as f:
+                check_rigid(name, json.load(f))
+    return counts, mapping
+
+
+def phase_slam_render(dev, smi, mapping):
+    """(g3) ``MapRenderer`` on (g2)'s map at the first keyframe poses,
+    through the occupancy grid; ms and launches per render."""
+    from nerf_vo_tpu_torch.evaluation.nerf_renderer import MapRenderer
+    from nerf_vo_tpu_torch.ops import occupancy
+
+    renderer = MapRenderer(mapping)
+    H, W = SLAM["frame_height"], SLAM["frame_width"]
+    fx, fy, cx, cy = mapping.buffer.intrinsics[0].tolist()
+    cam = dict(fx=fx, fy=fy, cx=cx, cy=cy, height=H, width=W)
+    kernels = kernel_launches()
+    lookups = []
+    bin_weights = occupancy.bin_weights
+
+    def counted(*a, **k):  # observer: counts the occupancy route
+        lookups.append(1)
+        return bin_weights(*a, **k)
+
+    occupancy.bin_weights = counted
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    try:
+        renderer.render_frame(cam, renderer.get_camera_extrinsics(0))
+        torch.cuda.synchronize()  # warm-up
+        lookups.clear()
+        for k in kernels.values():
+            k.launches = 0
+        for i in range(SLAM_RENDERS):
+            t0 = time.perf_counter()
+            color, depth = renderer.render_frame(
+                cam, renderer.get_camera_extrinsics(i % mapping.num_inserted))
+            times.append(time.perf_counter() - t0)
+    finally:
+        occupancy.bin_weights = bin_weights
+    counts = {name: k.launches / SLAM_RENDERS for name, k in kernels.items()}
+    ms = sum(times) / len(times) * 1e3
+    print(f"(g3) MapRenderer through the occupancy grid, {smi}: "
+          f"{SLAM_RENDERS} renders of {H}x{W}, {ms:.1f} ms a render with "
+          f"its copy to the host ({H * W / ms * 1e3:.0f} rays/s), "
+          f"{len(lookups) / SLAM_RENDERS:.0f} occupancy lookups and "
+          f"launches {counts} a render; depth "
+          f"{depth.min():.3f}..{depth.max():.3f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if not lookups:
+        fail("the renders did not go through the occupancy grid")
+    if not counts["gather_interp"] or not counts["gather_interp_mm"]:
+        fail("the renders launched no field kernel")
+    if counts["gather_cols"] or counts["scatter_cols_accum"]:
+        fail("a render launched a gradient kernel")
+    if color.shape != (H, W, 3) or not np.isfinite(depth).all():
+        fail("the render is not a finite full frame")
+
+
+def phase_slam(dev, smi):
+    """Phase (g): (g1) DROID tracking alone, (g2) the nerf_slam pipeline,
+    (g3) renders of its map. Returns (g2)'s launches."""
+    phase_slam_tracking(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slam_")
+    try:
+        counts, mapping = phase_slam_pipeline(dev, smi, tmp)
+        phase_slam_render(dev, smi, mapping)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -1446,9 +1787,14 @@ def main():
         if eval_counts[name]:
             fail(f"the evaluation path launched {name} "
                  f"{eval_counts[name]} times: a gradient or tracking")
-    for entry in kernels:  # the launches of the user's entry point
+    del mapping, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    slam_counts = phase_slam(dev, smi)
+    for entry in kernels:  # the launches of the user's entry points
         entry["launches"] = counts[entry["name"]]
         entry["evaluation_launches"] = eval_counts[entry["name"]]
+        entry["slam_launches"] = slam_counts[entry["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

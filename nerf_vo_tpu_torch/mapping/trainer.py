@@ -7,12 +7,15 @@ per-keyframe SE3 pose corrections (Adam, eps 1e-8, lr decaying
 exponentially from 1e-4 to 1e-5 over ``max_iterations``; keyframe 0, the
 gauge anchor, frozen). The distilled proposal grids take no optimizer
 step; every ``proposal_refresh_every`` steps their rotating slab is
-rewritten from the updated field.
+rewritten from the updated field. Under ``sampler="occupancy"`` the train
+state carries the occupancy grid, refreshed from the updated field every
+``occupancy.update_every`` steps.
 
 Random draws: ``train_step(state, buffer, draws)`` takes the step's pixel
 picks and stratification uniforms when given (``{"frame", "py", "px",
-"uniforms"}``, see :meth:`MappingTrainer.draws`), else draws them from the
-trainer's own ``torch.Generator``.
+"uniforms"}``, plus ``"occ_jitter"`` on an occupancy refresh step; see
+:meth:`MappingTrainer.draws`), else draws them from the trainer's own
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from nerf_vo_tpu_torch.core import cameras, conventions, lie
 from nerf_vo_tpu_torch.mapping import keyframe_buffer as kb
 from nerf_vo_tpu_torch.models.nerfacto import NerfactoModel
+from nerf_vo_tpu_torch.ops import occupancy as O
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +53,7 @@ class TrainState:
     opt: torch.optim.Adam
     cam_opt: torch.optim.Adam
     step: int
+    occ_grid: Optional[torch.Tensor] = None  # [res^3] under "occupancy"
 
 
 class MappingTrainer:
@@ -78,6 +83,8 @@ class MappingTrainer:
             cam_opt=torch.optim.Adam([pose_deltas],
                                      lr=cfg.camera_learning_rate, eps=1e-8),
             step=0,
+            occ_grid=(O.create(self.model.config.occupancy, self.device)
+                      if self.model.config.sampler == "occupancy" else None),
         )
 
     def camera_lr(self, step: int) -> float:
@@ -88,28 +95,40 @@ class MappingTrainer:
         return cfg.camera_learning_rate * rate ** (
             step / max(cfg.max_iterations, 1))
 
-    def draws(self, buffer: kb.KeyframeBuffer) -> Dict:
-        """One step's random draws from the trainer's generator."""
+    def _refreshes_occupancy(self, state: TrainState) -> bool:
+        return (state.occ_grid is not None and state.step
+                % self.model.config.occupancy.update_every == 0)
+
+    def draws(self, buffer: kb.KeyframeBuffer, state: TrainState) -> Dict:
+        """One step's random draws from the trainer's generator: pixel
+        picks, stratification uniforms and, on an occupancy refresh step,
+        the slab jitter ``occ_jitter``."""
         R = self.config.rays_per_batch
         d = kb.draw_pixels(buffer, R, self.generator)
         d["uniforms"] = [
             torch.rand(shape, generator=self.generator, device=self.device)
             for shape in self.model.uniform_shapes(R)]
+        if self._refreshes_occupancy(state):
+            d["occ_jitter"] = torch.rand(
+                O.slab_size(self.model.config.occupancy), 3,
+                generator=self.generator, device=self.device)
         return d
 
     def train_step(self, state: TrainState, buffer: kb.KeyframeBuffer,
                    draws: Optional[Dict] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimization step, in place on ``state``: grads, the two
-        Adam updates, then the proposal refresh on the updated field when
-        ``step % proposal_refresh_every == 0``, then step + 1."""
+        Adam updates, then on the updated field the proposal refresh when
+        ``step % proposal_refresh_every == 0`` or the occupancy refresh when
+        ``step % occupancy.update_every == 0``, then step + 1."""
         if draws is None:
-            draws = self.draws(buffer)
+            draws = self.draws(buffer, state)
         cfg = self.config
         deltas = state.pose_deltas if cfg.optimize_extrinsics else None
         batch = kb.sample_ray_batch(buffer, deltas, cfg.rays_per_batch,
                                     picks=draws)
-        loss, metrics = self.model.loss(batch, draws["uniforms"])
+        loss, metrics = self.model.loss(batch, draws["uniforms"],
+                                        occ_grid=state.occ_grid)
 
         leaves: List[torch.Tensor] = list(state.params.values())
         if cfg.optimize_extrinsics:
@@ -130,6 +149,9 @@ class MappingTrainer:
         if (self.model.proposal_fields
                 and state.step % mcfg.proposal_refresh_every == 0):
             self.model.refresh_proposals(state.step)
+        if self._refreshes_occupancy(state):
+            state.occ_grid = self.model.refresh_occupancy(
+                state.occ_grid, state.step, draws["occ_jitter"])
         state.step += 1
         return state, metrics
 
@@ -159,7 +181,8 @@ class MappingTrainer:
         o, d, dn = cameras.generate_rays(c2w, intrinsics, xy, "opengl")
         outs = {"rgb": [], "depth": [], "accumulation": []}
         for i in range(0, xy.shape[0], chunk):
-            r = self.model.render(o[i:i + chunk], d[i:i + chunk])
+            r = self.model.render(o[i:i + chunk], d[i:i + chunk],
+                                  occ_grid=state.occ_grid)
             for k in outs:
                 outs[k].append(r[k])
         cat = {k: torch.cat(v) for k, v in outs.items()}

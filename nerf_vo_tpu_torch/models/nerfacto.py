@@ -8,10 +8,15 @@ distillation: their grids carry no gradients, and
 :meth:`NerfactoModel.refresh_proposals` rewrites a rotating brick slab from
 the current field density.
 
+The Instant-NGP mapper (``sampler="occupancy"``) has no proposal fields:
+occupancy-grid weights at 128 uniform coarse bins drive the PDF resampler
+(``ops/occupancy.py``), and :meth:`NerfactoModel.refresh_occupancy`
+re-evaluates a rotating slab of the grid from the current field.
+
 Ported paths: ``proposal_type="dense"`` with ``proposal_training="distill"``
-and f32 proposal tables, ``sampler="proposal"``, ``grad_normal_mode`` in
-{"surface", "none"}, single device. A configuration that selects another
-path raises ``NotImplementedError``.
+and f32 proposal tables, ``sampler`` "proposal" or "occupancy",
+``grad_normal_mode`` in {"surface", "none"}, single device. A configuration
+that selects another path raises ``NotImplementedError``.
 
 Random numbers come in as arguments: ``uniforms`` is the list of
 stratification uniforms of one render (the bin jitter ``[R, S0+1]``, then one
@@ -33,6 +38,7 @@ from nerf_vo_tpu_torch.models.nerf_field import (
     NerfactoField,
 )
 from nerf_vo_tpu_torch.ops import losses as L
+from nerf_vo_tpu_torch.ops import occupancy as O
 from nerf_vo_tpu_torch.ops import rendering as R
 
 
@@ -82,7 +88,7 @@ class NerfactoConfig:
     table_grad_phase: bool = False
     sampler: str = "proposal"
     num_occ_bins: int = 128
-    occupancy: Any = None
+    occupancy: O.OccupancyConfig = O.OccupancyConfig()
 
 
 def check_ported(cfg: NerfactoConfig) -> None:
@@ -92,7 +98,7 @@ def check_ported(cfg: NerfactoConfig) -> None:
         "proposal_type": (cfg.proposal_type, ("dense",)),
         "proposal_training": (cfg.proposal_training, ("distill",)),
         "proposal_table_dtype": (cfg.proposal_table_dtype, ("float32",)),
-        "sampler": (cfg.sampler, ("proposal",)),
+        "sampler": (cfg.sampler, ("proposal", "occupancy")),
         "grad_normal_mode": (cfg.grad_normal_mode, ("surface", "none")),
         "table_grad_phase": (cfg.table_grad_phase, (False,)),
         "model_axis": (cfg.model_axis, (None,)),
@@ -119,7 +125,8 @@ class NerfactoModel(nn.Module):
         self.proposal_fields = nn.ModuleList(
             DenseProposalField(resolution=r, **common)
             for r in config.proposal_resolutions[
-                :len(config.num_proposal_samples)])
+                :len(config.num_proposal_samples)]
+            if config.sampler == "proposal")
         self.field = NerfactoField(
             grid=HashGridConfig(config.num_grid_levels,
                                 config.grid_features_per_level,
@@ -133,7 +140,10 @@ class NerfactoModel(nn.Module):
     def uniform_shapes(self, n_rays: int) -> Sequence[Tuple[int, int]]:
         """Shapes of the stratification uniforms of one training render."""
         cfg = self.config
-        counts = list(cfg.num_proposal_samples) + [cfg.num_nerf_samples]
+        if cfg.sampler == "occupancy":
+            counts = [cfg.num_occ_bins, cfg.num_nerf_samples]
+        else:
+            counts = list(cfg.num_proposal_samples) + [cfg.num_nerf_samples]
         return [(n_rays, n + 1) for n in counts]
 
     # -- rendering ---------------------------------------------------------
@@ -142,7 +152,8 @@ class NerfactoModel(nn.Module):
         return origins[..., None, :] + directions[..., None, :] * t_mid[..., None]
 
     def render(self, origins, directions, camera_indices=None, uniforms=None,
-               compute_grad_normals: bool = False) -> Dict[str, Any]:
+               compute_grad_normals: bool = False, occ_grid=None
+               ) -> Dict[str, Any]:
         """Render a batch of rays.
 
         Args:
@@ -150,6 +161,8 @@ class NerfactoModel(nn.Module):
           camera_indices: [R] keyframe ids for the appearance embedding.
           uniforms: stratification uniforms (see :meth:`uniform_shapes`);
             None samples the deterministic bin centres (evaluation).
+          occ_grid: the occupancy grid of ``sampler="occupancy"`` (None
+            spreads the samples as if every bin were occupied).
 
         Returns a dict with rgb [R, 3], depth [R] (euclidean ray distance),
         accumulation [R], the per-level histograms, and the normals.
@@ -160,8 +173,23 @@ class NerfactoModel(nn.Module):
             len(cfg.num_proposal_samples) + 1)
         edges_list, weights_list = [], []
 
-        s_edges = R.uniform_bins(n_rays, cfg.num_proposal_samples[0], u[0],
-                                 device=origins.device)
+        if cfg.sampler == "occupancy":
+            # empty-space skipping: occupancy at coarse bin centres weights
+            # the PDF resampler
+            s_edges = R.uniform_bins(n_rays, cfg.num_occ_bins, u[0],
+                                     device=origins.device)
+            t_edges = self._s_to_t(s_edges, cfg.near, cfg.far)
+            t_mid = 0.5 * (t_edges[..., 1:] + t_edges[..., :-1])
+            if occ_grid is not None:
+                unit = self.field._to_unit(
+                    self._positions(origins, directions, t_mid))
+                w = O.bin_weights(occ_grid, unit, cfg.occupancy)
+            else:
+                w = torch.ones_like(t_mid)
+            s_edges = R.sample_pdf(s_edges, w, cfg.num_nerf_samples, u[-1])
+        else:
+            s_edges = R.uniform_bins(n_rays, cfg.num_proposal_samples[0],
+                                     u[0], device=origins.device)
         for i, pf in enumerate(self.proposal_fields):
             t_edges = self._s_to_t(s_edges, cfg.near, cfg.far)
             t_mid = 0.5 * (t_edges[..., 1:] + t_edges[..., :-1])
@@ -234,7 +262,7 @@ class NerfactoModel(nn.Module):
 
     # -- losses ------------------------------------------------------------
 
-    def loss(self, batch: Dict[str, Any], uniforms=None
+    def loss(self, batch: Dict[str, Any], uniforms=None, occ_grid=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full training loss on a ray batch.
 
@@ -248,6 +276,7 @@ class NerfactoModel(nn.Module):
             batch.get("camera_indices"), uniforms=uniforms,
             compute_grad_normals=(cfg.predict_normals
                                   and cfg.grad_normal_mode != "none"),
+            occ_grid=occ_grid,
         )
         metrics = {}
         loss = L.rgb_loss(out["rgb"], batch["rgb"])
@@ -330,6 +359,18 @@ class NerfactoModel(nn.Module):
         logits = torch.log(density.clamp(1e-8, 1e8)) + 1.0
         rows = torch.cat([logits, logits.new_zeros(5, S)], 0).T
         return b0, rows.contiguous()
+
+
+    # -- occupancy maintenance ----------------------------------------------
+
+    @torch.no_grad()
+    def refresh_occupancy(self, occ_grid, step: int, jitter):
+        """One occupancy-grid refresh: this step's rotating cell slab
+        re-evaluated against the current field and max-merged. ``jitter``:
+        the slab's [res^3 / slab_div, 3] uniforms. Returns the new grid."""
+        cfg = self.config.occupancy
+        unit, start = O.slab_cell_centers(step, jitter, cfg)
+        return O.refresh(occ_grid, self.field.density_unit(unit), start, cfg)
 
 
 def from_jax_params(params_np) -> Dict[str, torch.Tensor]:

@@ -30,10 +30,12 @@ from nerf_vo_tpu_torch.enhancement import alignment
 from nerf_vo_tpu_torch.enhancement.omnidata import OmnidataEstimator
 from nerf_vo_tpu_torch.mapping import keyframe_buffer as kb
 from nerf_vo_tpu_torch.mapping.trainer import MappingTrainer, TrainerConfig
+from nerf_vo_tpu_torch.models import droid_net
 from nerf_vo_tpu_torch.models.dpvo_net import DPVONet
 from nerf_vo_tpu_torch.models.nerfacto import NerfactoConfig, NerfactoModel
 from nerf_vo_tpu_torch.runtime.viewer import LiveViewer
 from nerf_vo_tpu_torch.tracking.dpvo import DPVOTracker, TrackingConfig
+from nerf_vo_tpu_torch.tracking.droid_slam import DroidConfig, DROIDSLAMTracker
 from nerf_vo_tpu_torch.utils.torch_setup import set_float_policy
 
 
@@ -60,18 +62,24 @@ class DataStage:
 
 
 class TrackingStage:
-    """Tracking (reference TrackingModule), the ``dpvo`` module."""
+    """Tracking (reference TrackingModule): ``dpvo`` or ``droid-slam``."""
 
     def __init__(self, args, state_dict: Optional[Dict] = None,
                  device="cuda"):
-        """``state_dict``: DPVO weights in upstream's layout (see
-        ``models.dpvo_net.from_jax_params``); random weights from seed 42
-        otherwise."""
+        """``state_dict``: the tracker's weights in upstream's layout (see
+        ``from_jax_params`` in ``models.dpvo_net`` / ``models.droid_net``);
+        for ``droid-slam`` the ``droid.pth`` that ``NERF_VO_DROID_WEIGHTS``
+        names otherwise; random weights from seed 42 failing both."""
         set_float_policy()
-        name = getattr(args, "tracking_module", "dpvo")
-        if name != "dpvo":
+        self.name = getattr(args, "tracking_module", "dpvo")
+        self.frame_stride = getattr(args, "frame_stride", 1)
+        if self.name == "droid-slam":
+            self._init_droid(args, state_dict, device)
+            return
+        if self.name != "dpvo":
             raise NotImplementedError(
-                f"tracking_module {name!r}: only 'dpvo' is ported")
+                f"tracking_module {self.name!r}: only 'dpvo' and "
+                "'droid-slam' are ported")
         cfg = TrackingConfig(
             patches_per_frame=getattr(args, "patches_per_frame", 96),
             removal_window=getattr(args, "removal_window", 28),
@@ -90,7 +98,30 @@ class TrackingStage:
             net.load_state_dict(state_dict)
         self.tracker = DPVOTracker(cfg, net, args.frame_height,
                                    args.frame_width, device=device)
-        self.frame_stride = getattr(args, "frame_stride", 1)
+
+    def _init_droid(self, args, state_dict, device) -> None:
+        """The DROID tracker on the frame cropped to a multiple of 8."""
+        H = args.frame_height - args.frame_height % 8
+        W = args.frame_width - args.frame_width % 8
+        cfg = DroidConfig(
+            buffer_size=getattr(args, "num_keyframes", 512),
+            motion_threshold=getattr(args, "motion_threshold", 2.4),
+            keyframe_threshold=getattr(args, "keyframe_threshold", 4.0),
+            frontend_window=getattr(args, "tracking_frontend_window", 25),
+            max_factors=getattr(args, "tracking_max_edges", 48),
+            perform_global_ba=getattr(
+                args, "perform_global_bundle_adjustment", True),
+            compute_covariances=getattr(args, "compute_covariances", True),
+        )
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(42)
+            net = droid_net.DroidNet()
+        if state_dict is None and os.environ.get("NERF_VO_DROID_WEIGHTS"):
+            state_dict = droid_net.load_torch_weights(
+                os.environ["NERF_VO_DROID_WEIGHTS"])
+        if state_dict is not None:
+            net.load_state_dict(state_dict)
+        self.tracker = DROIDSLAMTracker(cfg, net, H, W, device=device)
 
     def step(self, frame: Optional[dict]) -> Optional[dict]:
         if frame is None:
@@ -99,8 +130,11 @@ class TrackingStage:
         ci = frame["camera_intrinsics"]
         intr = np.asarray([ci["fx"], ci["fy"], ci["cx"], ci["cy"]],
                           np.float32)
+        color = frame["frame_color"]
+        if self.name == "droid-slam":  # crop to a multiple of 8
+            color = color[:self.tracker.H, :self.tracker.W]
         retired = self.tracker.track(
-            float(frame["frame_index"]), frame["frame_color"], intr,
+            float(frame["frame_index"]), color, intr,
             frame_index=frame["frame_index"],
         )
         if frame.get("last_frame"):
@@ -181,6 +215,15 @@ class EnhancementStage:
                 depth_raw, centers, invd)
             if normal_raw is not None:
                 out["frames_normal"] = alignment.decode_normals(normal_raw)
+        elif "droid_slam_inverse_depth" in packet:
+            # DROID: depth = 1 / inverse depth (reference
+            # enhancement_module.py:106-111), the covariance passed on
+            inv = packet["droid_slam_inverse_depth"].to(self.device)
+            out["frames_depth"] = (1.0 / inv.clamp(min=1e-6)).clamp(
+                0.0, alignment.MAX_DEPTH)
+            if "droid_slam_depth_covariance" in packet:
+                out["frames_depth_cov"] = packet[
+                    "droid_slam_depth_covariance"].to(self.device)
         # OpenCV -> OpenGL camera axes: the mapper is OpenGL-native
         out["camera_extrinsics"] = conventions.opencv_to_opengl(
             packet["camera_extrinsics"].to(self.device))
@@ -189,22 +232,26 @@ class EnhancementStage:
 
 def mapping_model_config(args) -> NerfactoConfig:
     """The mapper's ``NerfactoConfig`` for a run's ``args``: the nerfstudio
-    mapper's settings, then ``mapping_model_overrides`` applied field for
-    field (lists become tuples)."""
+    mapper's settings, or under ``mapping_module: instant-ngp`` the NGP
+    mapper's (covariance-weighted L2 depth, no contraction, the occupancy
+    sampler with linear spacing in the bounded AABB), then
+    ``mapping_model_overrides`` applied field for field (lists become
+    tuples)."""
     use_normals = "normal" in getattr(args, "enhancement_module", "depth")
+    ngp = getattr(args, "mapping_module", "nerfstudio") == "instant-ngp"
     cfg = NerfactoConfig(
         near=0.05,
         far=20.0,
         num_images=args.num_keyframes,
         predict_normals=True,
-        depth_loss_type="ds_nerf",
+        depth_loss_type="l2" if ngp else "ds_nerf",
         depth_loss_mult=getattr(args, "depth_supervision_lambda", 0.001),
         normal_loss_mult=5e-6 if use_normals else 0.0,
-        use_contraction=True,
+        use_contraction=not ngp,
         aabb_min=-4.0,
         aabb_max=4.0,
-        sampler="proposal",
-        spacing="disparity",
+        sampler="occupancy" if ngp else "proposal",
+        spacing="linear" if ngp else "disparity",
     )
     overrides = getattr(args, "mapping_model_overrides", None)
     if overrides:
@@ -240,8 +287,9 @@ def _image_u8(out: Dict[str, torch.Tensor]):
 
 
 class MappingStage:
-    """Online NeRF mapping (reference MappingModule), the ``nerfstudio``
-    module: a keyframe buffer fed by enhanced packets and a nerfacto
+    """Online NeRF mapping (reference MappingModule), the ``nerfstudio`` or
+    ``instant-ngp`` module: a keyframe buffer fed by enhanced packets (with
+    a depth-covariance channel under ``instant-ngp``) and a nerfacto
     trainer paced against the keyframe stream. Optional: preview renders
     in ``<dir_prediction>/previews`` every ``preview_iterations`` steps,
     and the live web viewer (``viewer: true``)."""
@@ -255,9 +303,10 @@ class MappingStage:
         else on ``device``."""
         set_float_policy()
         name = getattr(args, "mapping_module", "nerfstudio")
-        if name != "nerfstudio":
+        if name not in ("nerfstudio", "instant-ngp"):
             raise NotImplementedError(
-                f"mapping_module {name!r}: only 'nerfstudio' is ported")
+                f"mapping_module {name!r}: only 'nerfstudio' and "
+                "'instant-ngp' are ported")
         self.device = _pick_device(args, "mapping", device)
         # preview renders and the viewer replace the reference's viser
         # viewer (nerf_vo/mapping/nerfstudio.py:101-102,125-137)
@@ -293,7 +342,9 @@ class MappingStage:
         self.state = self.trainer.init()
         use_normals = "normal" in getattr(args, "enhancement_module", "depth")
         self.buffer = kb.create(K, args.frame_height, args.frame_width,
-                                use_normals=use_normals, device=self.device)
+                                use_normals=use_normals,
+                                use_depth_cov=name == "instant-ngp",
+                                device=self.device)
         self.num_keyframes = K
         self.num_inserted = 0
         self.step_count = 0
@@ -424,19 +475,24 @@ class MappingStage:
     def _train_state(self) -> Dict:
         """The full resumable state. ``model.state_dict()`` and not
         ``state.params``: the distilled proposal grids take no gradient,
-        so they are not in ``state.params``, but a render needs them."""
+        so they are not in ``state.params``, but a render needs them, as
+        it needs the occupancy grid under ``instant-ngp``."""
         st = self.state
-        return {"model": self.model.state_dict(),
+        full = {"model": self.model.state_dict(),
                 "pose_deltas": st.pose_deltas.detach(),
                 "opt": st.opt.state_dict(),
                 "cam_opt": st.cam_opt.state_dict(),
                 "step": st.step}
+        if st.occ_grid is not None:
+            full["occ_grid"] = st.occ_grid
+        return full
 
     @torch.no_grad()
     def restore_snapshot(self, path: str) -> None:
         """Mid-run resume from a ``trainstate*.pt`` that
         :meth:`save_snapshot` wrote: every model tensor (the proposal grids
-        too), the pose deltas, both Adam states and the step, loaded in
+        too), the occupancy grid, the pose deltas, both Adam states and the
+        step, loaded in
         place, so the optimizers keep their parameter tensors. A
         ``snapshot*.pt`` (what evaluation loads) holds no Adam state: the
         optimizers are then left as they are. The
@@ -449,6 +505,8 @@ class MappingStage:
         blob = torch.load(path, map_location="cpu", weights_only=True)
         self.model.load_state_dict(blob["model"])
         self.state.pose_deltas.copy_(blob["pose_deltas"])
+        if "occ_grid" in blob:
+            self.state.occ_grid.copy_(blob["occ_grid"])
         if "opt" in blob:
             self.state.opt.load_state_dict(blob["opt"])
             self.state.cam_opt.load_state_dict(blob["cam_opt"])
@@ -457,9 +515,9 @@ class MappingStage:
 
     def save_snapshot(self, dir_prediction: str) -> None:
         """``snapshots/trainstate<step>.pt`` (the full resumable state),
-        ``snapshots/snapshot<step>.pt`` (model tensors, pose deltas and
-        step: what evaluation loads), ``dataset.npz`` (the keyframe
-        buffer's intrinsics, c2w and active count) and
+        ``snapshots/snapshot<step>.pt`` (model tensors, pose deltas, step
+        and any occupancy grid: what evaluation loads), ``dataset.npz``
+        (the keyframe buffer's intrinsics, c2w and active count) and
         ``matrices/matrices_origin2frame_training.json`` (the optimized
         keyframe poses)."""
         snap_dir = os.path.join(dir_prediction, "snapshots")
@@ -467,7 +525,8 @@ class MappingStage:
         full = self._train_state()
         torch.save(full, os.path.join(
             snap_dir, f"trainstate{self.step_count:06d}.pt"))
-        torch.save({k: full[k] for k in ("model", "pose_deltas", "step")},
+        torch.save({k: full[k] for k in ("model", "pose_deltas", "step",
+                                         "occ_grid") if k in full},
                    os.path.join(snap_dir, f"snapshot{self.step_count:06d}.pt"))
         # training-set dump (reference dataset.pt, nerfstudio_utils.py:230-241)
         np.savez_compressed(

@@ -182,6 +182,11 @@ PORT_MODULES = [
     "nerf_vo_tpu_torch.ops.losses",
     "nerf_vo_tpu_torch.ops.hash_grid",
     "nerf_vo_tpu_torch.ops.gather_cuda",
+    "nerf_vo_tpu_torch.ops.dense_corr",
+    "nerf_vo_tpu_torch.ops.dense_ba",
+    "nerf_vo_tpu_torch.ops.occupancy",
+    "nerf_vo_tpu_torch.models.droid_net",
+    "nerf_vo_tpu_torch.tracking.droid_slam",
     "nerf_vo_tpu_torch.models.dpvo_net",
     "nerf_vo_tpu_torch.models.dpt",
     "nerf_vo_tpu_torch.models.nerf_field",

@@ -281,6 +281,60 @@ def test_hash_encode_on_the_card_matches_the_cpu_route(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [4096, 262144])
+def test_ngp_field_encode_on_the_card_matches_the_cpu_route(dev, M):
+    """The Instant-NGP mapper's route into the field: positions of a
+    bounded AABB normalized to the unit cube (no contraction), some outside
+    it, on the mapper's table (3 levels of 8 features, 2^19 entries a
+    level, resolutions 16..2048), at a small batch and at an occupancy
+    refresh's slab of 262,144 cells; forward, table and position gradients
+    against the plain versions on the CPU.
+
+    The AABB normalization is made once, on the CPU, and both devices
+    encode the same unit positions: torch's CUDA division by a scalar
+    multiplies by its reciprocal, which can land one ulp from the CPU's
+    quotient, and at 2048 cells an axis about one point in 262,144 then
+    falls into the next cell."""
+    cfg = hg.HashGridConfig(3, 8, 19, 16, 2048)
+    g = torch.Generator().manual_seed(2)
+    tab = torch.randn(3 * cfg.bricks_per_level, 256, generator=g) * 0.5
+    world = torch.rand(M, 3, generator=g) * 6.0 - 1.5  # aabb [-1, 4]
+    unit = hg.normalize_to_unit_cube(world, -1.0, 4.0)
+    cot = torch.randn(M, 24, generator=g)
+    outs = []
+    for d in ("cpu", dev):
+        t = tab.to(d).requires_grad_(True)
+        p = unit.to(d).requires_grad_(True)
+        out = hg.hash_encode(t, p, cfg)
+        gt, gp = torch.autograd.grad(out, (t, p), cot.to(d))
+        outs.append([v.detach().cpu() for v in (out, gt, gp)])
+    for a, b in zip(*outs):
+        _close(b, a)
+
+
+@pytest.mark.cuda
+def test_gather_interp_skips_an_inf_under_a_zero_weight(dev):
+    """The one result where the card route and the plain version differ:
+    an Inf table entry under a zero weight. The plain version sums
+    0 * Inf = NaN; the kernel reads only entries with a non-zero weight
+    and gives the finite sum of the rest. A table holding an Inf is a
+    diverged run in both packages."""
+    tab, idx, w = _inputs(dev, 8, M=64)
+    w[:, 8:] = 0.0
+    tab[idx[0].item(), 20 * 8] = float("inf")  # entry 20, weight 0
+    got = gc.gather_interp(tab, idx, w, 8)
+    want = gc.gather_interp_plain(tab, idx, w, 8)
+    bad = (idx == idx[0]).nonzero()[:, 0]
+    assert torch.isnan(want[bad]).any()
+    assert torch.isfinite(got).all()
+    ok = torch.ones(64, dtype=torch.bool, device=dev)
+    ok[bad] = False
+    _close(got[ok], want[ok])
+    tab[idx[0].item(), 20 * 8] = 0.0
+    _close(got, gc.gather_interp_plain(tab, idx, w, 8))
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_bad_inputs(dev):
     tab, idx, w = _inputs(dev, 8)
     with pytest.raises(TypeError):

@@ -209,7 +209,7 @@ def test_refresh_proposals_matches_jax(setup, step):
 
 
 def test_unported_paths_raise():
-    for field, value in [("proposal_type", "mlp"), ("sampler", "occupancy"),
+    for field, value in [("proposal_type", "mlp"), ("sampler", "uniform"),
                          ("grad_normal_mode", "samples"),
                          ("proposal_training", "interlevel"),
                          ("table_grad_phase", True), ("model_axis", "m"),

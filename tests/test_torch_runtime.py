@@ -1,8 +1,8 @@
 """The port's smaller runtime modules against the JAX package, on the CPU:
 the dataset loaders and their utilities (``data/``), the mapping stage's
 pacing rule, the live viewer, ``_pick_device``, imports without the
-host-only packages, and ``chip_smoke.py``'s configuration against
-``configs/nerf_vo_replica.yaml``.
+host-only packages, and ``chip_smoke.py``'s configurations against
+``configs/nerf_vo_replica.yaml`` and ``configs/nerf_slam_replica.yaml``.
 """
 
 from __future__ import annotations
@@ -573,3 +573,24 @@ def test_threaded_frames_keep_order_and_stop():
         assert not _prefetch_threads()
     finally:
         sys.setswitchinterval(interval)
+
+
+def test_chip_smoke_runs_the_nerf_slam_replica_config():
+    """Every key of phase (g) equals ``configs/nerf_slam_replica.yaml`` or,
+    where the file omits it, the JAX stages' default; (g) differs from the
+    file only in its listed cuts."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    config = yaml.safe_load((REPO / "configs/nerf_slam_replica.yaml")
+                            .read_text())
+    defaults = _jax_stage_defaults()
+    for key, value in smoke.SLAM.items():
+        want = config[key] if key in config else defaults[key]
+        assert value == want, key
+    for key in config:
+        assert (key in smoke.SLAM) != (key in smoke.SOURCE_KEYS), key
+    assert smoke.SLAM_TRACKING_CUTS == {"motion_threshold": 0.0}
+    assert "motion_threshold" not in config
+    assert defaults["motion_threshold"] > 0
