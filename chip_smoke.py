@@ -6,8 +6,8 @@ GPU and check them.
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``/usr/local/cuda``) and PyTorch built for CUDA. It builds every kernel of
 the path from ``nerf_vo_tpu_torch/csrc/`` (into ``nerf_vo_tpu_torch/_build/``,
-one ``nvcc`` per source, all started together), then runs seven phases;
-any failure ends the run with a non-zero exit:
+one ``nvcc`` per source, all started together), then runs eight phases
+(in the order a-d, h, e-g); any failure ends the run with a non-zero exit:
 
   (a) kernels: each kernel against its plain PyTorch version on the card at
       the replica configuration's shapes, with its time, the plain
@@ -46,11 +46,25 @@ any failure ends the run with a non-zero exit:
       finite covariances; (g2) ``execute`` threaded with the same cuts as
       (e), which must launch each table kernel and never the correlation
       kernel, and fill the keyframe buffer's covariance channel; (g3)
-      renders of (g2)'s map through ``MapRenderer`` and the occupancy grid.
+      renders of (g2)'s map through ``MapRenderer`` and the occupancy grid;
+  (h) the mapper's other configurations, each a ``MappingStage`` at the
+      replica config with ``mapping_model_overrides`` (as ``run.py`` builds
+      it) fed (c)'s packets as (d) feeds them, 64 steps: (h1) nerfstudio's
+      mapper (hash proposals trained by the interlevel loss, per-sample
+      normals), whose normal pullback must launch no table scatter, with
+      rows 2-5 held and timed at the last step's F = 2 proposal inputs;
+      (h2) bf16 dense proposal tables with phased table gradients under
+      ``NERF_VO_PREFETCH_BATCH=1`` (the bf16-table ``gather_interp`` held
+      and timed at both grids' inputs, bitwise against the f32 kernel; the
+      phased backward's rows), then MLP proposals; (h3) a DROID frontend
+      correlation pyramid under ``NERF_VO_CORR_PYRAMID_DTYPE=float32`` and
+      under the bf16 default, one lookup on each.
 
 Output: progress on stderr; on stdout the card's name and power limit, the
 per-phase results, one JSON line with every kernel's numbers (its
-launches on the (e), (f) and (g2) paths among them), and as the last line
+launches on the (e), (f), (g2) and (h) paths among them; the bf16-table
+``gather_interp``'s ``launches`` are (h2)'s, the only path with a bf16
+table), and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result.
 """
@@ -108,9 +122,11 @@ F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores
 SLEEP_CYCLES = 100_000_000  # ~50 ms of device clock
 L2_FLUSH_BYTES = 128 << 20  # written before each cold call: > the 50 MB L2
 # table-kernel launches of one train step without a proposal refresh: the
-# forward (one per route), the surface-normal pullback and the outer backward
-ORDINARY_STEP_LAUNCHES = dict(gather_cols=3, gather_interp=4,
-                              gather_interp_mm=2, scatter_cols_accum=3)
+# forward (one per route, the surface pass's too), the surface-normal
+# pullback (position only: one gather_cols, no scatter) and the outer
+# backward (the field's position gradient; both passes' table gradients)
+ORDINARY_STEP_LAUNCHES = dict(gather_cols=2, gather_interp=4,
+                              gather_interp_mm=2, scatter_cols_accum=2)
 
 
 def log(*a):
@@ -441,10 +457,10 @@ def stress_checks(tab, hot):
 
 
 def live_groups(t, i, w, F, group_bytes):
-    """[m, 32F*4 / group_bytes] bool: the groups of ``group_bytes`` bytes of
-    each descriptor's table row that hold an entry with a non-zero weight
-    (none for an id out of range)."""
-    per = group_bytes // (4 * F)  # entries in a group
+    """[m, 32F*size / group_bytes] bool: the groups of ``group_bytes`` bytes
+    of each descriptor's table row that hold an entry with a non-zero
+    weight (none for an id out of range)."""
+    per = group_bytes // (t.element_size() * F)  # entries in a group
     ok = ((i >= 0) & (i < t.shape[0]))[:, None]
     return ((w != 0) & ok).reshape(i.shape[0], 32 // per, per).any(-1)
 
@@ -452,10 +468,10 @@ def live_groups(t, i, w, F, group_bytes):
 def interp_table_bytes(t, i, w, F):
     """Bytes of the table that gather_interp's function needs for these
     descriptors: of each touched brick, once, the 32-byte sectors (at F = 1
-    the 16-byte groups of 4 entries) that hold an entry with a non-zero
-    weight in some descriptor. Zero-weight entries, the padding entries
-    27..31 among them, are not needed."""
-    group = 16 if F == 1 else 32
+    the groups of 4 entries, 16 bytes in f32 and 8 in bf16) that hold an
+    entry with a non-zero weight in some descriptor. Zero-weight entries,
+    the padding entries 27..31 among them, are not needed."""
+    group = 4 * t.element_size() if F == 1 else 32
     live = live_groups(t, i, w, F, group)
     G = live.shape[1]
     flat = (i.long().clamp(0, t.shape[0] - 1)[:, None] * G
@@ -758,26 +774,28 @@ def phase_enhancement(dev, packets):
     return enhanced
 
 
-def phase_mapping(dev, enhanced, frame_of):
+def drive_mapping(stage, enhanced, frame_of, record=()):
     """The serial pipeline's order: a packet is inserted at the frame that
     produced it, then up to STEPS_PER_FRAME paced train steps follow each
     frame; after the last frame the stream ends (as ``finish`` does) and
-    training runs on to MAP_STEPS steps."""
+    training runs on to MAP_STEPS steps. ``record``: the ``gather_cuda``
+    wrappers whose calls in the last step are recorded (``record_calls``).
+    Returns the steps' metrics and times, the most table-kernel launches
+    seen in one ordinary step (no proposal refresh), and the calls."""
     from nerf_vo_tpu_torch.ops import gather_cuda
-    from nerf_vo_tpu_torch.runtime.stages import MappingStage
 
-    args = SimpleNamespace(**REPLICA, **MAPPING)
-    stage = MappingStage(args, device=dev)
     at = dict(zip(frame_of, enhanced))
-    history, times = [], []
+    history, times, calls = [], [], []
     per_step = {k.__name__: 0 for k in gather_cuda.KERNELS}
-    every = stage.model.config.proposal_refresh_every
-
     def step():
-        refresh = stage.state.step % every == 0
+        refresh = stage.trainer.refreshes_proposals(stage.state)
         before = {k.__name__: k.launches for k in gather_cuda.KERNELS}
         t0 = time.perf_counter()
-        m = stage.train_step()
+        if record and len(history) == MAP_STEPS - 1:
+            m, rec = record_calls(stage.train_step, record)
+            calls.extend(rec)
+        else:
+            m = stage.train_step()
         torch.cuda.synchronize()
         if m is None:
             return False
@@ -802,6 +820,18 @@ def phase_mapping(dev, enhanced, frame_of):
     while len(history) < MAP_STEPS:
         if not step():
             fail("the mapping stage stopped training before its last step")
+    torch.cuda.synchronize()
+    return history, times, per_step, calls
+
+
+def phase_mapping(dev, enhanced, frame_of):
+    """``MappingStage`` at the replica config, driven by
+    :func:`drive_mapping`, then one full-frame render."""
+    from nerf_vo_tpu_torch.runtime.stages import MappingStage
+
+    args = SimpleNamespace(**REPLICA, **MAPPING)
+    stage = MappingStage(args, device=dev)
+    history, times, per_step, _ = drive_mapping(stage, enhanced, frame_of)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -841,6 +871,221 @@ def phase_mapping(dev, enhanced, frame_of):
     if not last < first:
         fail(f"rgb_loss did not fall: {first} -> {last}")
     return ms
+
+
+# ---------------------------------------------------------------------------
+# (h) the mapper's other configurations, on (c)'s packets
+# ---------------------------------------------------------------------------
+
+# (h1): nerfstudio's mapper, the reference's own: hash proposals trained by
+# the interlevel loss, density-gradient normals at every sample
+NERFSTUDIO = dict(proposal_type="hash", proposal_training="interlevel",
+                  grad_normal_mode="samples")
+# (h2): bf16 dense proposal tables and phased field table gradients, run
+# with NERF_VO_PREFETCH_BATCH=1; then MLP proposals
+BF16_PHASED = dict(proposal_table_dtype="bfloat16", table_grad_phase=True)
+MLP_PROPOSALS = dict(proposal_type="mlp")
+TABLE_ROWS = ("gather_cols", "gather_interp", "gather_interp_mm",
+              "scatter_cols_accum")  # rows 2-5
+# table-kernel launches of one (h1) step: the forward (the field and each
+# hash proposal: level 0 on the one-hot route, the rest gathered), the
+# per-sample normal pullback (one gather_cols, no scatter: it takes the
+# position gradient only) and the backward (the field and both proposals:
+# one scatter_cols_accum and one gather_cols each)
+H1_STEP_LAUNCHES = dict(gather_cols=4, gather_interp=3, gather_interp_mm=3,
+                        scatter_cols_accum=3)
+# the kernel only a bf16 proposal table launches: no other phase's path has
+# one
+BF16_KERNELS = ("gather_interp_bf16",)
+
+
+def run_variant(dev, smi, tag, overrides, enhanced, frame_of, record=(),
+                env=None):
+    """``MappingStage`` at the replica config plus ``overrides`` as
+    ``mapping_model_overrides`` (the route ``run.py`` takes), built with
+    ``env`` set, and driven by :func:`drive_mapping` with the launch counts
+    and the peak memory set to 0 just before. Returns the stage, the steps'
+    metrics, the launches in all and per ordinary step, and the last
+    step's recorded calls."""
+    from nerf_vo_tpu_torch.ops import gather_cuda
+    from nerf_vo_tpu_torch.runtime.stages import MappingStage
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = SimpleNamespace(**REPLICA, **MAPPING,
+                           mapping_model_overrides=dict(overrides))
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        stage = MappingStage(args, device=dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    for k in gather_cuda.KERNELS:
+        k.launches = 0
+    history, times, per_step, calls = drive_mapping(stage, enhanced,
+                                                    frame_of, record)
+    counts = {k.__name__: k.launches for k in gather_cuda.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = times[8:]
+    ms = sum(steady) / len(steady) * 1e3
+    last = {k: round(v, 6) for k, v in history[-1].items()}
+    print(f"({tag}) mapping_model_overrides {overrides}"
+          f"{' with ' + str(env) if env else ''}: {len(history)} steps of "
+          f"{RAYS} rays, steady {ms:.2f} ms/step ({RAYS / ms * 1e3:.0f} "
+          f"rays/s) over steps 8..{len(history) - 1}, first step "
+          f"{times[0] * 1e3:.1f} ms; launches {counts}, per ordinary step "
+          f"(most seen) {per_step}; last step's losses {last}; peak device "
+          f"memory {peak:.2f} GiB; {smi}", flush=True)
+    return stage, history, counts, per_step, calls
+
+
+def phase_variants(dev, smi, enhanced, frame_of):
+    """(h1) nerfstudio's mapper and (h2) the other mapping options, on
+    (c)'s packets as (d) feeds them, 64 steps each; rows 2-5 held at (h1)'s
+    F = 2 proposal inputs and the bf16 ``gather_interp`` at (h2)'s, against
+    their plain versions, and timed. Returns each kernel's (h1) / (h2)
+    launches and (h)'s timings by kernel name."""
+    def features(name, a):
+        if name in ("gather_cols", "scatter_cols_accum"):
+            return a[0].shape[1] // 32
+        return a[3]
+
+    # (h1)
+    stage, history, counts, per_step, calls = run_variant(
+        dev, smi, "h1", NERFSTUDIO, enhanced, frame_of, record=TABLE_ROWS)
+    if any(not np.isfinite(v) for h in history for v in h.values()):
+        fail("(h1) non-finite losses")
+    if "interlevel_loss" not in history[-1]:
+        fail("(h1) the loss has no interlevel term")
+    for name in TABLE_ROWS:
+        if not counts[name]:
+            fail(f"(h1) nerfstudio's mapper never launched {name}")
+    for name, most in H1_STEP_LAUNCHES.items():
+        if per_step[name] > most:
+            fail(f"(h1) {name} launched {per_step[name]} times in one step "
+                 f"(at most {most}: the normal pullback makes no table "
+                 "gradient)")
+    if counts["gather_interp_bf16"]:
+        fail("(h1) f32 tables launched the bf16-table kernel")
+    f2 = [c for c in calls if features(c[0], c[1]) == 2]
+    print(f"(h1) the last step's {len(f2)} table-kernel launches at the "
+          "hash proposals' F = 2 (of its "
+          f"{len(calls)}), held against their plain versions on the same "
+          "inputs:", flush=True)
+    held = {"h1": hold_calls(f2, "the hash proposals' last step", "(h1)")}
+    launches = {"h1": counts}
+    del stage, calls, f2
+
+    # (h2) bf16 proposal tables, phased table gradients, prefetch
+    stage, history, counts, per_step, calls = run_variant(
+        dev, smi, "h2", BF16_PHASED, enhanced, frame_of,
+        record=BF16_KERNELS + ("scatter_cols_accum",),
+        env={"NERF_VO_PREFETCH_BATCH": "1"})
+    if not stage.trainer.config.prefetch_batch or stage.state.prefetch is None:
+        fail("(h2) NERF_VO_PREFETCH_BATCH=1 did not prefetch")
+    if any(pf.tables.dtype != torch.bfloat16
+           for pf in stage.model.proposal_fields):
+        fail("(h2) the proposal tables are not bf16")
+    if not counts["gather_interp_bf16"]:
+        fail("(h2) the bf16 proposal tables never launched "
+             "gather_interp_bf16")
+    n = RAYS * FIELD_SAMPLES
+    field_m = [c[1][0].shape[0] for c in calls
+               if c[0] == "scatter_cols_accum" and c[1][0].shape[1] == 256]
+    print(f"(h2) the field's table-gradient scatters in the last step "
+          f"(step {stage.state.step - 1}, phase "
+          f"{(stage.state.step - 1) % 2}): M = {field_m} rows, against "
+          f"{3 * n} for every level of the main pass ({n} a level; the "
+          f"surface pass's {3 * RAYS} rows are not phased)", flush=True)
+    if 2 * n not in field_m or 3 * n in field_m:
+        fail(f"(h2) the phased backward scattered {field_m} rows, not the "
+             f"one-hot level and one scattered level ({2 * n})")
+    bf16 = [c for c in calls if c[0] == "gather_interp_bf16"]
+    print(f"(h2) the last step's {len(bf16)} gather_interp_bf16 launches at "
+          "the bf16 proposal grids, held against their plain versions and "
+          "bitwise against the f32 kernel on the same values:", flush=True)
+    held["h2"] = hold_calls(bf16, "the bf16 proposal grids' last step",
+                            "(h2)")
+    launches["h2"] = counts
+    del stage, calls, bf16
+
+    stage, history, counts, _, _ = run_variant(
+        dev, smi, "h2", MLP_PROPOSALS, enhanced, frame_of)
+    if "proposal_distill_loss" not in history[-1]:
+        fail("(h2) MLP proposals without their distillation loss")
+    if any(not np.isfinite(v) for h in history for v in h.values()):
+        fail("(h2) non-finite losses under MLP proposals")
+    launches["h2_mlp"] = counts
+    del stage
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, held
+
+
+def phase_pyramid(dev, smi):
+    """(h3) one DROID frontend correlation pyramid at the nerf_slam replica
+    width (48 edges of 45x80 feature maps, 128 channels, 4 levels) built
+    under NERF_VO_CORR_PYRAMID_DTYPE=float32 and under the bf16 default,
+    and one lookup (radius 3) on each: times, bytes, and how far the bf16
+    lookup lies from the f32 one."""
+    import importlib
+
+    from nerf_vo_tpu_torch.ops import dense_corr
+    from nerf_vo_tpu_torch.tracking.droid_slam import DroidConfig
+
+    E = DroidConfig().max_factors
+    h, w, C = SLAM["frame_height"] // 8, SLAM["frame_width"] // 8, 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    fi = torch.randn(E, h, w, C, generator=gen, device=dev).to(
+        torch.bfloat16)
+    fj = torch.randn(E, h, w, C, generator=gen, device=dev).to(
+        torch.bfloat16)
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev),
+                            torch.arange(w, device=dev), indexing="ij")
+    coords = (torch.stack([xs, ys], -1).float()[None]
+              + torch.rand(E, h, w, 2, generator=gen, device=dev) * 4 - 2)
+    saved = os.environ.get("NERF_VO_CORR_PYRAMID_DTYPE")
+    lookups = {}
+    try:
+        for name in ("float32", "bfloat16"):
+            os.environ["NERF_VO_CORR_PYRAMID_DTYPE"] = name
+            importlib.reload(dense_corr)
+            pyr = dense_corr.build_corr_pyramid(fi, fj, 4)
+            if any(v.dtype != getattr(torch, name) for v in pyr):
+                fail(f"(h3) the {name} pyramid stores {pyr[0].dtype}")
+            build_ms = cuda_ms(lambda: dense_corr.build_corr_pyramid(
+                fi, fj, 4), 3)
+            look_ms = cuda_ms(lambda: dense_corr.corr_lookup(pyr, coords, 3),
+                              3)
+            lookups[name] = dense_corr.corr_lookup(pyr, coords, 3)
+            nbytes = sum(v.numel() * v.element_size() for v in pyr)
+            print(f"(h3) {name} pyramid: {E} edges of {h}x{w}x{C}, levels "
+                  f"{[tuple(v.shape[2:]) for v in pyr]}, {nbytes / 1e9:.3f} "
+                  f"GB stored; build {build_ms:.3f} ms, one lookup "
+                  f"{look_ms:.3f} ms; {smi}", flush=True)
+            del pyr
+            torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("NERF_VO_CORR_PYRAMID_DTYPE", None)
+        else:
+            os.environ["NERF_VO_CORR_PYRAMID_DTYPE"] = saved
+        importlib.reload(dense_corr)
+    a, b = lookups["float32"], lookups["bfloat16"]
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail("(h3) non-finite correlation lookups")
+    diff = (a - b).abs().max().item()
+    print(f"(h3) the bf16 lookup against the f32 one: max abs diff "
+          f"{diff:.4g} (|f32| up to {a.abs().max().item():.4g})", flush=True)
+    if diff > 1e-2 * a.abs().max().item():
+        fail("(h3) the bf16 and f32 pyramids' lookups differ by more than "
+             "bf16 rounding")
 
 
 # ---------------------------------------------------------------------------
@@ -949,7 +1194,7 @@ def phase_pipeline(dev, smi, tracking_fps, tmp):
           f"corr_level: {correlation_cuda.corr_level.launches}",
           flush=True)
     for name, n in counts.items():
-        if n == 0:
+        if n == 0 and name not in BF16_KERNELS:
             fail(f"the pipeline never launched {name}")
     if correlation_cuda.corr_level.launches:
         fail("the pipeline launched the one-level corr kernel")
@@ -1130,16 +1375,15 @@ def room_dataset(cam, num_frames, dir_dataset, dev):
                        cam["height"], cam["width"], device=dev)
 
 
-def record_interp_calls(fn):
-    """Runs ``fn()`` with rows 3 and 4 observed: each call's inputs are
-    kept (tensors cloned, so that later in-place updates of a table do not
-    reach them) and the call goes on to the kernel, whose launch is counted
-    on the kernel's own wrapper as usual. Returns fn's result and the
-    calls."""
+def record_calls(fn, names):
+    """Runs ``fn()`` with the named ``gather_cuda`` wrappers observed: each
+    call's inputs are kept (tensors cloned, so that later in-place updates
+    of a table do not reach them) and the call goes on to the kernel, whose
+    launch is counted on the kernel's own wrapper as usual. Returns fn's
+    result and the calls."""
     from nerf_vo_tpu_torch.ops import gather_cuda as gc
 
-    kernel = {name: getattr(gc, name)
-              for name in ("gather_interp", "gather_interp_mm")}
+    kernel = {name: getattr(gc, name) for name in names}
     calls = []
 
     def recorder(name):
@@ -1166,34 +1410,83 @@ def record_interp_calls(fn):
     return out, calls
 
 
-def hold_interp_calls(calls, label, tag):
-    """Each recorded row-3 / row-4 call, launched again on its own inputs,
-    held against its plain version and timed as phase (a) times it."""
+def hold_calls(calls, label, tag):
+    """Each recorded call, launched again on its own inputs, held against
+    its plain version and timed as phase (a) times it: ``gather_cols``
+    bitwise; rows 3-4 and the scatter within 1e-5 of max(|plain|, 1); a
+    bf16-table ``gather_interp_bf16`` also bitwise against the f32 kernel
+    on the table's values in f32 (its library call, ``embedding_bag``,
+    runs on that f32 copy: it takes no bf16 table with f32 weights).
+    Returns (name, timing with the call's M) for each call."""
     import torch.nn.functional as Fn
 
     from nerf_vo_tpu_torch.ops import gather_cuda as gc
 
-    plain = {"gather_interp": gc.gather_interp_plain,
-             "gather_interp_mm": gc.gather_interp_mm_plain}
+    interp_plain = {"gather_interp": gc.gather_interp_plain,
+                    "gather_interp_bf16": gc.gather_interp_plain,
+                    "gather_interp_mm": gc.gather_interp_mm_plain}
     torch.cuda.synchronize()
+    held = []
     for name, a, kw in calls:
         kernel = getattr(gc, name)
-        t, i, w, F = a[:4]
-        m = i.shape[0]
         got = kernel(*a, **kw)
         torch.cuda.synchronize()
-        err = check_close(f"{name} at {label}", got,
-                          plain[name](t, i, w, F), 1e-5)
-        flat = i.long()[:, None] * 32 + torch.arange(32, device=i.device)
-        view = t.view(-1, F)
-        nbytes = interp_table_bytes(t, i, w, F) + m * (4 + 32 * 4 + F * 4)
-        time_kernel(
-            f"{name} at {label}: M={m} F={F} over {t.shape[0]} bricks"
-            f"{', hot rows ' if kw else ''}{kw.get('hot_rows', '')}",
-            lambda: kernel(*a, **kw), lambda: plain[name](t, i, w, F),
-            lambda: Fn.embedding_bag(flat, view, per_sample_weights=w,
-                                     mode="sum"),
-            nbytes, 2 * m * 32 * F, err, tag=tag)
+        hot = f", hot rows {kw['hot_rows']}" if kw.get("hot_rows") else ""
+        if name == "gather_cols":
+            t, i = a
+            m, R = i.shape[0], t.shape[1]
+            if not torch.equal(got, gc.gather_cols_plain(t, i)):
+                fail(f"gather_cols at {label} differs from its plain version")
+            il = i.long()
+            timing = time_kernel(
+                f"{name} at {label}: M={m} R={R} over {t.shape[0]} bricks",
+                lambda: kernel(t, i), lambda: gc.gather_cols_plain(t, i),
+                lambda: torch.index_select(t, 0, il),
+                table_bytes(t, i) + m * 4 + m * R * 2, 0, 0.0, tag=tag)
+        elif name == "scatter_cols_accum":
+            g, i, nb = a[:3]
+            m, R = g.shape
+            err = check_close(f"{name} at {label}", got,
+                              gc.scatter_cols_accum_plain(g, i, nb), 1e-5)
+            acc = torch.zeros(nb, R, device=g.device)
+            il = i.long()
+            timing = time_kernel(
+                f"{name} at {label}: M={m} R={R} into {nb} bricks{hot}",
+                lambda: kernel(*a, **kw),
+                lambda: gc.scatter_cols_accum_plain(g, i, nb),
+                lambda: acc.index_add_(0, il, g),
+                m * R * 4 + m * 4 + nb * R * 4, m * R, err, tag=tag)
+        else:
+            t, i, w, F = a[:4]
+            m = i.shape[0]
+            err = check_close(f"{name} at {label}", got,
+                              interp_plain[name](t, i, w, F), 1e-5)
+            t32 = t.float()
+            if name == "gather_interp_bf16":
+                if not torch.equal(got, gc.gather_interp(t32, i, w, F)):
+                    fail(f"{name} at {label} is not bitwise the f32 "
+                         "kernel's result on the same values")
+                f32_ms = cuda_ms(lambda: gc.gather_interp(t32, i, w, F), 20)
+                f32_queued = cuda_ms(lambda: gc.gather_interp(t32, i, w, F),
+                                     20, queued=True)
+                f32_bound, _ = bound(interp_table_bytes(t32, i, w, F)
+                                     + m * (4 + 32 * 4 + F * 4), 0)
+                print(f"{tag} the f32 kernel on the same values: "
+                      f"{f32_ms:.4f} ms, queued {f32_queued:.4f} ms, bound "
+                      f"{f32_bound:.4f} ms", flush=True)
+            flat = i.long()[:, None] * 32 + torch.arange(32, device=i.device)
+            view = t32.view(-1, F)
+            nbytes = interp_table_bytes(t, i, w, F) + m * (4 + 32 * 4 + F * 4)
+            timing = time_kernel(
+                f"{name} at {label}: M={m} F={F} over {t.shape[0]} "
+                f"{str(t.dtype)[6:]} bricks{hot}",
+                lambda: kernel(*a, **kw),
+                lambda: interp_plain[name](t, i, w, F),
+                lambda: Fn.embedding_bag(flat, view, per_sample_weights=w,
+                                         mode="sum"),
+                nbytes, 2 * m * 32 * F, err, tag=tag)
+        held.append((name, dict(timing, M=int(a[1].shape[0]))))
+    return held
 
 
 def chunk_shape_timings(mapping):
@@ -1204,9 +1497,10 @@ def chunk_shape_timings(mapping):
     st = mapping.trainer
     c2w = st.optimized_c2w(mapping.state, mapping.buffer)[0]
     intr = mapping.buffer.intrinsics[0] * 0.2
-    _, calls = record_interp_calls(
-        lambda: st.render_image(mapping.state, c2w, intr, 128, 128))
-    hold_interp_calls(calls, "a 16,384-ray render chunk", "(f)")
+    _, calls = record_calls(
+        lambda: st.render_image(mapping.state, c2w, intr, 128, 128),
+        ("gather_interp", "gather_interp_mm"))
+    hold_calls(calls, "a 16,384-ray render chunk", "(f)")
     return len(calls)
 
 
@@ -1567,8 +1861,9 @@ def phase_slam_pipeline(dev, smi, tmp):
             return refresh(self, occ_grid, step, jitter)
         # the last refresh: its rows 3 and 4 inputs are kept for (g2)'s
         # check of those launches against their plain versions
-        grid, calls = record_interp_calls(
-            lambda: refresh(self, occ_grid, step, jitter))
+        grid, calls = record_calls(
+            lambda: refresh(self, occ_grid, step, jitter),
+            ("gather_interp", "gather_interp_mm"))
         refresh_calls[:] = calls
         return grid
 
@@ -1630,7 +1925,7 @@ def phase_slam_pipeline(dev, smi, tmp):
           f"{len(refresh_calls)} table-kernel launches on its "
           f"{occupancy.slab_size(occ)}-cell slab, held against their plain "
           "versions on the same inputs:", flush=True)
-    hold_interp_calls(refresh_calls, "an occupancy refresh's slab", "(g2)")
+    hold_calls(refresh_calls, "an occupancy refresh's slab", "(g2)")
     pred = args.dir_prediction
     want = PREDICTION_FILES | {f"snapshots/{s}{iters:06d}.pt"
                                for s in ("trainstate", "snapshot")}
@@ -1759,10 +2054,13 @@ def main():
     print(f"(d) launches on the mapping path: {counts}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     for name, n in counts.items():
-        if n == 0:
+        if n == 0 and name not in BF16_KERNELS:
             fail(f"the mapping path never launched {name}")
 
-    del packets, enhanced  # phases (b)-(d) hold nothing on the card now
+    variant_launches, held = phase_variants(dev, smi, enhanced, frame_of)
+    phase_pyramid(dev, smi)
+
+    del packets, enhanced  # phases (b)-(d), (h) hold nothing on the card now
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1791,10 +2089,22 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     slam_counts = phase_slam(dev, smi)
-    for entry in kernels:  # the launches of the user's entry points
-        entry["launches"] = counts[entry["name"]]
-        entry["evaluation_launches"] = eval_counts[entry["name"]]
-        entry["slam_launches"] = slam_counts[entry["name"]]
+    bf16_entry = dict(held["h2"][0][1], name="gather_interp_bf16",
+                      route="cuda", source="nerf_vo_tpu_torch/csrc/gather.cu",
+                      replaces="nerf_vo_tpu/ops/gather_pallas.py:133",
+                      shapes=[t for _, t in held["h2"]])
+    for entry in kernels + [bf16_entry]:  # launches of the entry points
+        name = entry["name"]
+        entry["launches"] = counts[name]
+        entry["evaluation_launches"] = eval_counts[name]
+        entry["slam_launches"] = slam_counts[name]
+        for tag, c in variant_launches.items():  # (h) runs no tracking
+            entry[f"{tag}_launches"] = c.get(name, 0)
+        if name in TABLE_ROWS:
+            entry["h1_proposal_f2"] = [t for n, t in held["h1"] if n == name]
+    # the bf16 kernel's path is (h2)'s: no other path has a bf16 table
+    bf16_entry["launches"] = variant_launches["h2"]["gather_interp_bf16"]
+    kernels.append(bf16_entry)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,8 @@
 //       out[t, :] = bf16(tab[idx[t], :])                    [M, R] bf16
 //   gather_interp      <- gather_interp (:133, kernel :110)
 //       out[t, f] = sum_{e<32} w[t, e] * bf16(tab[idx[t], e*F + f])   f32
+//   gather_interp_bf16 <- the same TPU kernel, on a bf16 table (the dense
+//       proposal grids' proposal_table_dtype: bfloat16)
 //   gather_interp_mm   <- gather_interp_mm (:219, kernel :171)
 //       the same function, for the dense small-table levels (the TPU kernel
 //       pinned the whole level in VMEM and contracted with one-hot matmuls)
@@ -18,7 +20,10 @@
 //       out[b, :] += g[t, :] for every t with idx[t] == b     f32
 //
 // bf16(.) is round-to-nearest-even, done in registers on the f32 parameter
-// table: no bf16 copy of the table is made. Weights, sums and outputs of the
+// table: no bf16 copy of the table is made. gather_interp_bf16 reads a bf16
+// table as it is stored: bf16(.) is then exact, and it gives bitwise the
+// f32 kernel's result on the same values in f32 (the same live entries,
+// the same products summed in the same order). Weights, sums and outputs of the
 // interpolation are f32 (the Pallas contract had bf16 w and out). A
 // descriptor whose id lies outside [0, n_bricks) reads zeros (gathers) or is
 // dropped (scatter).
@@ -60,7 +65,10 @@
 // waited for the one before it (0.0965 ms against 0.0488 at the field's
 // hashed levels). A reduce-scatter over the L
 // lanes leaves each lane one output feature (a 32 B store per descriptor
-// at F = 8).
+// at F = 8). The table's element type is a template parameter: a bf16
+// table is read in loads of half the width (at F = 1, 8 bytes for 4
+// entries, read where any of their weights is non-zero, as the f32 kernel
+// groups them), so a descriptor moves half the table bytes.
 //
 // gather_interp_mm: the level is small (512 bricks at F = 8: 221,184 B as
 // the 27 real entries in bf16), so the table is not what must move; the
@@ -95,6 +103,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -479,13 +489,133 @@ __device__ __forceinline__ float2 ldg_f2_if(const float* p, bool pred) {
   return v;
 }
 
-template <int F, int L>
+// 16 / 8 / 4 raw bytes at p where pred holds, else zeros (bf16 tables).
+__device__ __forceinline__ uint4 ldg_u4_if(const void* p, bool pred) {
+  uint4 v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %5, 0;\n\t"
+      "mov.b32 %0, 0;\n\tmov.b32 %1, 0;\n\tmov.b32 %2, 0;\n\t"
+      "mov.b32 %3, 0;\n\t"
+      "@q ld.global.nc.v4.b32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+__device__ __forceinline__ uint2 ldg_u2_if(const void* p, bool pred) {
+  uint2 v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %3, 0;\n\t"
+      "mov.b32 %0, 0;\n\tmov.b32 %1, 0;\n\t"
+      "@q ld.global.nc.v2.b32 {%0, %1}, [%2];\n\t}"
+      : "=r"(v.x), "=r"(v.y)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ldg_u1_if(const void* p, bool pred) {
+  uint32_t v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %2, 0;\n\t"
+      "mov.b32 %0, 0;\n\t"
+      "@q ld.global.nc.b32 %0, [%1];\n\t}"
+      : "=r"(v)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+// The F values of entries k .. k + n - 1 of a bf16 row, unpacked from the
+// 32-bit words u (2 bf16 a word, the lower first) into v[k + i][f].
+template <int F, int EP>
+__device__ __forceinline__ void unpack_bf16(const uint32_t* u, int k, int n,
+                                            float (&v)[EP][F]) {
+#pragma unroll
+  for (int i = 0; i < n * F; ++i) {
+    const uint32_t word = u[i / 2];
+    v[k + i / F][i % F] = (i & 1) ? bf16_hi(word) : bf16_lo(word);
+  }
+}
+
+// A descriptor's row loads for one lane: entries EP j .. EP j + EP - 1 of
+// row b, each read only where its weight is live (at F = 1, groups of 4
+// entries read where any weight is live). T = float keeps the raw f32
+// values (rounded at the sum); T = __nv_bfloat16 reads the stored bf16.
+template <typename T, int F, int EP>
+__device__ __forceinline__ void gi_load_row(const T* __restrict__ tab,
+                                            int b, bool ok, int j,
+                                            const float (&we)[EP],
+                                            float (&v)[EP][F]) {
+  constexpr int R = 32 * F;
+  const T* row = tab + static_cast<long long>(ok ? b : 0) * R + j * EP * F;
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (F == 1) {
+#pragma unroll
+      for (int g = 0; g < EP / 4; ++g) {
+        const bool live = ok && (we[4 * g] != 0.f || we[4 * g + 1] != 0.f ||
+                                 we[4 * g + 2] != 0.f || we[4 * g + 3] != 0.f);
+        const float4 x = ldg_f4_if(row + 4 * g, live);
+        v[4 * g + 0][0] = x.x;
+        v[4 * g + 1][0] = x.y;
+        v[4 * g + 2][0] = x.z;
+        v[4 * g + 3][0] = x.w;
+      }
+    } else if constexpr (F == 2) {
+#pragma unroll
+      for (int k = 0; k < EP; ++k) {
+        const float2 x = ldg_f2_if(row + k * F, ok && we[k] != 0.f);
+        v[k][0] = x.x;
+        v[k][1] = x.y;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < EP; ++k) {
+#pragma unroll
+        for (int h = 0; h < F / 4; ++h) {
+          const float4 x = ldg_f4_if(row + k * F + 4 * h, ok && we[k] != 0.f);
+          v[k][4 * h + 0] = x.x;
+          v[k][4 * h + 1] = x.y;
+          v[k][4 * h + 2] = x.z;
+          v[k][4 * h + 3] = x.w;
+        }
+      }
+    }
+  } else {
+    if constexpr (F == 1) {
+#pragma unroll
+      for (int g = 0; g < EP / 4; ++g) {
+        const bool live = ok && (we[4 * g] != 0.f || we[4 * g + 1] != 0.f ||
+                                 we[4 * g + 2] != 0.f || we[4 * g + 3] != 0.f);
+        const uint2 x = ldg_u2_if(row + 4 * g, live);
+        const uint32_t u[2] = {x.x, x.y};
+        unpack_bf16<F, EP>(u, 4 * g, 4, v);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < EP; ++k) {
+        const bool live = ok && we[k] != 0.f;
+        if constexpr (F == 2) {
+          const uint32_t u[1] = {ldg_u1_if(row + k * F, live)};
+          unpack_bf16<F, EP>(u, k, 1, v);
+        } else if constexpr (F == 4) {
+          const uint2 x = ldg_u2_if(row + k * F, live);
+          const uint32_t u[2] = {x.x, x.y};
+          unpack_bf16<F, EP>(u, k, 1, v);
+        } else {
+          const uint4 x = ldg_u4_if(row + k * F, live);
+          const uint32_t u[4] = {x.x, x.y, x.z, x.w};
+          unpack_bf16<F, EP>(u, k, 1, v);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int F, int L>
 __global__ void __launch_bounds__(kGiThreads) gather_interp_kernel(
-    const float* __restrict__ tab, const int* __restrict__ idx,
+    const T* __restrict__ tab, const int* __restrict__ idx,
     const float* __restrict__ w, float* __restrict__ out, int M,
     int n_bricks) {
   static_assert(F <= L && 32 % L == 0 && L <= 8, "lanes per descriptor");
-  constexpr int R = 32 * F;
   constexpr int EP = 32 / L;  // entries per lane
   constexpr int NV = EP / 4;  // 16-byte weight loads per lane
   constexpr int DPW = 32 / L;  // descriptors per warp
@@ -515,9 +645,6 @@ __global__ void __launch_bounds__(kGiThreads) gather_interp_kernel(
 #pragma unroll
     for (int u = 0; u < kGiUnroll; ++u) {
       const int b = bv[u];
-      const bool ok = b >= 0 && b < n_bricks;
-      const float* row =
-          tab + static_cast<long long>(ok ? b : 0) * R + j * EP * F;
 #pragma unroll
       for (int g = 0; g < NV; ++g) {
         we[u][4 * g + 0] = wv[u][g].x;
@@ -525,39 +652,7 @@ __global__ void __launch_bounds__(kGiThreads) gather_interp_kernel(
         we[u][4 * g + 2] = wv[u][g].z;
         we[u][4 * g + 3] = wv[u][g].w;
       }
-      if constexpr (F == 1) {
-        // 4 entries are one 16-byte load: read where any weight is live
-#pragma unroll
-        for (int g = 0; g < NV; ++g) {
-          const bool live = ok && (wv[u][g].x != 0.f || wv[u][g].y != 0.f ||
-                                   wv[u][g].z != 0.f || wv[u][g].w != 0.f);
-          const float4 x = ldg_f4_if(row + 4 * g, live);
-          v[u][4 * g + 0][0] = x.x;
-          v[u][4 * g + 1][0] = x.y;
-          v[u][4 * g + 2][0] = x.z;
-          v[u][4 * g + 3][0] = x.w;
-        }
-      } else if constexpr (F == 2) {
-#pragma unroll
-        for (int k = 0; k < EP; ++k) {
-          const float2 x = ldg_f2_if(row + k * F, ok && we[u][k] != 0.f);
-          v[u][k][0] = x.x;
-          v[u][k][1] = x.y;
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < EP; ++k) {
-#pragma unroll
-          for (int h = 0; h < F / 4; ++h) {
-            const float4 x =
-                ldg_f4_if(row + k * F + 4 * h, ok && we[u][k] != 0.f);
-            v[u][k][4 * h + 0] = x.x;
-            v[u][k][4 * h + 1] = x.y;
-            v[u][k][4 * h + 2] = x.z;
-            v[u][k][4 * h + 3] = x.w;
-          }
-        }
-      }
+      gi_load_row<T, F, EP>(tab, b, b >= 0 && b < n_bricks, j, we[u], v[u]);
     }
 #pragma unroll
     for (int u = 0; u < kGiUnroll; ++u) {
@@ -585,11 +680,11 @@ __global__ void __launch_bounds__(kGiThreads) gather_interp_kernel(
   }
 }
 
-template <int F, int L>
-int launch_interp(const float* tab, const int* idx, const float* w,
+template <typename T, int F, int L>
+int launch_interp(const T* tab, const int* idx, const float* w,
                   float* out, int M, int n_bricks, cudaStream_t stream) {
   static KernelFacts facts[kMaxDevices];
-  auto kernel = gather_interp_kernel<F, L>;
+  auto kernel = gather_interp_kernel<T, F, L>;
   long long blocks = 0;
   cudaError_t err = resident_grid(kernel, facts, kGiThreads, 0, 0, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -704,6 +799,19 @@ int launch_scatter(const float* g, const int* idx, float* out, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int dispatch_interp(const T* tab, const int* idx, const float* w, float* out,
+                    int M, int F, int n_bricks, cudaStream_t s) {
+  switch (F) {
+    case 1: return launch_interp<T, 1, kGiLanesF1>(tab, idx, w, out, M,
+                                                   n_bricks, s);
+    case 2: return launch_interp<T, 2, 8>(tab, idx, w, out, M, n_bricks, s);
+    case 4: return launch_interp<T, 4, 8>(tab, idx, w, out, M, n_bricks, s);
+    case 8: return launch_interp<T, 8, 8>(tab, idx, w, out, M, n_bricks, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Every entry point launches on `stream` and returns the cudaError_t of the
@@ -732,13 +840,20 @@ extern "C" int gather_interp(const void* tab, const void* idx, const void* w,
   const float* wt = static_cast<const float*>(w);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (F) {
-    case 1: return launch_interp<1, kGiLanesF1>(tb, ix, wt, o, M, n_bricks, s);
-    case 2: return launch_interp<2, 8>(tb, ix, wt, o, M, n_bricks, s);
-    case 4: return launch_interp<4, 8>(tb, ix, wt, o, M, n_bricks, s);
-    case 8: return launch_interp<8, 8>(tb, ix, wt, o, M, n_bricks, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch_interp(tb, ix, wt, o, M, F, n_bricks, s);
+}
+
+// The same function on a bf16 table [n_bricks, 32F]: bitwise the f32
+// entry's result on the table's values in f32.
+extern "C" int gather_interp_bf16(const void* tab, const void* idx,
+                                  const void* w, void* out, int M, int F,
+                                  int n_bricks, void* stream) {
+  if (M == 0) return 0;
+  return dispatch_interp(static_cast<const __nv_bfloat16*>(tab),
+                         static_cast<const int*>(idx),
+                         static_cast<const float*>(w),
+                         static_cast<float*>(out), M, F, n_bricks,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The same function; the table's rows [0, hot) (at most what 227 KB holds

@@ -5,22 +5,37 @@ ray batch from the keyframe buffer, renders, computes the loss set, and
 applies Adam to the field parameters (lr 1e-2, eps 1e-15) and to the
 per-keyframe SE3 pose corrections (Adam, eps 1e-8, lr decaying
 exponentially from 1e-4 to 1e-5 over ``max_iterations``; keyframe 0, the
-gauge anchor, frozen). The distilled proposal grids take no optimizer
-step; every ``proposal_refresh_every`` steps their rotating slab is
-rewritten from the updated field. Under ``sampler="occupancy"`` the train
-state carries the occupancy grid, refreshed from the updated field every
+gauge anchor, frozen). One Adam holds every trainable parameter (the
+proposal fields' too, except distilled dense grids, which require no grad
+and hold no moments); a bf16 parameter (a dense grid under
+``proposal_table_dtype: bfloat16`` trained by the interlevel loss) gets its
+gradient in bf16 and bf16 moments, as optax keeps a parameter's dtype.
+Distilled dense proposal grids take no optimizer step; every
+``proposal_refresh_every`` steps their rotating slab is rewritten from the
+updated field. Under ``sampler="occupancy"`` the train state carries the
+occupancy grid, refreshed from the updated field every
 ``occupancy.update_every`` steps.
+
+Prefetch (``TrainerConfig.prefetch_batch``, by default on where
+``NERF_VO_PREFETCH_BATCH=1``, as in the JAX package; the port reads the
+variable when a config is made, the JAX package at import): step t trains
+on the pixel batch (picks and pixel values) sampled during step t-1, and
+samples step t+1's; the first call fills the buffer first. Rays are still
+made from the current pose corrections.
 
 Random draws: ``train_step(state, buffer, draws)`` takes the step's pixel
 picks and stratification uniforms when given (``{"frame", "py", "px",
-"uniforms"}``, plus ``"occ_jitter"`` on an occupancy refresh step; see
-:meth:`MappingTrainer.draws`), else draws them from the trainer's own
-``torch.Generator``.
+"uniforms"}``, plus ``"occ_jitter"`` on an occupancy refresh step,
+``"distill_points"`` under MLP proposals and, in prefetch mode, ``"fill"``
+picks for the first call; see :meth:`MappingTrainer.draws`), else draws
+them from the trainer's own ``torch.Generator``. In prefetch mode the picks
+are the next step's batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -31,15 +46,21 @@ from nerf_vo_tpu_torch.models.nerfacto import NerfactoModel
 from nerf_vo_tpu_torch.ops import occupancy as O
 
 
+def _prefetch_default() -> bool:
+    return os.environ.get("NERF_VO_PREFETCH_BATCH", "0") == "1"
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     rays_per_batch: int = 4096
-    learning_rate: float = 1e-2  # fields (Adam)
+    learning_rate: float = 1e-2  # fields and proposals (Adam)
     camera_learning_rate: float = 1e-4
     camera_lr_final: float = 1e-5
     max_iterations: int = 8192  # mapping_iterations
     optimize_extrinsics: bool = True
     eps: float = 1e-15
+    prefetch_batch: bool = dataclasses.field(
+        default_factory=_prefetch_default)
 
 
 @dataclasses.dataclass
@@ -54,6 +75,7 @@ class TrainState:
     cam_opt: torch.optim.Adam
     step: int
     occ_grid: Optional[torch.Tensor] = None  # [res^3] under "occupancy"
+    prefetch: Optional[Dict] = None  # next step's pixel batch (prefetch)
 
 
 class MappingTrainer:
@@ -68,8 +90,8 @@ class MappingTrainer:
 
     def init(self) -> TrainState:
         """Optimizer state for the model's current parameters. Distilled
-        proposal grids do not require grad, so Adam never holds moments for
-        them."""
+        dense proposal grids do not require grad, so Adam never holds
+        moments for them."""
         params = {n: p for n, p in self.model.named_parameters()
                   if p.requires_grad}
         pose_deltas = torch.zeros(self.num_keyframes, 6, device=self.device,
@@ -99,12 +121,33 @@ class MappingTrainer:
         return (state.occ_grid is not None and state.step
                 % self.model.config.occupancy.update_every == 0)
 
+    def _distills_mlp(self) -> bool:
+        mcfg = self.model.config
+        return (mcfg.proposal_training == "distill"
+                and mcfg.proposal_type == "mlp"
+                and len(self.model.proposal_fields) > 0)
+
+    def refreshes_proposals(self, state: TrainState) -> bool:
+        """Whether this step ends with the proposal refresh: distilled
+        DENSE grids only (MLP proposals distill in the loss, other
+        proposals train by gradient), every ``proposal_refresh_every``
+        steps."""
+        mcfg = self.model.config
+        return (mcfg.proposal_training == "distill"
+                and mcfg.proposal_type == "dense"
+                and len(self.model.proposal_fields) > 0
+                and state.step % mcfg.proposal_refresh_every == 0)
+
     def draws(self, buffer: kb.KeyframeBuffer, state: TrainState) -> Dict:
         """One step's random draws from the trainer's generator: pixel
-        picks, stratification uniforms and, on an occupancy refresh step,
-        the slab jitter ``occ_jitter``."""
+        picks (in prefetch mode the next step's, plus the first call's
+        ``fill``), stratification uniforms, on an occupancy refresh step
+        the slab jitter ``occ_jitter``, and under MLP proposals the
+        distillation's ``distill_points``."""
         R = self.config.rays_per_batch
         d = kb.draw_pixels(buffer, R, self.generator)
+        if self.config.prefetch_batch and state.prefetch is None:
+            d["fill"] = kb.draw_pixels(buffer, R, self.generator)
         d["uniforms"] = [
             torch.rand(shape, generator=self.generator, device=self.device)
             for shape in self.model.uniform_shapes(R)]
@@ -112,30 +155,46 @@ class MappingTrainer:
             d["occ_jitter"] = torch.rand(
                 O.slab_size(self.model.config.occupancy), 3,
                 generator=self.generator, device=self.device)
+        if self._distills_mlp():
+            d["distill_points"] = torch.rand(
+                self.model.config.proposal_distill_points, 3,
+                generator=self.generator, device=self.device)
         return d
 
     def train_step(self, state: TrainState, buffer: kb.KeyframeBuffer,
                    draws: Optional[Dict] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimization step, in place on ``state``: grads, the two
-        Adam updates, then on the updated field the proposal refresh when
-        ``step % proposal_refresh_every == 0`` or the occupancy refresh when
+        Adam updates, then on the updated field the dense proposal grids'
+        refresh when ``step % proposal_refresh_every == 0`` (distilled
+        dense grids only) or the occupancy refresh when
         ``step % occupancy.update_every == 0``, then step + 1."""
         if draws is None:
             draws = self.draws(buffer, state)
         cfg = self.config
+        R = cfg.rays_per_batch
         deltas = state.pose_deltas if cfg.optimize_extrinsics else None
-        batch = kb.sample_ray_batch(buffer, deltas, cfg.rays_per_batch,
-                                    picks=draws)
-        loss, metrics = self.model.loss(batch, draws["uniforms"],
-                                        occ_grid=state.occ_grid)
+        if cfg.prefetch_batch:
+            if state.prefetch is None:  # the first call fills the buffer
+                state.prefetch = kb.sample_pixel_batch(
+                    buffer, R, draws.get("fill"), self.generator)
+            pixels = state.prefetch
+            # the next step's batch, sampled before this step's update
+            state.prefetch = kb.sample_pixel_batch(buffer, R, picks=draws)
+            batch = kb.rays_from_pixel_batch(buffer, deltas, pixels)
+        else:
+            batch = kb.sample_ray_batch(buffer, deltas, R, picks=draws)
+        loss, metrics = self.model.loss(
+            batch, draws["uniforms"], occ_grid=state.occ_grid,
+            step=state.step, distill_points=draws.get("distill_points"))
 
         leaves: List[torch.Tensor] = list(state.params.values())
         if cfg.optimize_extrinsics:
             leaves.append(state.pose_deltas)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         for p, g in zip(leaves, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
+            # a bf16 parameter steps in bf16, as optax keeps its dtype
+            p.grad = torch.zeros_like(p) if g is None else g.to(p.dtype)
         state.opt.step()
         if cfg.optimize_extrinsics:
             state.pose_deltas.grad[0] = 0.0  # keyframe 0: the gauge anchor
@@ -145,9 +204,7 @@ class MappingTrainer:
         for p in leaves:
             p.grad = None
 
-        mcfg = self.model.config
-        if (self.model.proposal_fields
-                and state.step % mcfg.proposal_refresh_every == 0):
+        if self.refreshes_proposals(state):
             self.model.refresh_proposals(state.step)
         if self._refreshes_occupancy(state):
             state.occ_grid = self.model.refresh_occupancy(

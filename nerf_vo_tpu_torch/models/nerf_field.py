@@ -1,10 +1,13 @@
 """Hash-grid NeRF fields (nerfacto family).
 
-Counterpart of ``nerf_vo_tpu/models/nerf_field.py`` for the fields the
-nerfacto mapper runs by default: :class:`DenseProposalField` (one dense
-level of density-logit bricks, F = 1) and :class:`NerfactoField` (hash grid
--> density + geometry feature; SH view directions + appearance embedding ->
-rgb; geometry feature -> predicted normals).
+Counterpart of ``nerf_vo_tpu/models/nerf_field.py``: the three proposal
+fields, :class:`DenseProposalField` (one dense level of density-logit
+bricks, F = 1, in an f32 or bf16 table), :class:`ProposalDensityField`
+(nerfstudio's ``HashMLPDensityField``: a 5-level F = 2 hash grid and a
+16-wide MLP) and :class:`MLPProposalField` (a Fourier-feature MLP, no
+table), and :class:`NerfactoField` (hash grid -> density + geometry
+feature; SH view directions + appearance embedding -> rgb; geometry
+feature -> predicted normals).
 
 The MLPs compute in bf16 as the JAX package's Flax ``MLP`` does: input,
 weight and bias cast to bf16, the product and the bias add each rounded to
@@ -106,18 +109,81 @@ def dense_grid(resolution: int) -> HashGridConfig:
     )
 
 
+class ProposalDensityField(_UnitCube):
+    """Small hash grid -> density (nerfstudio's ``HashMLPDensityField``):
+    the grid's features through a ``hidden``-wide 1-layer MLP, then
+    ``trunc_exp(h - 1)``. Its table and MLP are trained weights."""
+
+    def __init__(self, grid: HashGridConfig = HashGridConfig(5, 2, 17, 16,
+                                                             256),
+                 hidden: int = 16, use_contraction: bool = True,
+                 aabb_min: float = -1.0, aabb_max: float = 1.0):
+        super().__init__(use_contraction, aabb_min, aabb_max)
+        self.grid = grid
+        self.mlp = MLP(grid.output_dim, hidden, 1, 1)
+        self.tables = nn.Parameter(hash_grid.init_tables(grid))
+
+    def forward(self, positions):
+        """positions [..., 3] world-frame -> density [...]."""
+        feat = hash_grid.hash_encode(self.tables, self._to_unit(positions),
+                                     self.grid)
+        return trunc_exp(self.mlp(feat)[..., 0] - 1.0)
+
+
+class MLPProposalField(_UnitCube):
+    """Fourier-feature MLP -> density: no table, so no table kernel. It
+    trains by distillation from the field (``NerfactoModel.loss``)."""
+
+    def __init__(self, n_freqs: int = 6, hidden: int = 64, depth: int = 2,
+                 use_contraction: bool = True, aabb_min: float = -1.0,
+                 aabb_max: float = 1.0):
+        super().__init__(use_contraction, aabb_min, aabb_max)
+        self.n_freqs = n_freqs
+        self.mlp = MLP(3 + 6 * n_freqs, hidden, depth, 1)
+
+    def _encode(self, unit):
+        # NeRF positional encoding on [-1, 1]^3: [x, sin/cos(2^k pi x)]
+        x = unit * 2.0 - 1.0
+        k = 2.0 ** torch.arange(self.n_freqs, dtype=torch.float32,
+                                device=x.device) * math.pi
+        ang = x[..., None] * k  # [..., 3, n_freqs]
+        enc = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+            x.shape[:-1] + (6 * self.n_freqs,))
+        return torch.cat([x, enc], dim=-1)
+
+    def logit_unit(self, unit_positions):
+        """Density logit at unit-cube coordinates (before the ``- 1``
+        shift): the distillation's prediction space."""
+        return self.mlp(self._encode(unit_positions))[..., 0]
+
+    def logit(self, positions):
+        """Density logit at world coordinates."""
+        return self.logit_unit(self._to_unit(positions))
+
+    def forward(self, positions):
+        """positions [..., 3] world-frame -> density [...]."""
+        return trunc_exp(self.logit(positions) - 1.0)
+
+
 class DenseProposalField(_UnitCube):
     """Dense voxel density grid -> density: the 1-level / 1-feature case of
     the brick grid at the proposal's resolution, storing density logits
-    directly (no MLP). Its table is refreshed data, not a trained weight
-    (distilled proposals): ``tables`` does not require grad."""
+    directly (no MLP). Distilled proposals refresh the table as data
+    (``trainable=False``: it does not require grad); under the interlevel
+    loss it is a trained weight. ``table_dtype`` "bfloat16" stores the
+    table in bf16 (the encode reads it as bf16 either way)."""
 
     def __init__(self, resolution: int = 128, use_contraction: bool = True,
-                 aabb_min: float = -1.0, aabb_max: float = 1.0):
+                 aabb_min: float = -1.0, aabb_max: float = 1.0,
+                 table_dtype: str = "float32", trainable: bool = False):
         super().__init__(use_contraction, aabb_min, aabb_max)
         self.resolution = resolution
-        self.tables = nn.Parameter(hash_grid.init_tables(self.grid),
-                                   requires_grad=False)
+        if table_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"table_dtype {table_dtype!r}: 'float32' or "
+                             "'bfloat16'")
+        self.tables = nn.Parameter(
+            hash_grid.init_tables(self.grid).to(getattr(torch, table_dtype)),
+            requires_grad=trainable)
 
     @property
     def grid(self) -> HashGridConfig:
@@ -157,13 +223,41 @@ class NerfactoField(_UnitCube):
             self.normal_mlp = MLP(geo_feat_dim, hidden, 2, 3)
         self.tables = nn.Parameter(hash_grid.init_tables(grid))
 
-    def density(self, positions):
-        return self.density_unit_features(self._to_unit(positions))
+    def density(self, positions, grad_phase=None):
+        """(density, geo_feat) at world positions. ``grad_phase``: the
+        train step, where the table gradient is phased (see
+        ``hash_grid.hash_encode``)."""
+        return self.density_unit_features(self._to_unit(positions),
+                                          grad_phase)
 
-    def density_unit_features(self, unit_positions):
-        feat = hash_grid.hash_encode(self.tables, unit_positions, self.grid)
+    def density_unit_features(self, unit_positions, grad_phase=None):
+        feat = hash_grid.hash_encode(self.tables, unit_positions, self.grid,
+                                     grad_phase)
         h = self.density_mlp(feat)
         return trunc_exp(h[..., 0] - 1.0), h[..., 1:]
+
+    def density_and_gradient(self, positions, grad_phase=None):
+        """(density, geo_feat, g): the density and geometry feature as
+        :meth:`density` gives them, in the caller's graph, and
+        g = d(density)/d(positions), detached (a normal target). g comes
+        from the same encode: the MLP's input gradient, then the hash
+        grid's position pullback (``hash_encode_vjp``: no table gradient is
+        made for it), then the contraction's."""
+        p = positions.detach().requires_grad_(True)
+        with torch.enable_grad():
+            unit_p = self._to_unit(p)
+        unit = self._to_unit(positions)
+        feat, pullback = hash_grid.hash_encode_vjp(self.tables, unit,
+                                                   self.grid, grad_phase)
+        with torch.enable_grad():
+            if not feat.requires_grad:
+                feat.requires_grad_(True)
+            h = self.density_mlp(feat)
+            density = trunc_exp(h[..., 0] - 1.0)
+            (g_feat,) = torch.autograd.grad(
+                density, feat, torch.ones_like(density), retain_graph=True)
+            (g,) = torch.autograd.grad(unit_p, p, pullback(g_feat))
+        return density, h[..., 1:], g
 
     def density_unit(self, unit_positions):
         """Density at coordinates already in the unit cube."""
@@ -192,7 +286,7 @@ def _mlp_from_jax(prefix: str, tree) -> Dict[str, torch.Tensor]:
     for i in range(len(tree)):
         dense = tree[f"Dense_{i}"]
         out[f"{prefix}.layers.{i}.weight"] = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(dense["kernel"], np.float32).T))
+            np.array(np.asarray(dense["kernel"], np.float32).T))
         out[f"{prefix}.layers.{i}.bias"] = torch.from_numpy(
             np.asarray(dense["bias"], np.float32).copy())
     return out
@@ -200,13 +294,18 @@ def _mlp_from_jax(prefix: str, tree) -> Dict[str, torch.Tensor]:
 
 def from_jax_params(params_np) -> Dict[str, torch.Tensor]:
     """One field's JAX parameter tree (nested numpy dicts) -> this module's
-    ``state_dict``: feature-major tables transposed to brick-major, each
-    Dense kernel ``[in, out]`` to a Linear weight ``[out, in]``, ``Embed``
+    ``state_dict``: feature-major tables transposed to brick-major (in
+    their dtype), each Dense kernel ``[in, out]`` to a Linear weight
+    ``[out, in]`` (a proposal field's ``MLP_0`` is its ``mlp``), ``Embed``
     to ``Embedding``."""
-    out = {"tables": hash_grid.tables_from_jax(params_np["tables"])}
-    for name in ("density_mlp", "color_mlp", "normal_mlp"):
+    out = {}
+    if "tables" in params_np:
+        out["tables"] = hash_grid.tables_from_jax(params_np["tables"])
+    for name, port in (("density_mlp", "density_mlp"),
+                       ("color_mlp", "color_mlp"),
+                       ("normal_mlp", "normal_mlp"), ("MLP_0", "mlp")):
         if name in params_np:
-            out.update(_mlp_from_jax(name, params_np[name]))
+            out.update(_mlp_from_jax(port, params_np[name]))
     if "embedding" in params_np:
         out["embedding.weight"] = torch.from_numpy(np.asarray(
             params_np["embedding"]["embedding"], np.float32).copy())

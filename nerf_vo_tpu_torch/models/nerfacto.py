@@ -1,26 +1,36 @@
 """Nerfacto-equivalent NeRF model: proposal sampling + hash field + losses.
 
-Counterpart of ``nerf_vo_tpu/models/nerfacto.py``. Two dense proposal
-density grids drive PDF resampling; a hash-grid field renders RGB, depth and
-normals; the loss set is RGB MSE + distortion + DS-NeRF (or L2) depth +
-monosdf normal + orientation / predicted-normal. Proposals train by
-distillation: their grids carry no gradients, and
-:meth:`NerfactoModel.refresh_proposals` rewrites a rotating brick slab from
-the current field density.
+Counterpart of ``nerf_vo_tpu/models/nerfacto.py``. Two proposal density
+fields drive PDF resampling; a hash-grid field renders RGB, depth and
+normals; the loss set is RGB MSE + interlevel + distortion + DS-NeRF (or L2)
+depth + monosdf normal + orientation / predicted-normal (+ the MLP
+proposals' distillation).
+
+Proposal fields (``proposal_type``): "dense" grids (f32 or bf16 tables,
+``proposal_table_dtype``), nerfstudio's "hash" grid + MLP, or a Fourier
+"mlp". How they train (``proposal_training``): "distill" (default) keeps
+their density out of the graph; dense grids are then rewritten slab by
+slab from the field (:meth:`NerfactoModel.refresh_proposals`) and MLP
+proposals regress the field's log-density in the loss. "interlevel"
+(nerfacto's own) keeps their density in the graph, so the interlevel loss
+trains them and the pose gradient runs through their samples too.
+Density-gradient normals (``grad_normal_mode``) are taken at every final
+sample ("samples", nerfacto's) or at one surface point a ray ("surface").
 
 The Instant-NGP mapper (``sampler="occupancy"``) has no proposal fields:
 occupancy-grid weights at 128 uniform coarse bins drive the PDF resampler
 (``ops/occupancy.py``), and :meth:`NerfactoModel.refresh_occupancy`
 re-evaluates a rotating slab of the grid from the current field.
 
-Ported paths: ``proposal_type="dense"`` with ``proposal_training="distill"``
-and f32 proposal tables, ``sampler`` "proposal" or "occupancy",
-``grad_normal_mode`` in {"surface", "none"}, single device. A configuration
-that selects another path raises ``NotImplementedError``.
+Every single-device path of the JAX model is ported; ``model_axis`` and
+``descriptor_sharding`` (the multi-device tables) raise
+``NotImplementedError``, as does a ``sampler`` other than "proposal" or
+"occupancy".
 
 Random numbers come in as arguments: ``uniforms`` is the list of
 stratification uniforms of one render (the bin jitter ``[R, S0+1]``, then one
-``[R, n+1]`` per PDF resampling), where the JAX package splits a key.
+``[R, n+1]`` per PDF resampling), where the JAX package splits a key; and
+``distill_points``, the MLP proposals' uniform unit-cube points.
 """
 
 from __future__ import annotations
@@ -35,7 +45,9 @@ from nerf_vo_tpu_torch.models import nerf_field
 from nerf_vo_tpu_torch.models.nerf_field import (
     DenseProposalField,
     HashGridConfig,
+    MLPProposalField,
     NerfactoField,
+    ProposalDensityField,
 )
 from nerf_vo_tpu_torch.ops import losses as L
 from nerf_vo_tpu_torch.ops import occupancy as O
@@ -95,12 +107,7 @@ def check_ported(cfg: NerfactoConfig) -> None:
     """Raise NotImplementedError for a configuration this port does not
     run yet."""
     unported = {
-        "proposal_type": (cfg.proposal_type, ("dense",)),
-        "proposal_training": (cfg.proposal_training, ("distill",)),
-        "proposal_table_dtype": (cfg.proposal_table_dtype, ("float32",)),
         "sampler": (cfg.sampler, ("proposal", "occupancy")),
-        "grad_normal_mode": (cfg.grad_normal_mode, ("surface", "none")),
-        "table_grad_phase": (cfg.table_grad_phase, (False,)),
         "model_axis": (cfg.model_axis, (None,)),
         "descriptor_sharding": (cfg.descriptor_sharding, (False,)),
     }
@@ -122,11 +129,25 @@ class NerfactoModel(nn.Module):
         self.config = config
         common = dict(use_contraction=config.use_contraction,
                       aabb_min=config.aabb_min, aabb_max=config.aabb_max)
+        n_prop = len(config.num_proposal_samples)
+        if config.proposal_type == "dense":
+            fields = [DenseProposalField(
+                resolution=r, table_dtype=config.proposal_table_dtype,
+                trainable=config.proposal_training != "distill", **common)
+                for r in config.proposal_resolutions]
+        elif config.proposal_type == "mlp":
+            if config.proposal_training != "distill":
+                raise ValueError(
+                    "MLP proposals have no interlevel gradient path; they "
+                    "train by density distillation "
+                    "(proposal_training='distill')")
+            fields = [MLPProposalField(n_freqs=f, **common)
+                      for f in config.proposal_mlp_freqs]
+        else:  # "hash": nerfstudio's two HashMLPDensityFields
+            fields = [ProposalDensityField(grid=HashGridConfig(
+                5, 2, 17, 16, res), hidden=16, **common) for res in (128, 256)]
         self.proposal_fields = nn.ModuleList(
-            DenseProposalField(resolution=r, **common)
-            for r in config.proposal_resolutions[
-                :len(config.num_proposal_samples)]
-            if config.sampler == "proposal")
+            fields[:n_prop] if config.sampler == "proposal" else [])
         self.field = NerfactoField(
             grid=HashGridConfig(config.num_grid_levels,
                                 config.grid_features_per_level,
@@ -152,7 +173,7 @@ class NerfactoModel(nn.Module):
         return origins[..., None, :] + directions[..., None, :] * t_mid[..., None]
 
     def render(self, origins, directions, camera_indices=None, uniforms=None,
-               compute_grad_normals: bool = False, occ_grid=None
+               compute_grad_normals: bool = False, occ_grid=None, step=None
                ) -> Dict[str, Any]:
         """Render a batch of rays.
 
@@ -163,6 +184,8 @@ class NerfactoModel(nn.Module):
             None samples the deterministic bin centres (evaluation).
           occ_grid: the occupancy grid of ``sampler="occupancy"`` (None
             spreads the samples as if every bin were occupied).
+          step: the train step; with ``table_grad_phase`` it phases the
+            field's table gradient (training renders only).
 
         Returns a dict with rgb [R, 3], depth [R] (euclidean ray distance),
         accumulation [R], the per-level histograms, and the normals.
@@ -194,10 +217,15 @@ class NerfactoModel(nn.Module):
             t_edges = self._s_to_t(s_edges, cfg.near, cfg.far)
             t_mid = 0.5 * (t_edges[..., 1:] + t_edges[..., :-1])
             deltas = t_edges[..., 1:] - t_edges[..., :-1]
-            # distilled proposals carry no gradients
-            with torch.no_grad():
-                density = pf(self._positions(origins, directions, t_mid))
-                weights, _ = R.render_weights(density, deltas)
+            pos = self._positions(origins, directions, t_mid)
+            if cfg.proposal_training == "distill":
+                # distilled proposals carry no gradients: neither into
+                # their parameters nor along the pose chain
+                with torch.no_grad():
+                    density = pf(pos)
+            else:  # the interlevel loss trains them
+                density = pf(pos)
+            weights, _ = R.render_weights(density, deltas)
             edges_list.append(s_edges)
             weights_list.append(weights)
             n_next = (cfg.num_proposal_samples[i + 1]
@@ -210,7 +238,18 @@ class NerfactoModel(nn.Module):
         t_mid = 0.5 * (t_edges[..., 1:] + t_edges[..., :-1])
         deltas = t_edges[..., 1:] - t_edges[..., :-1]
         pos = self._positions(origins, directions, t_mid)
-        density, geo = self.field.density(pos)
+        # phased table gradient: only the main field pass gets the phase
+        gp = (step if cfg.table_grad_phase and uniforms is not None
+              else None)
+        grad_normals = None
+        if compute_grad_normals and cfg.grad_normal_mode == "samples":
+            # the density's position gradient at every final sample, a
+            # stop-gradient target taken from the same encode
+            density, geo, g = self.field.density_and_gradient(pos, gp)
+            grad_normals = -g / torch.linalg.norm(
+                g, dim=-1, keepdim=True).clamp(min=1e-7)
+        else:
+            density, geo = self.field.density(pos, gp)
         dirs_b = directions[..., None, :].expand(pos.shape)
         rgb_samples = self.field.rgb(geo, dirs_b, camera_indices)
 
@@ -238,22 +277,25 @@ class NerfactoModel(nn.Module):
             "deltas": deltas,
             "sample_weights": weights,
         }
+        if (uniforms is not None and cfg.proposal_type == "mlp"
+                and cfg.proposal_training == "distill"):
+            # the MLP proposals' free distillation targets (see loss())
+            out["sample_positions"] = pos
+            out["sample_density"] = density
         if cfg.predict_normals:
             pred_n = self.field.normals(geo)
             out["normals"] = R.composite(weights, pred_n)
             out["sample_pred_normals"] = pred_n
+        if grad_normals is not None:
+            out["sample_grad_normals"] = grad_normals
         if compute_grad_normals and cfg.grad_normal_mode == "surface":
             # one density pullback per ray at the rendered expected depth:
             # a first-order gradient with respect to the surface point only,
             # used as a stop-gradient target; geo_s stays in the outer graph
             # (it trains the normal MLP)
             p_surf = (origins + directions * depth[..., None]).detach()
-            p_surf = p_surf[..., None, :].requires_grad_(True)
-            with torch.enable_grad():
-                dens_s, geo_s = self.field.density(p_surf)
-                (g,) = torch.autograd.grad(
-                    dens_s, p_surf, grad_outputs=torch.ones_like(dens_s),
-                    retain_graph=True)
+            _, geo_s, g = self.field.density_and_gradient(
+                p_surf[..., None, :])
             out["sample_grad_normals"] = -g / torch.linalg.norm(
                 g, dim=-1, keepdim=True).clamp(min=1e-7)
             out["surface_pred_normals"] = self.field.normals(geo_s)
@@ -262,13 +304,16 @@ class NerfactoModel(nn.Module):
 
     # -- losses ------------------------------------------------------------
 
-    def loss(self, batch: Dict[str, Any], uniforms=None, occ_grid=None
+    def loss(self, batch: Dict[str, Any], uniforms=None, occ_grid=None,
+             step=None, distill_points=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full training loss on a ray batch.
 
         batch keys: origins, directions, rgb [R, 3]; optional: depth [R],
         normal [R, 3], depth_cov [R], camera_indices [R], depth_mask,
-        normal_mask.
+        normal_mask. ``step``: the train step (``table_grad_phase``);
+        ``distill_points``: the MLP proposals' ``[proposal_distill_points,
+        3]`` uniform unit-cube points.
         """
         cfg = self.config
         out = self.render(
@@ -276,7 +321,7 @@ class NerfactoModel(nn.Module):
             batch.get("camera_indices"), uniforms=uniforms,
             compute_grad_normals=(cfg.predict_normals
                                   and cfg.grad_normal_mode != "none"),
-            occ_grid=occ_grid,
+            occ_grid=occ_grid, step=step,
         )
         metrics = {}
         loss = L.rgb_loss(out["rgb"], batch["rgb"])
@@ -284,6 +329,36 @@ class NerfactoModel(nn.Module):
 
         final_edges = out["s_edges_list"][-1]
         final_w = out["weights_list"][-1]
+        if cfg.interlevel_loss_mult > 0 and cfg.proposal_training != "distill":
+            # each proposal histogram against the final one
+            inter = 0.0
+            for pe, pw in zip(out["s_edges_list"][:-1],
+                              out["weights_list"][:-1]):
+                inter = inter + R.interlevel_loss(pe, pw, final_edges,
+                                                  final_w)
+            metrics["interlevel_loss"] = inter
+            loss = loss + cfg.interlevel_loss_mult * inter
+
+        if (cfg.proposal_training == "distill" and cfg.proposal_type == "mlp"
+                and len(self.proposal_fields)):
+            # MLP-proposal distillation: each proposal's logit regressed
+            # onto the field's log-density (stop-gradient) at this step's
+            # final samples and at the uniform unit-cube points
+            c = cfg.proposal_distill_clip
+            pts = out["sample_positions"].detach()
+            tgt = torch.log(out["sample_density"].detach().clamp(
+                min=1e-30)).clamp(-c, c)
+            with torch.no_grad():
+                dens_u = self.field.density_unit(distill_points)
+            tgt_u = torch.log(dens_u.clamp(min=1e-30)).clamp(-c, c)
+            dloss = 0.0
+            for pf in self.proposal_fields:
+                ls = pf.logit(pts) - 1.0
+                lu = pf.logit_unit(distill_points) - 1.0
+                dloss = (dloss + torch.mean(torch.square(ls - tgt))
+                         + torch.mean(torch.square(lu - tgt_u)))
+            metrics["proposal_distill_loss"] = dloss
+            loss = loss + cfg.proposal_distill_loss_mult * dloss
         if cfg.distortion_loss_mult > 0:
             dist = R.distortion_loss(final_edges, final_w)
             metrics["distortion_loss"] = dist
@@ -310,8 +385,14 @@ class NerfactoModel(nn.Module):
             loss = loss + cfg.normal_loss_mult * nloss
 
         if cfg.predict_normals and "sample_grad_normals" in out:
-            n_w = out["surface_weights"]
-            n_pred = out["surface_pred_normals"]
+            # surface mode: one accumulation-weighted point a ray; samples
+            # mode: every final sample
+            if cfg.grad_normal_mode == "surface":
+                n_w = out["surface_weights"]
+                n_pred = out["surface_pred_normals"]
+            else:
+                n_w = out["sample_weights"]
+                n_pred = out["sample_pred_normals"]
             oloss = L.orientation_loss(n_w, out["sample_grad_normals"],
                                        batch["directions"])
             ploss = L.pred_normal_loss(n_w, n_pred, out["sample_grad_normals"])
@@ -329,8 +410,11 @@ class NerfactoModel(nn.Module):
 
     @torch.no_grad()
     def refresh_proposals(self, step: int) -> None:
-        """Rewrite one rotating brick slab of every proposal grid, in place,
-        from the current field density."""
+        """Rewrite one rotating brick slab of every dense proposal grid, in
+        place, from the current field density (rounded to nearest even in a
+        bf16 table)."""
+        if self.config.proposal_type != "dense":
+            raise ValueError("refresh_proposals needs dense proposal grids")
         for pf in self.proposal_fields:
             b0, rows = self._proposal_slab(pf, step)
             pf.tables[b0:b0 + rows.shape[0]] = rows

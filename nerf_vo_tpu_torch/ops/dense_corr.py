@@ -3,9 +3,12 @@
 Counterpart of ``nerf_vo_tpu/ops/dense_corr.py``: for each factor-graph edge
 (i, j), the full correlation volume between frame i's and frame j's 1/8-res
 feature maps is one f32 batched matmul, pooled into a 4-level pyramid and
-stored as bf16 (half-precision volumes are the upstream DROID-SLAM
-behaviour: its CorrBlock runs under fp16 autocast); each update then looks
-up (2r+1)^2 bilinear neighbourhoods around per-pixel correspondences.
+stored in ``NERF_VO_CORR_PYRAMID_DTYPE`` (``bfloat16``, the default, or
+``float32``; read at import, any other value raises, as in the JAX module;
+half-precision volumes are the upstream DROID-SLAM behaviour: its
+CorrBlock runs under fp16 autocast); each update then looks up (2r+1)^2
+bilinear neighbourhoods around per-pixel correspondences, reading the
+volumes in f32.
 
 Layout: features and coordinates are channels-last, as the tracker keeps
 them ([E, h, w, C], [E, h, w, 2]); volumes are ``[E, h*w, hl, wl]`` per
@@ -14,9 +17,18 @@ level (source pixel, then the target grid).
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence
 
 import torch
+
+_PYRAMID_DTYPE_NAME = os.environ.get("NERF_VO_CORR_PYRAMID_DTYPE",
+                                     "bfloat16")
+if _PYRAMID_DTYPE_NAME not in ("float32", "bfloat16"):
+    raise ValueError(
+        "NERF_VO_CORR_PYRAMID_DTYPE must be 'float32' or 'bfloat16', got "
+        f"{_PYRAMID_DTYPE_NAME!r}")
+PYRAMID_DTYPE = getattr(torch, _PYRAMID_DTYPE_NAME)
 
 # edges per pyramid build: bounds the f32 all-pairs temporaries (the full
 # replica frame holds 3600 pixels, 52 MB of f32 volume per edge)
@@ -31,7 +43,8 @@ def build_corr_pyramid(fmap_i, fmap_j, num_levels: int = 4
       fmap_i: [E, h, w, C] source features.
       fmap_j: [E, h, w, C] target features.
 
-    Returns: list of [E, h*w, h/2^l, w/2^l] bf16 volumes, l = 0..L-1. A
+    Returns: list of [E, h*w, h/2^l, w/2^l] volumes in ``PYRAMID_DTYPE``,
+    l = 0..L-1. A
     level with fewer than 2 rows (columns) is not pooled along that axis.
     The product and the pooling run in f32; only the stored volumes are
     cast.
@@ -41,7 +54,7 @@ def build_corr_pyramid(fmap_i, fmap_j, num_levels: int = 4
     for _ in range(num_levels - 1):
         hl, wl = shapes[-1]
         shapes.append((hl // 2 if hl >= 2 else hl, wl // 2 if wl >= 2 else wl))
-    pyramid = [torch.empty(E, h * w, hl, wl, dtype=torch.bfloat16,
+    pyramid = [torch.empty(E, h * w, hl, wl, dtype=PYRAMID_DTYPE,
                            device=fmap_i.device) for hl, wl in shapes]
     sqrt_c = torch.sqrt(torch.tensor(float(C), device=fmap_i.device))
     for e0 in range(0, E, _EDGE_CHUNK):
@@ -86,7 +99,7 @@ def _window(vol, coords, radius: int):
     ep = torch.arange(E * P, device=vol.device).reshape(E, P, 1, 1)
     flat = ((ep * H + rows.clamp(0, H - 1)[..., :, None]) * W
             + cols.clamp(0, W - 1)[..., None, :])
-    b = vol.reshape(-1)[flat]
+    b = vol.reshape(-1)[flat].float()
     b = torch.where(inb, b, torch.zeros((), dtype=b.dtype, device=b.device))
     b00 = b[:, :, :D, :D]
     b01 = b[:, :, :D, 1:]

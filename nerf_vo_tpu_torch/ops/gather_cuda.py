@@ -3,13 +3,16 @@
 Counterparts of the four TPU kernels of ``nerf_vo_tpu/ops/gather_pallas.py``,
 the table operations of the hash grid (``ops/hash_grid.py``). A table is
 brick-major f32 ``[n_bricks, 32F]``: one brick (27 corner entries padded to
-32, entry-major, feature-minor) per contiguous row.
+32, entry-major, feature-minor) per contiguous row; ``gather_interp`` also
+takes a bf16 table (the dense proposal grids' ``proposal_table_dtype:
+bfloat16``), through its own kernel, :func:`gather_interp_bf16`.
 
 =====================  ===================================================
 wrapper                function
 =====================  ===================================================
 :func:`gather_cols`    ``out[t, :] = bf16(tab[idx[t], :])``, [M, 32F] bf16
 :func:`gather_interp`  ``out[t, f] = sum_e w[t, e] bf16(tab[idx[t], eF+f])``
+:func:`gather_interp_bf16`  the same function on a bf16 table
 :func:`gather_interp_mm`  the same function, for small dense tables
 :func:`scatter_cols_accum`  ``out[b, :] = sum_{t: idx[t] = b} g[t, :]``, f32
 =====================  ===================================================
@@ -83,10 +86,11 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gather_cols.argtypes = [p, p, p, i, i, i, p]
     lib.gather_interp.argtypes = [p, p, p, p, i, i, i, p]
+    lib.gather_interp_bf16.argtypes = [p, p, p, p, i, i, i, p]
     lib.gather_interp_mm.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.scatter_cols_accum.argtypes = [p, p, p, i, i, i, i, p]
-    for fn in (lib.gather_cols, lib.gather_interp, lib.gather_interp_mm,
-               lib.scatter_cols_accum):
+    for fn in (lib.gather_cols, lib.gather_interp, lib.gather_interp_bf16,
+               lib.gather_interp_mm, lib.scatter_cols_accum):
         fn.restype = ctypes.c_int
     return lib
 
@@ -142,9 +146,10 @@ def gather_cols(tab, idx):
     return out
 
 
-def _interp(fn, name, tab, idx, w, features, *extra):
+def _interp(fn, name, tab, idx, w, features, *extra,
+            tab_dtype=torch.float32):
     dev = _cuda_device(tab, name)
-    _check("tab", tab, torch.float32, 2, dev, align=16)
+    _check("tab", tab, tab_dtype, 2, dev, align=16)
     _check("idx", idx, torch.int32, 1, dev)
     _check("w", w, torch.float32, 2, dev, align=16)
     n_bricks, R = tab.shape
@@ -173,10 +178,26 @@ def gather_interp(tab, idx, w, features: int):
     non-zero). A skipped entry would add ``0 * bf16(value)``, which is 0
     for a finite value, so the result is the plain version's for any finite
     table; an Inf or NaN entry under a zero weight gives NaN in the plain
-    version and is skipped here."""
+    version and is skipped here. A bf16 table goes to
+    :func:`gather_interp_bf16`."""
     if tab.device.type == "cpu":
         return gather_interp_plain(tab, idx, w, features)
+    if tab.dtype == torch.bfloat16:
+        return gather_interp_bf16(tab, idx, w, features)
     return _interp(gather_interp, "gather_interp", tab, idx, w, features)
+
+
+def gather_interp_bf16(tab, idx, w, features: int):
+    """:func:`gather_interp` on a bf16 table [n_bricks, 32F]: the kernel
+    reads the stored bf16 entries (half the f32 table's bytes), with the
+    same live entries (at F = 1, groups of 4 entries read where any weight
+    is non-zero) and the same f32 sums in the same order, so its result is
+    bitwise ``gather_interp(tab.float(), idx, w, features)``, the skipped
+    zero-weight entries included."""
+    if tab.device.type == "cpu":
+        return gather_interp_plain(tab, idx, w, features)
+    return _interp(gather_interp_bf16, "gather_interp_bf16", tab, idx, w,
+                   features, tab_dtype=torch.bfloat16)
 
 
 def gather_interp_mm(tab, idx, w, features: int, hot_rows: int = 0):
@@ -223,6 +244,7 @@ def scatter_cols_accum(g, idx, n_bricks: int, hot_rows: int = 0):
     return out
 
 
-KERNELS = (gather_cols, gather_interp, gather_interp_mm, scatter_cols_accum)
+KERNELS = (gather_cols, gather_interp, gather_interp_bf16, gather_interp_mm,
+           scatter_cols_accum)
 for _fn in KERNELS:
     _fn.launches = 0

@@ -6,8 +6,9 @@ BRICK: the 3x3x3 corner lattice of a 2x2x2-cell region, 27 entries padded to
 level) reads exactly one brick. Levels whose brick lattice fits the table are
 dense; finer levels hash the brick coordinate with Instant-NGP's primes.
 
-Layout: the port's table is BRICK-MAJOR f32 ``[L * NB, 32F]`` (one brick per
-contiguous row, entry-major / feature-minor), the transpose of the JAX
+Layout: the port's table is BRICK-MAJOR ``[L * NB, 32F]``, f32 (bf16 for the
+dense proposal grids' ``proposal_table_dtype: bfloat16``), one brick per
+contiguous row, entry-major / feature-minor: the transpose of the JAX
 package's feature-major ``[32F, L * NB]``; :func:`tables_from_jax` converts.
 
 :func:`hash_encode` is a ``torch.autograd.Function`` with gradients for the
@@ -16,15 +17,20 @@ table and the positions. Its table operations are the kernels of
 
 - forward: ``gather_interp_mm`` on the dense prefix levels with at most 512
   bricks (the JAX package's one-hot matmul levels), ``gather_interp`` on the
-  rest, all those levels stacked level-major into one launch;
+  rest, all those levels stacked level-major into one launch (a bf16 table:
+  ``gather_interp`` on every level, its bf16-table kernel);
 - backward, table: the per-descriptor rows ``W[t, e] * cot[t, f]`` go
-  through ``scatter_cols_accum`` into an f32 gradient of the table's shape;
+  through ``scatter_cols_accum`` into an f32 gradient of the table's shape
+  (with ``grad_phase``, only the rows of the levels that count);
 - on the card, ``gather_interp_mm`` and ``scatter_cols_accum`` keep the
   one-hot levels' table rows (:func:`_hot_rows`; level 0's 512 bricks in
   the field) in shared memory;
 - backward, positions: ``gather_cols`` re-gathers the bf16 brick rows (they
   are not kept from the forward) and the ``dW / dfrac * res`` contraction is
-  plain torch.
+  plain torch. :func:`hash_encode_vjp` gives that position pullback on its
+  own, as ``jax.vjp`` does for the density's normals: a custom backward
+  cannot see that ``torch.autograd.grad(density, positions)`` will drop
+  its table gradient, so it would make one.
 
 Gathered table values are ``bf16(table)``, as the JAX package's bf16 shadow;
 weights, sums and gradients are f32 (the JAX package accumulates the hashed
@@ -93,8 +99,12 @@ def init_tables(config: HashGridConfig):
 
 
 def tables_from_jax(tables_np):
-    """JAX feature-major ``[32F, L * NB]`` -> brick-major ``[L * NB, 32F]``."""
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(tables_np).T))
+    """JAX feature-major ``[32F, L * NB]`` -> brick-major ``[L * NB, 32F]``,
+    in its dtype (f32, or bf16 from numpy's ml_dtypes ``bfloat16``)."""
+    a = np.ascontiguousarray(np.asarray(tables_np).T)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _brick_ids(c_brick, res: int, n_bricks: int, level: int):
@@ -190,15 +200,68 @@ def _descriptors(x, config: HashGridConfig):
     return idx, local, frac, W, inside
 
 
+def _position_grad(tables, desc, cot, config: HashGridConfig, x_shape,
+                   x_dtype):
+    """d<features, cot>/dx from one encode's descriptors: ``gather_cols``
+    re-gathers the bf16 brick rows, then the ``dW / dfrac * res``
+    contraction. cot: [L*n, F] level-major f32."""
+    idx, local, frac, _, inside = desc
+    L = config.n_levels
+    F = config.features_per_level
+    n = idx.shape[0] // L
+    M = L * n
+    if tables.dtype != torch.float32:
+        tables = tables.float()  # exact: gather_cols rounds to bf16 again
+    g = gc.gather_cols(tables, idx).float().reshape(M, _BRICK_PAD, F)
+    dW = torch.sum(g * cot[:, None, :], dim=-1)[:, :_BRICK]
+    dW = dW.reshape(M, 3, 3, 3)
+    w = [_axis_weights(local[:, a], frac[:, a]) for a in range(3)]
+    dw = [_axis_dweights(local[:, a]) for a in range(3)]
+    dfrac = torch.stack([
+        torch.einsum("mijk,mi,mj,mk->m", dW, dw[0], w[1], w[2]),
+        torch.einsum("mijk,mi,mj,mk->m", dW, w[0], dw[1], w[2]),
+        torch.einsum("mijk,mi,mj,mk->m", dW, w[0], w[1], dw[2]),
+    ], dim=-1).reshape(L, n, 3)
+    res = torch.tensor([float(r) for r in config.resolutions],
+                       device=dfrac.device)
+    grad_x = torch.sum(dfrac * res[:, None, None], dim=0) * inside
+    return grad_x.reshape(x_shape).to(x_dtype)
+
+
+def _level_major(cot, config: HashGridConfig):
+    """[..., L*F] feature cotangent -> [L*n, F] f32, level-major like the
+    descriptors."""
+    L = config.n_levels
+    F = config.features_per_level
+    n = cot.numel() // (L * F)
+    return cot.reshape(n, L, F).permute(1, 0, 2).reshape(L * n, F).float()
+
+
+def _grad_rows(config: HashGridConfig, n: int, grad_phase):
+    """The descriptor rows whose table gradient a backward accumulates:
+    every row, or under ``grad_phase`` (with more than one scattered
+    level) the one-hot prefix's and scattered level
+    ``grad_phase % n_scattered``'s. Returns None for every row, else a
+    list of (start, stop) ranges."""
+    n_oh = _n_onehot(config)
+    n_scat = config.n_levels - n_oh
+    if grad_phase is None or n_scat <= 1:
+        return None
+    s = n_oh + int(grad_phase) % n_scat
+    return [(0, n_oh * n), (s * n, (s + 1) * n)]
+
+
 class _HashEncode(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, tables, x, config):
+    def forward(ctx, tables, x, config, grad_phase, desc):
         L = config.n_levels
         F = config.features_per_level
         n = x.numel() // 3
-        idx, local, frac, W, inside = _descriptors(x, config)
-        split = _n_onehot(config) * n
+        idx, _, _, W, _ = desc
+        # gather_interp_mm's route is for f32 tables; a bf16 table reads
+        # every level through gather_interp (the same function)
+        split = _n_onehot(config) * n if tables.dtype == torch.float32 else 0
         parts = []
         if split:
             parts.append(gc.gather_interp_mm(tables, idx[:split], W[:split],
@@ -207,59 +270,76 @@ class _HashEncode(torch.autograd.Function):
             parts.append(gc.gather_interp(tables, idx[split:], W[split:], F))
         feats = parts[0] if len(parts) == 1 else torch.cat(parts)  # [L*n, F]
         ctx.config = config
+        ctx.grad_phase = grad_phase
         ctx.x_shape = x.shape
         ctx.x_dtype = x.dtype
-        ctx.save_for_backward(tables, idx, local, frac, W, inside)
+        ctx.desc = desc
+        ctx.save_for_backward(tables)
         out = feats.reshape(L, n, F).permute(1, 0, 2)
         return out.reshape(x.shape[:-1] + (L * F,))
 
     @staticmethod
     def backward(ctx, cot):
-        tables, idx, local, frac, W, inside = ctx.saved_tensors
+        (tables,) = ctx.saved_tensors
         config = ctx.config
-        L = config.n_levels
-        F = config.features_per_level
-        n = idx.shape[0] // L
-        M = L * n
-        # [n, L*F] -> [L*n, F], level-major like the descriptors
-        cot = cot.reshape(n, L, F).permute(1, 0, 2).reshape(M, F).float()
+        idx, _, _, W, _ = ctx.desc
+        cot = _level_major(cot, config)
         grad_tables = grad_x = None
         if ctx.needs_input_grad[0]:
-            rows = (W[:, :, None] * cot[:, None, :]).reshape(M, _BRICK_PAD * F)
-            grad_tables = gc.scatter_cols_accum(rows, idx, tables.shape[0],
+            n = idx.shape[0] // config.n_levels
+            spans = _grad_rows(config, n, ctx.grad_phase)
+            if spans is not None:  # one launch over the rows that count
+                keep = lambda t: torch.cat([t[a:b] for a, b in spans])
+                idx_g, W_g, cot_g = keep(idx), keep(W), keep(cot)
+            else:
+                idx_g, W_g, cot_g = idx, W, cot
+            rows = (W_g[:, :, None] * cot_g[:, None, :]).reshape(
+                idx_g.shape[0], tables.shape[1])
+            grad_tables = gc.scatter_cols_accum(rows, idx_g, tables.shape[0],
                                                 hot_rows=_hot_rows(config))
         if ctx.needs_input_grad[1]:
-            g = gc.gather_cols(tables, idx).float().reshape(M, _BRICK_PAD, F)
-            dW = torch.sum(g * cot[:, None, :], dim=-1)[:, :_BRICK]
-            dW = dW.reshape(M, 3, 3, 3)
-            w = [_axis_weights(local[:, a], frac[:, a]) for a in range(3)]
-            dw = [_axis_dweights(local[:, a]) for a in range(3)]
-            dfrac = torch.stack([
-                torch.einsum("mijk,mi,mj,mk->m", dW, dw[0], w[1], w[2]),
-                torch.einsum("mijk,mi,mj,mk->m", dW, w[0], dw[1], w[2]),
-                torch.einsum("mijk,mi,mj,mk->m", dW, w[0], w[1], dw[2]),
-            ], dim=-1).reshape(L, n, 3)
-            res = torch.tensor([float(r) for r in config.resolutions],
-                               device=dfrac.device)
-            grad_x = torch.sum(dfrac * res[:, None, None], dim=0) * inside
-            grad_x = grad_x.reshape(ctx.x_shape).to(ctx.x_dtype)
-        return grad_tables, grad_x, None
+            grad_x = _position_grad(tables, ctx.desc, cot, config,
+                                    ctx.x_shape, ctx.x_dtype)
+        return grad_tables, grad_x, None, None, None
 
 
-def hash_encode(tables, x, config: HashGridConfig):
+def hash_encode(tables, x, config: HashGridConfig, grad_phase=None):
     """Encode points with the multiresolution brick grid.
 
     Args:
-      tables: brick-major ``[L * NB, 32F]`` f32 table (see
-        :func:`init_tables`).
+      tables: brick-major ``[L * NB, 32F]`` f32 or bf16 table (see
+        :func:`init_tables`); a bf16 table gets a bf16 gradient.
       x: [..., 3] positions in the unit cube [0, 1]^3 (values outside are
         clamped; callers apply scene contraction first).
+      grad_phase: the train step, or None. When set and the grid has more
+        than one scattered (non one-hot) level, the backward accumulates
+        the table gradient of the one-hot prefix and of scattered level
+        ``grad_phase % n_scattered`` only: every other scattered level's
+        gradient is exactly 0 that step.
 
     Returns:
       [..., L*F] encoded features (f32), feature-within-level minor
       (level l, feature f at output column l*F + f).
     """
-    return _HashEncode.apply(tables, x, config)
+    return _HashEncode.apply(tables, x, config, grad_phase,
+                             _descriptors(x.detach(), config))
+
+
+def hash_encode_vjp(tables, x, config: HashGridConfig, grad_phase=None):
+    """:func:`hash_encode`'s features, and the pullback of the positions
+    alone: ``pullback(cot)`` gives d<features, cot>/dx (detached) from this
+    encode's descriptors, with no second encode and no table gradient (no
+    ``scatter_cols_accum``); the features stay differentiable in the
+    caller's graph as :func:`hash_encode`'s are."""
+    desc = _descriptors(x.detach(), config)
+    out = _HashEncode.apply(tables, x, config, grad_phase, desc)
+
+    def pullback(cot):
+        with torch.no_grad():
+            return _position_grad(tables.detach(), desc,
+                                  _level_major(cot, config), config, x.shape,
+                                  x.dtype)
+    return out, pullback
 
 
 def contract(x, order: float = math.inf):

@@ -1,4 +1,4 @@
-"""The four CUDA table kernels (``csrc/gather.cu``) against their plain
+"""The CUDA table kernels (``csrc/gather.cu``) against their plain
 versions, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere. The file
@@ -8,7 +8,8 @@ imports nothing of JAX, so it also runs where JAX is not installed:
 
 Tolerances: ``gather_cols`` bitwise (the same bf16 rounding);
 ``gather_interp`` / ``gather_interp_mm`` 1e-5 of the largest |output| (f32
-sums of 32 products in another order); ``scatter_cols_accum`` 1e-5 of the
+sums of 32 products in another order); ``gather_interp`` on a bf16 table
+bitwise the f32 kernel's result on the same values in f32; ``scatter_cols_accum`` 1e-5 of the
 largest |output| (f32 atomics in arbitrary order against a sequential
 index_add_). ``gather_interp_mm`` and ``scatter_cols_accum`` run both with
 leading rows kept on chip (``hot_rows``) and without; ids out of
@@ -353,5 +354,110 @@ def test_wrappers_reject_bad_inputs(dev):
         gc.scatter_cols_accum(tab[:, :48].contiguous(), idx, 300)  # R 48
     with pytest.raises(ValueError):
         gc.gather_cols(tab, idx.cpu())
+    with pytest.raises(TypeError):
+        gc.gather_interp_bf16(tab, idx, w, 8)  # an f32 table
+    with pytest.raises(ValueError):
+        gc.gather_interp_bf16(tab.to(torch.bfloat16), idx, w, 4)  # R != 32F
     empty = gc.gather_interp(tab, idx[:0], w[:0], 8)
     assert empty.shape == (0, 8)
+
+
+def _bf16_case(dev, F, weights, seed=5):
+    """A bf16 table, ids with out-of-range ones among them, and weights of
+    one pattern: trilinear (8 live corners), dense, or padding-only."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    tab = (torch.randn(300, 32 * F, generator=g, device=dev) * 3.0).to(
+        torch.bfloat16)
+    M = 1001
+    idx = torch.randint(-20, 320, (M,), generator=g, device=dev,
+                        dtype=torch.int32)
+    if weights == "trilinear":
+        cfg = hg.HashGridConfig(1, F, 14, 16, 16)
+        x = torch.rand(M, 3, generator=g, device=dev)
+        _, _, _, w, _ = hg._descriptors(x, cfg)
+    else:
+        w = torch.rand(M, 32, generator=g, device=dev) + 0.1
+        if weights == "padding_only":
+            w[:, :27] = 0.0
+    return tab, idx, w.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["trilinear", "dense", "padding_only"])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_gather_interp_bf16_table_bitwise(dev, F, weights):
+    """The bf16-table kernel gives bitwise the f32 kernel's result on the
+    table's values in f32 (bf16 rounding is exact on them), and, for ids in
+    range, the plain version's within 1e-5; gather_interp routes a bf16
+    table to it and counts the launch there."""
+    tab, idx, w = _bf16_case(dev, F, weights)
+    before = (gc.gather_interp_bf16.launches, gc.gather_interp.launches)
+    got = gc.gather_interp(tab, idx, w, F)
+    torch.cuda.synchronize()
+    assert (gc.gather_interp_bf16.launches, gc.gather_interp.launches) == (
+        before[0] + 1, before[1])
+    want = gc.gather_interp(tab.float(), idx, w, F)
+    assert torch.equal(got, want)
+    assert torch.equal(gc.gather_interp_bf16(tab, idx, w, F), want)
+    _close(got, _interp_ref(tab, idx, w, F))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 8])
+def test_gather_interp_bf16_skips_an_inf_under_a_zero_weight(dev, F):
+    """The bf16-table kernel reads the entries the f32 kernel reads: an Inf
+    under a zero weight is skipped alike (where its group of 4 entries at
+    F = 1 has no live weight), and the two agree bitwise; the plain
+    version gives NaN there."""
+    tab, idx, w = _inputs(dev, F, M=64)
+    w[:, 8:] = 0.0
+    tab16 = tab.to(torch.bfloat16)
+    tab16[idx[0].item(), 20 * F] = float("inf")  # entry 20, weight 0
+    got = gc.gather_interp(tab16, idx, w, F)
+    assert torch.equal(got, gc.gather_interp(tab16.float(), idx, w, F))
+    assert torch.isfinite(got).all()
+    bad = idx == idx[0]
+    assert torch.isnan(gc.gather_interp_plain(tab16, idx, w, F)[bad]).any()
+    # under a live weight the Inf is read by both kernels
+    w[:, 20] = 0.5
+    got = gc.gather_interp(tab16, idx, w, F)
+    assert torch.equal(got, gc.gather_interp(tab16.float(), idx, w, F))
+    assert torch.isinf(got[bad][:, 0]).all()
+
+
+@pytest.mark.cuda
+def test_hash_proposal_grid_at_f2_with_512_hot_rows(dev):
+    """Rows 2-5 at F = 2 over the hash proposal's grid (5 levels x 2
+    features, log2 17, resolution 16 -> 128: level 0's 512 bricks on the
+    one-hot route and kept on chip, 512 hot rows): hash_encode's forward,
+    table gradient and position gradient on the card against the plain
+    versions on the CPU; then gather_interp_mm and scatter_cols_accum
+    alone at F = 2 with the 512 hot rows, against plain."""
+    cfg = hg.HashGridConfig(5, 2, 17, 16, 128)
+    assert hg._hot_rows(cfg) == 512
+    g = torch.Generator().manual_seed(7)
+    tab = torch.randn(5 * cfg.bricks_per_level, 64, generator=g)
+    x = torch.rand(2000, 3, generator=g)
+    cot = torch.randn(2000, 10, generator=g)
+    outs = []
+    counts = {k.__name__: k.launches for k in gc.KERNELS}
+    for d in ("cpu", dev):
+        t = tab.to(d).requires_grad_(True)
+        p = x.to(d).requires_grad_(True)
+        out = hg.hash_encode(t, p, cfg)
+        gt, gp = torch.autograd.grad(out, (t, p), cot.to(d))
+        outs.append([v.detach().cpu() for v in (out, gt, gp)])
+    for a, b in zip(*outs):
+        _close(b, a)
+    for name in ("gather_cols", "gather_interp", "gather_interp_mm",
+                 "scatter_cols_accum"):
+        assert getattr(gc, name).launches == counts[name] + 1, name
+    tab_d = tab.to(dev)
+    n = 2000
+    idx, _, _, W, _ = hg._descriptors(x.to(dev), cfg)
+    _close(gc.gather_interp_mm(tab_d, idx[:n], W[:n], 2, hot_rows=512),
+           gc.gather_interp_mm_plain(tab_d, idx[:n], W[:n], 2))
+    rows = torch.randn(idx.shape[0], 64, device=dev)
+    _close(gc.scatter_cols_accum(rows, idx, tab_d.shape[0], hot_rows=512),
+           gc.scatter_cols_accum_plain(rows, idx, tab_d.shape[0]))

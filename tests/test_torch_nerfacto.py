@@ -209,11 +209,9 @@ def test_refresh_proposals_matches_jax(setup, step):
 
 
 def test_unported_paths_raise():
-    for field, value in [("proposal_type", "mlp"), ("sampler", "uniform"),
-                         ("grad_normal_mode", "samples"),
-                         ("proposal_training", "interlevel"),
-                         ("table_grad_phase", True), ("model_axis", "m"),
-                         ("proposal_table_dtype", "bfloat16")]:
+    """Only the multi-device tables (and an unknown sampler) remain."""
+    for field, value in [("sampler", "uniform"), ("model_axis", "m"),
+                         ("descriptor_sharding", True)]:
         cfg = dataclasses.replace(tn.NerfactoConfig(**CFG), **{field: value})
         with pytest.raises(NotImplementedError, match=field):
             tn.NerfactoModel(cfg)

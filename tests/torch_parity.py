@@ -20,25 +20,29 @@ def render_uniforms(k_render, n_rays, num_proposal_samples, num_nerf_samples):
             for k, n in zip(keys, counts)]
 
 
+def pixel_picks(key, n_active, height, width, n_rays):
+    """The frame / row / column picks of
+    ``keyframe_buffer.sample_pixel_batch(key)``."""
+    k1, k2, k3 = jax.random.split(key, 3)
+
+    def pick(k, hi):
+        return torch.tensor(np.asarray(
+            jax.random.randint(k, (n_rays,), 0, hi)).astype(np.int64))
+
+    return {"frame": pick(k1, max(n_active, 1)), "py": pick(k2, height),
+            "px": pick(k3, width)}
+
+
 def step_draws(key, n_active, height, width, n_rays, num_proposal_samples,
                num_nerf_samples):
     """The draws of ``MappingTrainer._loss_fn(key)``: the key splits into
     (sample, render); the sample key into frame / row / column picks
     (``keyframe_buffer.sample_pixel_batch``)."""
     k_sample, k_render = jax.random.split(key)
-    k1, k2, k3 = jax.random.split(k_sample, 3)
-
-    def pick(k, hi):
-        return torch.tensor(np.asarray(
-            jax.random.randint(k, (n_rays,), 0, hi)).astype(np.int64))
-
-    return {
-        "frame": pick(k1, max(n_active, 1)),
-        "py": pick(k2, height),
-        "px": pick(k3, width),
-        "uniforms": render_uniforms(k_render, n_rays, num_proposal_samples,
-                                    num_nerf_samples),
-    }
+    return dict(pixel_picks(k_sample, n_active, height, width, n_rays),
+                uniforms=render_uniforms(k_render, n_rays,
+                                         num_proposal_samples,
+                                         num_nerf_samples))
 
 
 def occupancy_render_uniforms(k_render, n_rays, num_proposal_samples,
