@@ -6,8 +6,9 @@ GPU and check them.
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``/usr/local/cuda``) and PyTorch built for CUDA. It builds every kernel of
 the path from ``nerf_vo_tpu_torch/csrc/`` (into ``nerf_vo_tpu_torch/_build/``,
-one ``nvcc`` per source, all started together), then runs eight phases
-(in the order a-d, h, e-g); any failure ends the run with a non-zero exit:
+one ``nvcc`` per source, all started together), then runs nine phases
+(in the order a-d, h, e-g, i); any failure ends the run with a non-zero
+exit:
 
   (a) kernels: each kernel against its plain PyTorch version on the card at
       the replica configuration's shapes, with its time, the plain
@@ -58,11 +59,26 @@ one ``nvcc`` per source, all started together), then runs eight phases
       and timed at both grids' inputs, bitwise against the f32 kernel; the
       phased backward's rows), then MLP proposals; (h3) a DROID frontend
       correlation pyramid under ``NERF_VO_CORR_PYRAMID_DTYPE=float32`` and
-      under the bf16 default, one lookup on each.
+      under the bf16 default, one lookup on each;
+  (i) the multi-device paths (``nerf_vo_tpu_torch/parallel/``), with ranks
+      started by ``parallel.dist.spawn`` from the kernels built above:
+      (i1) one NCCL rank, where ``make_dp_train_step`` and
+      ``make_dp_tp_train_step`` (1 x 1) must equal the plain train step;
+      (i2) four gloo ranks sharing ``cuda:0`` (NCCL refuses two ranks on
+      one card), at the replica mapping width: DP(4), DP(2) over the
+      2 x 2 mesh's data axis, DP2 x TP2 and descriptor-sharded 2 x 2 train
+      steps on one batch, each held against the DP of the same rays a rank
+      and each rank's launches of rows 2-5 counted; one table-sharded call
+      of each of rows 2-5 from rank 0's real inputs held against its plain
+      version and timed; a 360x640 ``MapRenderer(mesh=)`` render; the NGP
+      mapper under DP2 x TP2 through a refresh; ``make_sharded_dense_ba``
+      at DROID's frontend size and ``DROIDSLAMTracker(mesh=)``, each
+      against one rank's. Times of ranks that share a card are no scaling
+      figure.
 
 Output: progress on stderr; on stdout the card's name and power limit, the
 per-phase results, one JSON line with every kernel's numbers (its
-launches on the (e), (f), (g2) and (h) paths among them; the bf16-table
+launches on the (e), (f), (g2), (h) and (i) paths among them; the bf16-table
 ``gather_interp``'s ``launches`` are (h2)'s, the only path with a bf16
 table), and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
@@ -409,6 +425,30 @@ def check_close(name, got, want, rel):
     tol = rel * max(want.abs().max().item(), 1.0)
     if not np.isfinite(err) or err > tol:
         fail(f"{name} disagrees with its plain version: {err} > {tol}")
+    return err
+
+
+def check_sums(name, got, want, abs_sum, terms, tag):
+    """Elementwise, a kernel's sums against the plain version's: |got -
+    want| <= 2 gamma_(k+1) * sum |term|, the bound on the difference of two
+    f32 sums of k products in any order (k = ``terms``, per element or
+    one number; ``abs_sum`` = the plain function of the terms' absolute
+    values). A kernel that drops, repeats or misplaces a term fails
+    wherever the term exceeds that bound, whatever the values' scale.
+    Prints the largest difference and its largest share of the bound."""
+    eps = 2.0 ** -24
+    k = torch.as_tensor(terms, dtype=torch.float32,
+                        device=got.device) + 1
+    bound = 2 * k * eps / (1 - k * eps) * abs_sum.float()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    share = (diff / bound.clamp_min(torch.finfo(torch.float32).tiny)).max()
+    if not np.isfinite(err) or bool((diff > bound).any()):
+        fail(f"{name} disagrees with its plain version: max abs err {err}, "
+             f"{share.item():.3g} x its f32 summation bound")
+    print(f"{tag} {name}: max |plain| {want.abs().max().item():.4g}, max "
+          f"abs err {err:.3e}, {share.item():.3g} of the f32 summation "
+          "bound at most", flush=True)
     return err
 
 
@@ -1413,7 +1453,9 @@ def record_calls(fn, names):
 def hold_calls(calls, label, tag):
     """Each recorded call, launched again on its own inputs, held against
     its plain version and timed as phase (a) times it: ``gather_cols``
-    bitwise; rows 3-4 and the scatter within 1e-5 of max(|plain|, 1); a
+    bitwise; rows 3-4 and the scatter elementwise within the f32
+    summation bound of their terms (``check_sums``: scaled to the terms'
+    own size, which for a gradient lies far below 1); a
     bf16-table ``gather_interp_bf16`` also bitwise against the f32 kernel
     on the table's values in f32 (its library call, ``embedding_bag``,
     runs on that f32 copy: it takes no bf16 table with f32 weights).
@@ -1446,10 +1488,15 @@ def hold_calls(calls, label, tag):
         elif name == "scatter_cols_accum":
             g, i, nb = a[:3]
             m, R = g.shape
-            err = check_close(f"{name} at {label}", got,
-                              gc.scatter_cols_accum_plain(g, i, nb), 1e-5)
-            acc = torch.zeros(nb, R, device=g.device)
             il = i.long()
+            live = (il >= 0) & (il < nb)
+            terms = torch.zeros(nb, device=g.device).index_add_(
+                0, il[live], torch.ones(int(live.sum()), device=g.device))
+            err = check_sums(f"{name} at {label}", got,
+                             gc.scatter_cols_accum_plain(g, i, nb),
+                             gc.scatter_cols_accum_plain(g.abs(), i, nb),
+                             terms[:, None], tag)
+            acc = torch.zeros(nb, R, device=g.device)
             timing = time_kernel(
                 f"{name} at {label}: M={m} R={R} into {nb} bricks{hot}",
                 lambda: kernel(*a, **kw),
@@ -1459,8 +1506,10 @@ def hold_calls(calls, label, tag):
         else:
             t, i, w, F = a[:4]
             m = i.shape[0]
-            err = check_close(f"{name} at {label}", got,
-                              interp_plain[name](t, i, w, F), 1e-5)
+            err = check_sums(f"{name} at {label}", got,
+                             interp_plain[name](t, i, w, F),
+                             interp_plain[name](t.abs(), i, w.abs(), F),
+                             32, tag)
             t32 = t.float()
             if name == "gather_interp_bf16":
                 if not torch.equal(got, gc.gather_interp(t32, i, w, F)):
@@ -2006,6 +2055,736 @@ def phase_slam(dev, smi):
     return counts
 
 
+
+# ---------------------------------------------------------------------------
+# (i) the multi-device paths
+# ---------------------------------------------------------------------------
+
+# (i)'s cuts: 16 active keyframes of the buffer's 192, 8 train steps a mode
+# (2 in (i1), NGP 2: one occupancy refresh), 12 DROID frames
+PARALLEL = dict(keyframes=16, steps=8, i1_steps=2, ngp_steps=2,
+                droid_frames=12, render=(360, 640), ba_frames=192,
+                ba_edges=48, ba_hw=(45, 80), ba_window=25)
+TP_ROWS = ("gather_cols", "gather_interp", "gather_interp_mm",
+           "scatter_cols_accum")
+LR, CAM_LR = 1e-2, 1e-4
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mapping_packet(dev, K, H, W, seed, cov=False):
+    """K synthetic keyframes on the device from a seed: cameras on an arc
+    looking down -z (OpenGL), smooth colors, positive depth everywhere (so
+    that every loss is a mean over rays and data-parallel groupings of one
+    batch agree)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    ang = (torch.rand(K, generator=g, device=dev) - 0.5) * 0.4
+    c2w = torch.eye(4, device=dev).repeat(K, 1, 1)
+    c2w[:, 0, 0], c2w[:, 0, 2] = torch.cos(ang), torch.sin(ang)
+    c2w[:, 2, 0], c2w[:, 2, 2] = -torch.sin(ang), torch.cos(ang)
+    c2w[:, :3, 3] = torch.randn(K, 3, generator=g, device=dev) * 0.3
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, H, device=dev),
+                            torch.linspace(0, 1, W, device=dev),
+                            indexing="ij")
+    base = torch.rand(K, 1, 1, 3, generator=g, device=dev) * 0.8 + 0.1
+    color = (base + 0.3 * torch.sin(6 * xx + 4 * yy)[None, ..., None]).clamp(
+        0, 1)
+    depth = 2.5 + torch.cos(3 * xx - yy)[None] * (
+        torch.rand(K, 1, 1, generator=g, device=dev) * 0.5 + 0.5)
+    f = 0.8 * W
+    pkt = dict(intrinsics=torch.tensor([f, f, W / 2, H / 2],
+                                       device=dev).repeat(K, 1),
+               c2w=c2w, color=color, depth=depth)
+    if cov:
+        pkt["depth_cov"] = 0.01 + 0.1 * torch.rand(K, H, W, generator=g,
+                                                   device=dev)
+    return pkt
+
+
+def slice_draws(d, lo, hi):
+    """Rays lo..hi of a step's draws (refresh draws whole)."""
+    out = {k: v for k, v in d.items()}
+    for k in ("frame", "py", "px"):
+        out[k] = d[k][lo:hi]
+    out["uniforms"] = [u[lo:hi] for u in d["uniforms"]]
+    return out
+
+
+def mapper(args, dev, mesh=None, mode="plain"):
+    """(model, trainer) of the replica mapper for ``args`` from torch seed
+    42 (``MappingStage``'s init); ``mode`` "tp" / "ds" make the table-
+    sharded model over ``mesh``."""
+    import dataclasses
+
+    from nerf_vo_tpu_torch.mapping.trainer import MappingTrainer, TrainerConfig
+    from nerf_vo_tpu_torch.models.nerfacto import NerfactoModel
+    from nerf_vo_tpu_torch.runtime.stages import mapping_model_config
+
+    cfg = mapping_model_config(args)
+    if mode in ("tp", "ds"):
+        cfg = dataclasses.replace(
+            cfg, model_axis="model", model_axis_size=mesh.size(1),
+            descriptor_sharding=mode == "ds")
+    torch.manual_seed(42)
+    model = NerfactoModel(cfg, mesh=mesh if mode in ("tp", "ds") else None)
+    trainer = MappingTrainer(model, TrainerConfig(
+        rays_per_batch=getattr(args, "rays_per_batch", 4096),
+        max_iterations=args.mapping_iterations), args.num_keyframes,
+        device=dev)
+    return model, trainer
+
+
+def train_mode(args, dev, mode, buf, steps, mesh=None, record=False):
+    """``steps`` train steps of the replica mapper in ``mode``: "plain"
+    (``train_step``), "dp" (``make_dp_train_step`` over ``mesh``'s "data"
+    axis), "tp" / "ds" (``make_dp_tp_train_step`` over its 2D layout). Every
+    rank makes each step's whole 4096-ray draws from one seed and takes its
+    share: rank r of DP(n) rays r/n..(r+1)/n, a data row i of DP x TP half
+    i, a rank of the descriptor-sharded layout its own quarter, so every
+    mode trains on the same rays. Returns the model, trainer, state, the
+    parameters after the first step (copies), per-step losses and ms, each
+    table kernel's launches and the last step's recorded table-kernel
+    calls (with ``record``)."""
+    from nerf_vo_tpu_torch.ops import gather_cuda as gc
+    from nerf_vo_tpu_torch.parallel import dist as pdist
+    from nerf_vo_tpu_torch.parallel import sharding
+
+    full, trainer = mapper(args, dev)
+    state = trainer.init()
+    model = full
+    R = trainer.config.rays_per_batch
+    lo, hi = 0, R
+    if mode == "dp":
+        ax = pdist.mesh_axis(mesh, "data")
+        step = sharding.make_dp_train_step(trainer, mesh)
+        lo, hi = ax.index * R // ax.size, (ax.index + 1) * R // ax.size
+    elif mode in ("tp", "ds"):
+        model, tp_trainer = mapper(args, dev, mesh, mode)
+        state = sharding.shard_state_tp(full, state, tp_trainer)
+        del full
+        trainer = tp_trainer
+        step = sharding.make_dp_tp_train_step(
+            trainer, mesh, descriptor_sharding=mode == "ds")
+        d, m = (pdist.mesh_axis(mesh, a) for a in ("data", "model"))
+        n, i = ((d.size * m.size, d.index * m.size + m.index)
+                if mode == "ds" else (d.size, d.index))
+        lo, hi = i * R // n, (i + 1) * R // n
+    else:
+        step = trainer.train_step
+    for k in gc.KERNELS:
+        k.launches = 0
+    g = torch.Generator(device=dev)
+    losses, times, calls, first = [], [], [], None
+    for s in range(steps):
+        g.manual_seed(1000 + s)
+        draws = slice_draws(trainer.draws(buf, state, R, (g, g)), lo, hi)
+        sync(dev)
+        t0 = time.perf_counter()
+        if record and s == steps - 1:
+            (state, m), calls = record_calls(
+                lambda: step(state, buf, draws), TP_ROWS)
+        else:
+            state, m = step(state, buf, draws)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        if not np.isfinite(losses[-1]):
+            fail(f"(i) {mode}: non-finite loss at step {s}")
+        if s == 0:
+            first = {n: v.clone() for n, v in params_of(model, state).items()}
+    launches = {k.__name__: k.launches for k in gc.KERNELS}
+    return model, trainer, state, first, losses, times, launches, calls
+
+
+def params_of(model, state):
+    out = {n: p.detach() for n, p in model.named_parameters()}
+    out["pose_deltas"] = state.pose_deltas.detach()
+    return out
+
+
+def leaf_names(state):
+    """The names of the leaves a step trains (``MappingTrainer.leaves``:
+    the parameters that take a gradient, then the pose corrections). The
+    distilled dense proposal grids take none: they change at a refresh
+    only, and stay out of the comparisons."""
+    return list(state.params) + ["pose_deltas"]
+
+
+def compare_tight(got, want, names):
+    """After one step, for each trained leaf: the elements outside the CPU
+    test's ``atol 2e-6 + rtol 2e-4`` (``tests/test_torch_parallel.py``)
+    and the largest difference. Adam's first step moves an element by
+    lr times the sign of its gradient, so an element outside means a
+    gradient of the other sign (or zero) there."""
+    out = {}
+    for n in names:
+        w = want[n].float()
+        d = (got[n].float() - w).abs()
+        out[n] = dict(outside=int((d > 2e-6 + 2e-4 * w.abs()).sum()),
+                      worst=float(d.max()))
+    return out
+
+
+def compare_params(got, want, names):
+    """The numbers of the mapping parity rule (``tests/test_torch_mapping.
+    py``), for each trained leaf: the share of its elements within lr / 10
+    and within 2.5 lr; the pose corrections' largest difference in cam_lr;
+    the largest parameter difference."""
+    close, wide = {}, {}
+    worst, pose = 0.0, 0.0
+    for n in names:
+        d = (got[n].float() - want[n].float()).abs()
+        if n == "pose_deltas":
+            pose = float(d.max()) / CAM_LR
+            continue
+        close[n] = float((d <= LR / 10).float().mean())
+        wide[n] = float((d <= 2.5 * LR).float().mean())
+        worst = max(worst, float(d.max()))
+    return dict(close=close, wide=wide, pose_in_lr=pose, worst=worst)
+
+
+# (i)'s limits for a parallel step against its reference on the same rays
+# a rank, each trained leaf alone, set from the readings of an H100 run
+# that PERF.md lists (in brackets). On the card the scatters' atomics sum
+# in a varying order, so even DP(1) differs from the plain step where a
+# gradient nearly cancels. After step 1: at most STEP1_OUTSIDE elements of
+# the trained leaves (12.6M at the replica width) outside the CPU test's
+# tolerance [1-5], and none by lr / 10 or more [largest 9.3e-5]: a gradient
+# of the other sign moves an element by 2 lr. After the last step: the
+# share within lr / 10 of the tables >= TABLE_CLOSE [0.9729-0.9913] and of
+# every other leaf >= LEAF_CLOSE [0.7240: the normal MLPs, whose bf16
+# roundings the varying sums steer step after step]; of each leaf within
+# 2.5 lr >= LEAF_WIDE [0.999862]; the pose corrections within 2.5 cam_lr
+# [0.948].
+STEP1_OUTSIDE, TABLE_CLOSE, LEAF_CLOSE, LEAF_WIDE = 64, 0.95, 0.5, 0.999
+
+
+def params_agree(c, c1):
+    return (sum(v["outside"] for v in c1.values()) <= STEP1_OUTSIDE
+            and max(v["worst"] for v in c1.values()) < LR / 10
+            and all(v >= (TABLE_CLOSE if n.endswith("tables")
+                          else LEAF_CLOSE) for n, v in c["close"].items())
+            and min(c["wide"].values()) >= LEAF_WIDE
+            and c["pose_in_lr"] <= 2.5)
+
+
+def describe_agreement(c, c1, n_steps):
+    """One line of the numbers ``params_agree`` judges."""
+    out = sum(v["outside"] for v in c1.values())
+    w1 = max(v["worst"] for v in c1.values())
+    lo = min(c["close"], key=c["close"].get)
+    close = ", ".join(f"{n} {v:.6f}" for n, v in c["close"].items())
+    wide = min(c["wide"], key=c["wide"].get)
+    return (f"after step 1 {out} elements of the trained leaves outside "
+            f"2e-6 + 2e-4 relative (largest difference {w1:.3g}); after "
+            f"step {n_steps} the least leaf within lr/10 {lo} "
+            f"{c['close'][lo]:.6f} (each leaf: {close}), the least within "
+            f"2.5 lr {wide} {c['wide'][wide]:.6f}, largest difference "
+            f"{c['worst']:.3g}, pose {c['pose_in_lr']:.3g} cam_lr")
+
+
+def nccl_probe(dev):
+    """The collectives the port uses, called on the default group itself
+    (the port's helpers move nothing over a size-1 axis): all_reduce,
+    all_gather, all_to_all_single and broadcast on tensors of the card,
+    each result checked. Returns the backend and whether all were right."""
+    import torch.distributed as dist
+
+    n = 1 << 20
+    t = torch.arange(n, device=dev, dtype=torch.float32)
+    dist.all_reduce(t)
+    ok = torch.equal(t, torch.arange(n, device=dev, dtype=torch.float32))
+    parts = [torch.empty(3, device=dev)]
+    dist.all_gather(parts, torch.full((3,), 5.0, device=dev))
+    ok &= torch.equal(parts[0], torch.full((3,), 5.0, device=dev))
+    rows = torch.arange(10.0, device=dev).view(5, 2)
+    got = torch.empty_like(rows)
+    dist.all_to_all_single(got, rows, [5], [5])
+    ok &= torch.equal(got, rows)
+    b = torch.full((7,), 2.0, device=dev)
+    dist.broadcast(b, src=0)
+    torch.cuda.synchronize(dev)
+    ok &= torch.equal(b, torch.full((7,), 2.0, device=dev))
+    return dict(backend=dist.get_backend(), ok=bool(ok))
+
+
+def rank_i1(rank, world, dev, spec):
+    """(i1) one NCCL rank: the collectives called on the NCCL group
+    (``nccl_probe``), then ``make_dp_train_step`` (DP(1)) and
+    ``make_dp_tp_train_step`` (1 x 1) against the plain ``train_step`` on
+    the same draws, from one init. The steps' collectives move nothing over
+    a size-1 axis: the steps run the one-rank route of the parallel code."""
+    from nerf_vo_tpu_torch.mapping import keyframe_buffer as kb
+    from nerf_vo_tpu_torch.parallel import dist as pdist
+
+    probe = nccl_probe(dev)
+
+    args = SimpleNamespace(**spec["args"])
+    K = spec["keyframes"]
+    buf = kb.create(args.num_keyframes, args.frame_height, args.frame_width,
+                    use_normals=False, device=dev)
+    kb.insert(buf, list(range(K)), mapping_packet(
+        dev, K, args.frame_height, args.frame_width, 7))
+    out = {}
+    ref = None
+    for mode, mesh in (("plain", None), ("dp", pdist.make_mesh(1)),
+                       ("tp", pdist.make_mesh_2d(1, 1))):
+        model, _, state, first, losses, times, launches, _ = train_mode(
+            args, dev, mode, buf, spec["steps"], mesh)
+        p = params_of(model, state)
+        names = leaf_names(state)
+        if ref is None:
+            ref = ({n: v.clone() for n, v in p.items()}, first)
+        out[mode] = dict(losses=losses, ms=times, launches=launches,
+                         vs_ref=compare_params(p, ref[0], names),
+                         vs_ref_step1=compare_tight(first, ref[1], names))
+        del model, state
+    return out, probe
+
+
+def rank_i2(rank, world, dev, spec):
+    """(i2) four ranks on one card, at the replica width: DP(4), DP2 x TP2
+    and descriptor-sharded 2 x 2 train steps on the same rays from one
+    init (each held against DP(4)), a 360x640 ``MapRenderer(mesh=)``
+    render of the DP(4) map against one rank's, the NGP mapper under DP2 x
+    TP2 through one occupancy refresh, ``make_sharded_dense_ba`` at the
+    nerf_slam frontend's size against one rank's solver, and
+    ``DROIDSLAMTracker(mesh=)`` on the synthetic frames. Rank 0 then holds
+    one table-sharded call of each of rows 2-5 from its last DP2 x TP2 step
+    against its plain version and times it."""
+    from nerf_vo_tpu_torch.evaluation.nerf_renderer import MapRenderer
+    from nerf_vo_tpu_torch.mapping import keyframe_buffer as kb
+    from nerf_vo_tpu_torch.ops import dense_ba
+    from nerf_vo_tpu_torch.parallel import dist as pdist
+
+    args = SimpleNamespace(**spec["args"])
+    K = spec["keyframes"]
+    H, W = args.frame_height, args.frame_width
+    mesh = pdist.make_mesh()
+    mesh22 = pdist.make_mesh_2d(2, 2)
+    world_ax = pdist.world_axis()
+    buf = kb.create(args.num_keyframes, H, W, use_normals=False, device=dev)
+    kb.insert(buf, list(range(K)), mapping_packet(dev, K, H, W, 7))
+    out, calls = {}, []
+
+    def peak():
+        return (torch.cuda.max_memory_allocated(dev) / 2**30
+                if dev.type == "cuda" else 0.0)
+
+    def whole(p):
+        """A table-sharded model's parameters with each table gathered over
+        the model axis (and checked alike on both data rows)."""
+        m_ax = pdist.mesh_axis(mesh22, "model")
+        d_ax = pdist.mesh_axis(mesh22, "data")
+        same = True
+        for n in list(p):
+            if n.endswith("tables"):
+                local = p[n].float().contiguous()
+                rows = pdist.all_gather_cat(local[None], d_ax)
+                same &= torch.equal(rows[0], rows[-1])
+                p[n] = pdist.all_gather_cat(local, m_ax)
+        return p, same
+
+    # DP(4) on the ranks' quarters; DP(2) over the 2 x 2 mesh's data axis
+    # on the rows' halves (a model column's two ranks alike): the
+    # references of descriptor sharding and of DP2 x TP2, on the same rays
+    # a rank
+    refs = {}
+    for mode, msh, kind, ref_of in (("dp", mesh, "dp", None),
+                                    ("rows", mesh22, "dp", None),
+                                    ("tp", mesh22, "tp", "rows"),
+                                    ("ds", mesh22, "ds", "dp")):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        (model, trainer, state, first, losses, times, launches,
+         calls_m) = train_mode(args, dev, kind, buf, spec["steps"], msh,
+                               record=mode == "tp" and rank == 0)
+        calls = calls_m or calls
+        p = params_of(model, state)
+        names = leaf_names(state)
+        rec = dict(losses=losses, ms=times, launches=launches,
+                   peak_gib=peak())
+        if ref_of is not None:
+            p, rec["rows_equal"] = whole(p)
+            first, same = whole(first)
+            rec["rows_equal"] &= same
+            rec["vs_ref"] = compare_params(p, refs[ref_of][0], names)
+            rec["vs_ref_step1"] = compare_tight(first, refs[ref_of][1],
+                                                names)
+            if mode == "tp":  # against DP(4): other groupings of the rays
+                rec["vs_dp4"] = compare_params(p, refs["dp"][0], names)
+        else:
+            refs[mode] = ({n: v.clone() for n, v in p.items()}, first)
+        # replicated leaves (and pose corrections) alike on every rank of
+        # the mode's group (a model column of "rows", else every rank)
+        flat = torch.cat([v.float().reshape(-1) for n, v in p.items()
+                          if not n.endswith("tables")])
+        ax = pdist.mesh_axis(mesh22, "data") if mode == "rows" else world_ax
+        allr = pdist.all_gather_cat(flat[None], ax)
+        rec["replicated_equal"] = all(torch.equal(allr[0], allr[r])
+                                      for r in range(ax.size))
+        out[mode] = rec
+        if mode == "dp":  # the render of the DP(4) map
+            stage = SimpleNamespace(trainer=trainer, buffer=buf, device=dev,
+                                    state=state, model=model)
+            rh, rw = spec["render"]
+            cam = dict(fx=0.8 * rw, fy=0.8 * rw, cx=rw / 2, cy=rh / 2,
+                       height=rh, width=rw)
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, 3] = [0.1, 0.0, -0.2]
+            sync(dev)
+            t0 = time.perf_counter()
+            col, dep = MapRenderer(stage, mesh=mesh).render_frame(cam, pose)
+            sync(dev)
+            t_dp = (time.perf_counter() - t0) * 1e3
+            rec["render"] = dict(ms=t_dp)
+            if rank == 0:
+                t0 = time.perf_counter()
+                col1, dep1 = MapRenderer(stage).render_frame(cam, pose)
+                sync(dev)
+                rec["render"].update(
+                    one_ms=(time.perf_counter() - t0) * 1e3,
+                    rgb_max_diff=int(np.abs(col.astype(int)
+                                            - col1.astype(int)).max()),
+                    depth_max_rel=float(np.max(np.abs(dep - dep1)
+                                               / np.maximum(np.abs(dep1),
+                                                            1e-6))))
+        del model, trainer, state, p, first
+    del refs
+
+    # the NGP mapper, DP2 x TP2, through one occupancy refresh
+    ngp_args = SimpleNamespace(**spec["ngp_args"])
+    ngp_buf = kb.create(ngp_args.num_keyframes, H, W, use_normals=False,
+                        use_depth_cov=True, device=dev)
+    kb.insert(ngp_buf, list(range(K)), mapping_packet(dev, K, H, W, 8,
+                                                      cov=True))
+    _, _, nstate, _, nloss, ntimes, nlaunch, _ = train_mode(
+        ngp_args, dev, "tp", ngp_buf, spec["ngp_steps"], mesh22)
+    grid = nstate.occ_grid
+    grids = pdist.all_gather_cat(grid[None], world_ax)
+    out["ngp"] = dict(
+        losses=nloss, ms=ntimes, launches=nlaunch,
+        grid_equal=all(torch.equal(grids[0], grids[r])
+                       for r in range(world)),
+        grid_finite=bool(torch.isfinite(grid).all()),
+        grid_max=float(grid.max()),
+        occupied=float((grid > 0.01).float().mean()))
+    del nstate, ngp_buf
+
+    # the pixel-sharded dense BA at the frontend's size
+    problem, slots, eta = dense_ba_problem(dev, spec)
+    res = {}
+    for n_it in (1, 2):
+        step = dense_ba.make_sharded_dense_ba(
+            mesh, num_iters=n_it, window=spec["ba_window"])
+        sync(dev)
+        t0 = time.perf_counter()
+        got = step(problem, slots, eta=eta)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        res[n_it] = dict(ms=ms)
+        if rank == 0:
+            t0 = time.perf_counter()
+            want = dense_ba.dense_bundle_adjust(
+                problem, slots, num_iters=n_it, window=spec["ba_window"],
+                eta=eta)
+            sync(dev)
+            res[n_it].update(one_ms=(time.perf_counter() - t0) * 1e3,
+                             **ba_errors(got, want))
+    out["dense_ba"] = res
+    del problem, eta
+
+    # DROID tracking with the pixel-sharded frontend BA
+    sargs = SimpleNamespace(**spec["slam_args"])
+    tr = droid_tracker(sargs, dev, mesh)
+    sec = run_droid(tr, spec["droid_frames"], sargs)
+    out["droid"] = dict(s=sec, **droid_state(tr))
+    del tr
+
+    # rank 0 holds the recorded table-sharded calls while the others wait
+    pdist.all_reduce_sum(torch.zeros(1, device=dev), world_ax)
+    if rank == 0 and dev.type == "cuda":
+        out["held"] = hold_calls(pick_tp_calls(calls), "a DP2 x TP2 step's "
+                                 "table-sharded route (rank 0)", "(i)")
+    pdist.all_reduce_sum(torch.zeros(1, device=dev), world_ax)
+    out["peak_gib"] = peak()
+    return out
+
+
+def pick_tp_calls(calls):
+    """Of a step's recorded calls, the field's (R = 256) table-sharded
+    ones: the largest masked ``gather_interp`` (local rows, zero weights on
+    the descriptors owned elsewhere), the slab's ``gather_interp_mm``, the
+    largest compacted ``scatter_cols_accum`` into the local rows (not the
+    slab's) and the largest ``gather_cols`` of owned descriptors."""
+    best = {}
+    local = max(a[0].shape[0] for name, a, kw in calls
+                if name != "scatter_cols_accum" and a[0].shape[1] == 256)
+    for name, a, kw in calls:
+        t = a[0]
+        if t.shape[1] != 256:
+            continue
+        if name == "scatter_cols_accum" and kw.get("hot_rows"):
+            continue  # the slab's
+        if name == "gather_cols" and t.shape[0] != local:
+            continue  # the slab's
+        m = a[1].shape[0]
+        if name not in best or m > best[name][1][1].shape[0]:
+            best[name] = (name, a, kw)
+    missing = [n for n in TP_ROWS if n not in best]
+    if missing:
+        fail(f"(i) no table-sharded call of {missing} was recorded")
+    return [best[n] for n in TP_ROWS]
+
+
+def dense_ba_problem(dev, spec):
+    """A frontend-sized dense BA problem from a seed on the device:
+    ``ba_frames`` frames (poses near identity, inverse depth 0.3-1.5) at
+    45x80, ``ba_edges`` edges among the window's first frames, noisy
+    reprojection targets, weights 0.2-1, depth damping up to 0.01."""
+    from nerf_vo_tpu_torch.core import lie
+    from nerf_vo_tpu_torch.ops import dense_ba
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    N, E, P = spec["ba_frames"], spec["ba_edges"], spec["ba_window"]
+    h, w = spec["ba_hw"]
+    poses = lie.se3_retract(
+        lie.se3_identity((N,), device=dev),
+        torch.randn(N, 6, generator=g, device=dev) * 0.02)
+    disps = 0.3 + 1.2 * torch.rand(N, h, w, generator=g, device=dev)
+    intr = torch.tensor([w * 0.8, w * 0.8, w / 2, h / 2],
+                        device=dev).repeat(N, 1)
+    ii = torch.randint(0, P + 1, (E,), generator=g, device=dev)
+    jj = (ii + torch.randint(1, 4, (E,), generator=g, device=dev)) % (P + 1)
+    coords, _ = dense_ba.dense_reproject(poses, disps, intr, ii, jj)
+    tgt = coords + torch.randn(coords.shape, generator=g, device=dev) * 0.3
+    wgt = 0.2 + 0.8 * torch.rand(coords.shape, generator=g, device=dev)
+    slots = torch.full((N,), -1, dtype=torch.long, device=dev)
+    slots[1:P + 1] = torch.arange(P, device=dev)
+    eta = torch.rand(N, h, w, generator=g, device=dev) * 0.01
+    prob = dense_ba.DenseBAProblem(
+        poses=poses, disps=disps, intrinsics=intr, ii=ii, jj=jj,
+        targets=tgt, weights=wgt,
+        valid=torch.ones(E, dtype=torch.bool, device=dev))
+    return prob, slots, eta
+
+
+def ba_errors(got, want):
+    p1, d1, c1, cov1 = got
+    p0, d0, c0, cov0 = want
+    return dict(
+        pose_max=float((p1 - p0).abs().max()),
+        cost_rel=float(((c1 - c0).abs() / c0.abs()).max()),
+        disp_mean_rel=float(((d1 - d0).abs() / d0.abs()).mean()),
+        disp_max_rel=float(((d1 - d0).abs() / d0.abs()).max()),
+        cov_max_rel=float(((cov1 - cov0).abs() / cov0.abs()).max()))
+
+
+def droid_tracker(sargs, dev, mesh=None):
+    """The DROID tracker of ``TrackingStage(droid-slam)`` (its config keys,
+    random weights from torch seed 42), with the frontend BA sharded over
+    ``mesh``'s first axis when given."""
+    from nerf_vo_tpu_torch.models import droid_net
+    from nerf_vo_tpu_torch.tracking.droid_slam import (DroidConfig,
+                                                       DROIDSLAMTracker)
+
+    cfg = DroidConfig(
+        buffer_size=sargs.num_keyframes,
+        motion_threshold=sargs.motion_threshold,
+        keyframe_threshold=sargs.keyframe_threshold,
+        perform_global_ba=sargs.perform_global_bundle_adjustment,
+        compute_covariances=sargs.compute_covariances)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(42)
+        net = droid_net.DroidNet()
+    H = sargs.frame_height - sargs.frame_height % 8
+    W = sargs.frame_width - sargs.frame_width % 8
+    return DROIDSLAMTracker(cfg, net, H, W, device=dev, mesh=mesh)
+
+
+def run_droid(tr, n, sargs):
+    """``n`` synthetic frames through ``tr.track`` as the stage feeds them;
+    returns the seconds, synchronized."""
+    frames = synthetic_frames(n, sargs.frame_height, sargs.frame_width)
+    intr = np.asarray([320.0, 320.0, sargs.frame_width / 2,
+                       sargs.frame_height / 2], np.float32)
+    sync(tr.device)
+    t0 = time.perf_counter()
+    for i, img in enumerate(frames):
+        tr.track(float(i), img[:tr.H, :tr.W], intr, frame_index=i)
+    sync(tr.device)
+    return time.perf_counter() - t0
+
+
+def droid_state(tr):
+    n = tr.n_kf
+    return dict(keyframes=n, poses=tr.poses[:n].detach().cpu().numpy(),
+                disps=tr.disps[:n].detach().cpu().numpy())
+
+
+def parallel_spec():
+    """The inputs of (i)'s ranks: the replica mapping args, the nerf_slam
+    NGP mapper's, the tracker's and (i)'s cuts."""
+    return dict(PARALLEL, args=dict(REPLICA, **MAPPING), ngp_args=dict(SLAM),
+                slam_args=dict(SLAM, **SLAM_TRACKING_CUTS))
+
+
+def phase_parallel(dev, smi):
+    """(i) the multi-device paths on the card: (i1) one NCCL rank, (i2)
+    four gloo ranks sharing the card. Prints every case, then fails if any
+    check failed. Returns each table kernel's launches by case and rank,
+    and rank 0's held table-sharded calls."""
+    from nerf_vo_tpu_torch.parallel import dist as pdist
+
+    spec = parallel_spec()
+    bad = []
+
+    def check(ok, what):
+        if not ok:
+            bad.append(what)
+
+    print(f"(i) cuts: {PARALLEL['keyframes']} active synthetic keyframes of "
+          f"the buffer's {MAPPING['num_keyframes']}; {PARALLEL['steps']} "
+          f"train steps a mode in (i2), {PARALLEL['i1_steps']} in (i1), "
+          f"{PARALLEL['ngp_steps']} NGP steps (one occupancy refresh); "
+          f"{PARALLEL['droid_frames']} DROID frames. Full width otherwise. "
+          "Ranks that share one card run at that card's pace: their times "
+          f"are no scaling figure. {smi}", flush=True)
+    t0 = time.perf_counter()
+    r1, probe = pdist.spawn(rank_i1, 1, "cuda", args=(
+        dict(spec, steps=PARALLEL["i1_steps"]),), timeout=900)[0]
+    print(f"(i1) all_reduce, all_gather, all_to_all_single and broadcast "
+          f"called on the one-rank group: backend {probe['backend']}, "
+          f"results right {probe['ok']}. The steps' own collectives move "
+          "nothing over a size-1 axis: below, DP(1) and DP1 x TP1 run the "
+          "one-rank route of the parallel code", flush=True)
+    check(probe["ok"] and probe["backend"] == "nccl",
+          "(i1) the NCCL collectives")
+    for mode, rec in r1.items():
+        c, c1 = rec["vs_ref"], rec["vs_ref_step1"]
+        print(f"(i1) {mode}: losses {rec['losses']}, ms a step "
+              f"{[round(t, 2) for t in rec['ms']]}; launches "
+              f"{rec['launches']}; against the plain step: "
+              f"{describe_agreement(c, c1, PARALLEL['i1_steps'])}",
+              flush=True)
+        check(np.allclose(rec["losses"], r1["plain"]["losses"], rtol=1e-4,
+                          atol=0), f"(i1) {mode} losses")
+        check(params_agree(c, c1), f"(i1) {mode} parameters")
+    print(f"(i1) {time.perf_counter() - t0:.1f} s with the spawn", flush=True)
+
+    # the one-rank DROID tracker, before the ranks share the card
+    sargs = SimpleNamespace(**spec["slam_args"])
+    tr = droid_tracker(sargs, dev)
+    sec = run_droid(tr, PARALLEL["droid_frames"], sargs)
+    one = dict(s=sec, **droid_state(tr))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    res = pdist.spawn(rank_i2, 4, "cuda", args=(spec,), timeout=1200)
+    print(f"(i2) {time.perf_counter() - t1:.1f} s with the spawn", flush=True)
+    refs = dict(tp="DP(2) over the data axis", ds="DP(4)")
+    for mode in ("dp", "rows", "tp", "ds"):
+        recs = [r[mode] for r in res]
+        ms = [float(np.median(r["ms"][1:])) for r in recs]
+        vs = ""
+        if mode in refs:
+            c, c1 = recs[0]["vs_ref"], recs[0]["vs_ref_step1"]
+            vs = (f"; against {refs[mode]} on the same rays a rank: "
+                  f"{describe_agreement(c, c1, PARALLEL['steps'])}; data "
+                  f"rows' tables equal {all(r['rows_equal'] for r in recs)}")
+            if mode == "tp":
+                c4 = recs[0]["vs_dp4"]
+                vs += (f"; against DP(4) (quarters, not halves, of the rays: "
+                       f"other bf16 roundings of the MLP gradients) the "
+                       f"least leaf {min(c4['close'].values()):.6f} within "
+                       f"lr/10, largest difference {c4['worst']:.3g}")
+            check(params_agree(c, c1), f"(i2) {mode} against {refs[mode]}")
+            check(all(r["rows_equal"] for r in recs),
+                  f"(i2) {mode} tables of the data rows")
+            ref_losses = res[0]["rows" if mode == "tp" else "dp"]["losses"]
+            check(np.allclose(recs[0]["losses"], ref_losses, rtol=1e-2,
+                              atol=0), f"(i2) {mode} losses")
+        print(f"(i2) {mode}: losses {[round(v, 5) for v in recs[0]['losses']]}"
+              f"; median ms a step by rank {[round(m, 2) for m in ms]} (4 "
+              f"ranks on one card); peak GiB by rank "
+              f"{[round(r['peak_gib'], 2) for r in recs]}; launches by rank "
+              f"{[r['launches'] for r in recs]}; replicated leaves equal on "
+              f"every rank {all(r['replicated_equal'] for r in recs)}{vs}",
+              flush=True)
+        # DP(2) over the data axis runs one group a model column: its
+        # leaves and metrics are alike within a column (ranks j, j + 2)
+        group = (lambda r: r % 2) if mode == "rows" else (lambda r: 0)
+        check(all(r["replicated_equal"] for r in recs),
+              f"(i2) {mode} replicated leaves")
+        check(all(r["losses"] == recs[group(i)]["losses"]
+                  for i, r in enumerate(recs)),
+              f"(i2) {mode} metrics alike on the ranks of a group")
+        for r in recs:
+            check(all(r["launches"][n] for n in TP_ROWS),
+                  f"(i2) {mode}: a rank launched no {TP_ROWS} kernel")
+    rr = res[0]["dp"]["render"]
+    print(f"(i2) MapRenderer(mesh=) {PARALLEL['render'][0]}x"
+          f"{PARALLEL['render'][1]} of the DP(4) map: {rr['ms']:.1f} ms over "
+          f"4 ranks, one rank {rr['one_ms']:.1f} ms; rgb max diff "
+          f"{rr['rgb_max_diff']} (uint8), depth max rel diff "
+          f"{rr['depth_max_rel']:.3g}", flush=True)
+    check(rr["rgb_max_diff"] <= 1 and rr["depth_max_rel"] <= 1e-3,
+          "(i2) the data-parallel render against one rank's")
+    ngp = res[0]["ngp"]
+    print(f"(i2) NGP DP2 x TP2: losses {ngp['losses']}, ms a step "
+          f"{[round(t, 2) for t in ngp['ms']]}, occupied share "
+          f"{ngp['occupied']:.4f}, grid max {ngp['grid_max']:.4g}, alike on "
+          f"every rank {all(r['ngp']['grid_equal'] for r in res)}; launches "
+          f"by rank {[r['ngp']['launches'] for r in res]}", flush=True)
+    check(all(r["ngp"]["grid_equal"] for r in res) and ngp["grid_finite"]
+          and ngp["grid_max"] > 0, "(i2) NGP occupancy grid")
+    for n_it, e in res[0]["dense_ba"].items():
+        print(f"(i2) make_sharded_dense_ba, {PARALLEL['ba_frames']} frames "
+              f"at {PARALLEL['ba_hw'][0]}x{PARALLEL['ba_hw'][1]}, "
+              f"{PARALLEL['ba_edges']} edges, window "
+              f"{PARALLEL['ba_window']}, {n_it} iteration(s): "
+              f"{e['ms']:.1f} ms over 4 ranks, one rank {e['one_ms']:.1f} "
+              f"ms; against one rank: poses {e['pose_max']:.3g}, costs rel "
+              f"{e['cost_rel']:.3g}, inverse depth mean rel "
+              f"{e['disp_mean_rel']:.3g} (max {e['disp_max_rel']:.3g}), "
+              f"covariance max rel {e['cov_max_rel']:.3g}", flush=True)
+    e1, e2 = res[0]["dense_ba"][1], res[0]["dense_ba"][2]
+    check(e1["pose_max"] <= 1e-4 and e1["disp_mean_rel"] <= 2e-4
+          and e1["cov_max_rel"] <= 1e-2 and e2["cost_rel"] <= 1e-4
+          and e2["disp_mean_rel"] <= 1e-3,
+          "(i2) the sharded dense BA against one rank's")
+    d4 = res[0]["droid"]
+    dpose = float(np.abs(d4["poses"] - one["poses"]).max())
+    ddisp = float(np.mean(np.abs(d4["disps"] - one["disps"])
+                          / np.abs(one["disps"])))
+    alike = all(np.array_equal(r["droid"]["poses"], d4["poses"])
+                and np.array_equal(r["droid"]["disps"], d4["disps"])
+                for r in res)
+    print(f"(i2) DROIDSLAMTracker(mesh=): {PARALLEL['droid_frames']} frames "
+          f"in {d4['s']:.1f} s on each of 4 ranks (one rank alone "
+          f"{one['s']:.1f} s), {d4['keyframes']} keyframes, alike on every "
+          f"rank {alike}; against one rank: poses max diff {dpose:.3g}, "
+          f"inverse depth mean rel {ddisp:.3g}", flush=True)
+    check(alike and d4["keyframes"] == one["keyframes"] and dpose <= 1e-2
+          and ddisp <= 1e-2, "(i2) the sharded-BA tracker against one rank's")
+    print(f"(i) {time.perf_counter() - t0:.1f} s in all; peak GiB by rank "
+          f"{[round(r['peak_gib'], 2) for r in res]}", flush=True)
+    if bad:
+        fail(f"(i) checks failed: {bad}")
+    launches = {name: {"i1": {m: r1[m]["launches"][name] for m in r1},
+                       **{m: [r[m]["launches"][name] for r in res]
+                          for m in ("dp", "rows", "tp", "ds", "ngp")}}
+                for name in TP_ROWS}
+    return launches, res[0]["held"]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -2089,6 +2868,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     slam_counts = phase_slam(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel_launches, parallel_held = phase_parallel(dev, smi)
     bf16_entry = dict(held["h2"][0][1], name="gather_interp_bf16",
                       route="cuda", source="nerf_vo_tpu_torch/csrc/gather.cu",
                       replaces="nerf_vo_tpu/ops/gather_pallas.py:133",
@@ -2102,6 +2884,9 @@ def main():
             entry[f"{tag}_launches"] = c.get(name, 0)
         if name in TABLE_ROWS:
             entry["h1_proposal_f2"] = [t for n, t in held["h1"] if n == name]
+        if name in TP_ROWS:  # (i): by case, per rank
+            entry["i_launches"] = parallel_launches[name]
+            entry["i_tp_route"] = [t for n, t in parallel_held if n == name]
     # the bf16 kernel's path is (h2)'s: no other path has a bf16 table
     bf16_entry["launches"] = variant_launches["h2"]["gather_interp_bf16"]
     kernels.append(bf16_entry)

@@ -17,6 +17,8 @@ runtime      the pipeline (serial or with a frame-prefetch thread), its
              stages and their artifacts, per-stage telemetry, live viewer
 evaluation   renders at GT poses, TSDF fusion, meshes, trajectory / 2D / 3D
              metrics, LPIPS
+parallel     process groups, device meshes, a launcher; data-parallel and
+             table-sharded mapping steps, data-parallel render chunks
 utils        float-precision policy
 run          the CLI: ``python -m nerf_vo_tpu_torch.run --config <name>``
 

@@ -25,16 +25,25 @@ import numpy as np
 import torch
 
 from nerf_vo_tpu_torch.core import conventions
+from nerf_vo_tpu_torch.parallel.sharding import make_dp_render_chunk
 
 
 class MapRenderer:
-    def __init__(self, mapping_stage):
+    def __init__(self, mapping_stage, mesh=None):
+        """``mesh``: a device mesh; each render chunk's rays are then split
+        over its first axis (``parallel.sharding.make_dp_render_chunk``)
+        and every rank of it renders the same frames in lockstep. None:
+        one device."""
         self.mapping = mapping_stage
         self.trainer = mapping_stage.trainer
         self.buffer = mapping_stage.buffer
         self.device = mapping_stage.device
         self._norm = self.buffer.normalization.cpu().numpy()
         self._norm_inv = np.linalg.inv(self._norm)
+        self._chunk_fn = None
+        if mesh is not None:
+            self._chunk_fn = make_dp_render_chunk(
+                self.trainer, mesh, mesh.mesh_dim_names[0])
 
     # -- pose plumbing ---------------------------------------------------
 
@@ -66,6 +75,7 @@ class MapRenderer:
         return self.trainer.render_image(
             self.mapping.state, np.asarray(c2w_gl, np.float32), intr,
             camera_intrinsics["height"], camera_intrinsics["width"],
+            chunk_fn=self._chunk_fn,
         )
 
     def render_frame(self, camera_intrinsics: Dict,

@@ -138,43 +138,80 @@ class MappingTrainer:
                 and len(self.model.proposal_fields) > 0
                 and state.step % mcfg.proposal_refresh_every == 0)
 
-    def draws(self, buffer: kb.KeyframeBuffer, state: TrainState) -> Dict:
+    def draws(self, buffer: kb.KeyframeBuffer, state: TrainState,
+              n_rays: Optional[int] = None, generators=None) -> Dict:
         """One step's random draws from the trainer's generator: pixel
         picks (in prefetch mode the next step's, plus the first call's
         ``fill``), stratification uniforms, on an occupancy refresh step
         the slab jitter ``occ_jitter``, and under MLP proposals the
-        distillation's ``distill_points``."""
-        R = self.config.rays_per_batch
-        d = kb.draw_pixels(buffer, R, self.generator)
-        if self.config.prefetch_batch and state.prefetch is None:
-            d["fill"] = kb.draw_pixels(buffer, R, self.generator)
+        distillation's ``distill_points``.
+
+        A parallel step's draws: ``n_rays``, its share of the batch (no
+        prefetch), and ``generators`` = (rays, refresh): the pixel picks
+        and uniforms from its rank's generator, the refresh draws from one
+        that is alike on every rank."""
+        R = n_rays or self.config.rays_per_batch
+        g_rays, g_refresh = generators or (self.generator, self.generator)
+        d = kb.draw_pixels(buffer, R, g_rays)
+        if (n_rays is None and self.config.prefetch_batch
+                and state.prefetch is None):
+            d["fill"] = kb.draw_pixels(buffer, R, g_rays)
         d["uniforms"] = [
-            torch.rand(shape, generator=self.generator, device=self.device)
+            torch.rand(shape, generator=g_rays, device=self.device)
             for shape in self.model.uniform_shapes(R)]
         if self._refreshes_occupancy(state):
             d["occ_jitter"] = torch.rand(
                 O.slab_size(self.model.config.occupancy), 3,
-                generator=self.generator, device=self.device)
+                generator=g_refresh, device=self.device)
         if self._distills_mlp():
             d["distill_points"] = torch.rand(
                 self.model.config.proposal_distill_points, 3,
-                generator=self.generator, device=self.device)
+                generator=g_refresh, device=self.device)
         return d
 
     def train_step(self, state: TrainState, buffer: kb.KeyframeBuffer,
                    draws: Optional[Dict] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One optimization step, in place on ``state``: grads, the two
-        Adam updates, then on the updated field the dense proposal grids'
-        refresh when ``step % proposal_refresh_every == 0`` (distilled
-        dense grids only) or the occupancy refresh when
-        ``step % occupancy.update_every == 0``, then step + 1."""
+        """One optimization step, in place on ``state``: :meth:`gradients`,
+        then :meth:`update` (the two Adam updates, then on the updated
+        field the dense proposal grids' refresh when ``step %
+        proposal_refresh_every == 0`` (distilled dense grids only) or the
+        occupancy refresh when ``step % occupancy.update_every == 0``,
+        then step + 1)."""
         if draws is None:
             draws = self.draws(buffer, state)
+        metrics = self.gradients(state, buffer, draws)
+        self.update(state, draws)
+        return state, metrics
+
+    def leaves(self, state: TrainState) -> List[torch.Tensor]:
+        """The tensors a step differentiates: the trainable parameters,
+        then the pose corrections when they are optimized."""
+        leaves = list(state.params.values())
+        if self.config.optimize_extrinsics:
+            leaves.append(state.pose_deltas)
+        return leaves
+
+    def gradients(self, state: TrainState, buffer: kb.KeyframeBuffer,
+                  draws: Dict, n_rays: Optional[int] = None
+                  ) -> Dict[str, torch.Tensor]:
+        """The loss of one step's batch; its gradient goes into the
+        ``.grad`` of every leaf (:meth:`leaves`; zero where the loss does
+        not reach it), where a parallel step averages it before
+        :meth:`update`. Returns the loss terms.
+
+        ``n_rays``: a parallel step's share of the batch. The batch is then
+        sampled without prefetch and the loss is taken without the train
+        step (no phased table gradient), as the JAX package's parallel
+        steps do."""
         cfg = self.config
-        R = cfg.rays_per_batch
         deltas = state.pose_deltas if cfg.optimize_extrinsics else None
-        if cfg.prefetch_batch:
+        step = state.step
+        if n_rays is not None:
+            batch = kb.sample_ray_batch(buffer, deltas, n_rays, picks=draws)
+            step = None
+        elif cfg.prefetch_batch:
+            R = cfg.rays_per_batch
             if state.prefetch is None:  # the first call fills the buffer
                 state.prefetch = kb.sample_pixel_batch(
                     buffer, R, draws.get("fill"), self.generator)
@@ -183,25 +220,31 @@ class MappingTrainer:
             state.prefetch = kb.sample_pixel_batch(buffer, R, picks=draws)
             batch = kb.rays_from_pixel_batch(buffer, deltas, pixels)
         else:
-            batch = kb.sample_ray_batch(buffer, deltas, R, picks=draws)
+            batch = kb.sample_ray_batch(buffer, deltas, cfg.rays_per_batch,
+                                        picks=draws)
         loss, metrics = self.model.loss(
             batch, draws["uniforms"], occ_grid=state.occ_grid,
-            step=state.step, distill_points=draws.get("distill_points"))
+            step=step, distill_points=draws.get("distill_points"))
 
-        leaves: List[torch.Tensor] = list(state.params.values())
-        if cfg.optimize_extrinsics:
-            leaves.append(state.pose_deltas)
+        leaves = self.leaves(state)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         for p, g in zip(leaves, grads):
             # a bf16 parameter steps in bf16, as optax keeps its dtype
             p.grad = torch.zeros_like(p) if g is None else g.to(p.dtype)
+        return metrics
+
+    def update(self, state: TrainState, draws: Dict) -> None:
+        """Apply the leaves' ``.grad`` (Adam; keyframe 0's pose gradient
+        zeroed first: the gauge anchor), clear them, run the step's
+        refreshes, step + 1."""
+        cfg = self.config
         state.opt.step()
         if cfg.optimize_extrinsics:
             state.pose_deltas.grad[0] = 0.0  # keyframe 0: the gauge anchor
             for group in state.cam_opt.param_groups:
                 group["lr"] = self.camera_lr(state.step)
             state.cam_opt.step()
-        for p in leaves:
+        for p in self.leaves(state):
             p.grad = None
 
         if self.refreshes_proposals(state):
@@ -210,7 +253,6 @@ class MappingTrainer:
             state.occ_grid = self.model.refresh_occupancy(
                 state.occ_grid, state.step, draws["occ_jitter"])
         state.step += 1
-        return state, metrics
 
     # ------------------------------------------------------------------
 
@@ -222,10 +264,14 @@ class MappingTrainer:
 
     @torch.no_grad()
     def render_image(self, state: TrainState, c2w, intrinsics, height: int,
-                     width: int, chunk: int = 1 << 14
+                     width: int, chunk: int = 1 << 14, chunk_fn=None
                      ) -> Dict[str, torch.Tensor]:
         """Full-frame render in ray chunks with deterministic samples:
-        rgb [H, W, 3], z-depth [H, W], accumulation [H, W]."""
+        rgb [H, W, 3], z-depth [H, W], accumulation [H, W].
+
+        ``chunk_fn(origins, directions, occ_grid)`` replaces the
+        single-device chunk renderer: ``parallel.sharding.
+        make_dp_render_chunk`` shards each chunk's rays over a mesh."""
         dev = self.device
         c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
         intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32,
@@ -237,9 +283,10 @@ class MappingTrainer:
         xy = torch.stack([xs, ys], -1).reshape(-1, 2) + 0.5
         o, d, dn = cameras.generate_rays(c2w, intrinsics, xy, "opengl")
         outs = {"rgb": [], "depth": [], "accumulation": []}
+        render = chunk_fn or (lambda o, d, occ: self.model.render(
+            o, d, occ_grid=occ))
         for i in range(0, xy.shape[0], chunk):
-            r = self.model.render(o[i:i + chunk], d[i:i + chunk],
-                                  occ_grid=state.occ_grid)
+            r = render(o[i:i + chunk], d[i:i + chunk], state.occ_grid)
             for k in outs:
                 outs[k].append(r[k])
         cat = {k: torch.cat(v) for k, v in outs.items()}

@@ -81,12 +81,25 @@ class MLP(nn.Module):
 
 
 class _UnitCube(nn.Module):
+    """Positions -> the unit cube; and, for a field with a table, the
+    model axis its table rows are sharded over (``model_group``, the JAX
+    package's ``model_axis``; ``model_axis_size`` shards; None: the whole
+    table) and ``descriptor_sharding`` (see ``hash_grid.hash_encode``)."""
+
     def __init__(self, use_contraction: bool, aabb_min: float,
-                 aabb_max: float):
+                 aabb_max: float, model_group=None,
+                 model_axis_size: int = 1, descriptor_sharding: bool = False):
         super().__init__()
         self.use_contraction = use_contraction
         self.aabb_min = aabb_min
         self.aabb_max = aabb_max
+        self.model_group = model_group
+        self.model_axis_size = model_axis_size
+        self.descriptor_sharding = descriptor_sharding
+
+    def _tp(self):
+        return dict(group=self.model_group,
+                    descriptor_sharding=self.descriptor_sharding)
 
     def _to_unit(self, positions):
         if self.use_contraction:
@@ -117,16 +130,17 @@ class ProposalDensityField(_UnitCube):
     def __init__(self, grid: HashGridConfig = HashGridConfig(5, 2, 17, 16,
                                                              256),
                  hidden: int = 16, use_contraction: bool = True,
-                 aabb_min: float = -1.0, aabb_max: float = 1.0):
-        super().__init__(use_contraction, aabb_min, aabb_max)
+                 aabb_min: float = -1.0, aabb_max: float = 1.0, **tp):
+        super().__init__(use_contraction, aabb_min, aabb_max, **tp)
         self.grid = grid
         self.mlp = MLP(grid.output_dim, hidden, 1, 1)
-        self.tables = nn.Parameter(hash_grid.init_tables(grid))
+        self.tables = nn.Parameter(hash_grid.init_tables(
+            grid, shard=self.model_axis_size))
 
     def forward(self, positions):
         """positions [..., 3] world-frame -> density [...]."""
         feat = hash_grid.hash_encode(self.tables, self._to_unit(positions),
-                                     self.grid)
+                                     self.grid, **self._tp())
         return trunc_exp(self.mlp(feat)[..., 0] - 1.0)
 
 
@@ -136,7 +150,8 @@ class MLPProposalField(_UnitCube):
 
     def __init__(self, n_freqs: int = 6, hidden: int = 64, depth: int = 2,
                  use_contraction: bool = True, aabb_min: float = -1.0,
-                 aabb_max: float = 1.0):
+                 aabb_max: float = 1.0, **tp):
+        # no table: its weights replicate over a model axis
         super().__init__(use_contraction, aabb_min, aabb_max)
         self.n_freqs = n_freqs
         self.mlp = MLP(3 + 6 * n_freqs, hidden, depth, 1)
@@ -175,14 +190,16 @@ class DenseProposalField(_UnitCube):
 
     def __init__(self, resolution: int = 128, use_contraction: bool = True,
                  aabb_min: float = -1.0, aabb_max: float = 1.0,
-                 table_dtype: str = "float32", trainable: bool = False):
-        super().__init__(use_contraction, aabb_min, aabb_max)
+                 table_dtype: str = "float32", trainable: bool = False,
+                 **tp):
+        super().__init__(use_contraction, aabb_min, aabb_max, **tp)
         self.resolution = resolution
         if table_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"table_dtype {table_dtype!r}: 'float32' or "
                              "'bfloat16'")
         self.tables = nn.Parameter(
-            hash_grid.init_tables(self.grid).to(getattr(torch, table_dtype)),
+            hash_grid.init_tables(self.grid, shard=self.model_axis_size).to(
+                getattr(torch, table_dtype)),
             requires_grad=trainable)
 
     @property
@@ -192,7 +209,7 @@ class DenseProposalField(_UnitCube):
     def forward(self, positions):
         """positions [..., 3] world-frame -> density [...]."""
         feat = hash_grid.hash_encode(self.tables, self._to_unit(positions),
-                                     self.grid)
+                                     self.grid, **self._tp())
         return trunc_exp(feat[..., 0] - 1.0)
 
 
@@ -206,8 +223,8 @@ class NerfactoField(_UnitCube):
                  appearance_dim: int = 32, num_images: int = 512,
                  sh_degree: int = 4, use_contraction: bool = True,
                  aabb_min: float = -1.0, aabb_max: float = 1.0,
-                 predict_normals: bool = True):
-        super().__init__(use_contraction, aabb_min, aabb_max)
+                 predict_normals: bool = True, **tp):
+        super().__init__(use_contraction, aabb_min, aabb_max, **tp)
         self.grid = grid
         self.geo_feat_dim = geo_feat_dim
         self.appearance_dim = appearance_dim
@@ -221,7 +238,8 @@ class NerfactoField(_UnitCube):
         nn.init.normal_(self.embedding.weight, std=1.0 / math.sqrt(num_images))
         if predict_normals:
             self.normal_mlp = MLP(geo_feat_dim, hidden, 2, 3)
-        self.tables = nn.Parameter(hash_grid.init_tables(grid))
+        self.tables = nn.Parameter(hash_grid.init_tables(
+            grid, shard=self.model_axis_size))
 
     def density(self, positions, grad_phase=None):
         """(density, geo_feat) at world positions. ``grad_phase``: the
@@ -232,7 +250,7 @@ class NerfactoField(_UnitCube):
 
     def density_unit_features(self, unit_positions, grad_phase=None):
         feat = hash_grid.hash_encode(self.tables, unit_positions, self.grid,
-                                     grad_phase)
+                                     grad_phase, **self._tp())
         h = self.density_mlp(feat)
         return trunc_exp(h[..., 0] - 1.0), h[..., 1:]
 
@@ -247,8 +265,8 @@ class NerfactoField(_UnitCube):
         with torch.enable_grad():
             unit_p = self._to_unit(p)
         unit = self._to_unit(positions)
-        feat, pullback = hash_grid.hash_encode_vjp(self.tables, unit,
-                                                   self.grid, grad_phase)
+        feat, pullback = hash_grid.hash_encode_vjp(
+            self.tables, unit, self.grid, grad_phase, **self._tp())
         with torch.enable_grad():
             if not feat.requires_grad:
                 feat.requires_grad_(True)

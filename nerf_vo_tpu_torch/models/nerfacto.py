@@ -22,10 +22,14 @@ occupancy-grid weights at 128 uniform coarse bins drive the PDF resampler
 (``ops/occupancy.py``), and :meth:`NerfactoModel.refresh_occupancy`
 re-evaluates a rotating slab of the grid from the current field.
 
-Every single-device path of the JAX model is ported; ``model_axis`` and
-``descriptor_sharding`` (the multi-device tables) raise
-``NotImplementedError``, as does a ``sampler`` other than "proposal" or
-"occupancy".
+Every path of the JAX model is ported; a ``sampler`` other than "proposal"
+or "occupancy" raises ``NotImplementedError``. ``model_axis`` names the
+axis of the mesh the model is given (``NerfactoModel(config, mesh=)``)
+over which every table's rows are sharded: each rank holds
+``1 / model_axis_size`` of each table and every encode makes the model
+axis's collectives (``ops/hash_grid.py``), so the ranks of a model group
+run the same calls in lockstep; ``descriptor_sharding`` routes each rank's
+own samples to the rows' owners.
 
 Random numbers come in as arguments: ``uniforms`` is the list of
 stratification uniforms of one render (the bin jitter ``[R, S0+1]``, then one
@@ -52,6 +56,7 @@ from nerf_vo_tpu_torch.models.nerf_field import (
 from nerf_vo_tpu_torch.ops import losses as L
 from nerf_vo_tpu_torch.ops import occupancy as O
 from nerf_vo_tpu_torch.ops import rendering as R
+from nerf_vo_tpu_torch.parallel import dist as pdist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,30 +110,51 @@ class NerfactoConfig:
 
 def check_ported(cfg: NerfactoConfig) -> None:
     """Raise NotImplementedError for a configuration this port does not
-    run yet."""
-    unported = {
-        "sampler": (cfg.sampler, ("proposal", "occupancy")),
-        "model_axis": (cfg.model_axis, (None,)),
-        "descriptor_sharding": (cfg.descriptor_sharding, (False,)),
-    }
-    for name, (value, ok) in unported.items():
-        if value not in ok:
-            raise NotImplementedError(
-                f"NerfactoConfig.{name}={value!r} is not ported (ported: "
-                f"{ok})")
+    run."""
+    ok = ("proposal", "occupancy")
+    if cfg.sampler not in ok:
+        raise NotImplementedError(
+            f"NerfactoConfig.sampler={cfg.sampler!r} is not ported (ported: "
+            f"{ok})")
+
+
+def _model_axis(cfg: NerfactoConfig, mesh):
+    """The model axis (``parallel.dist.Axis``; None without
+    ``model_axis``)."""
+    if cfg.model_axis is None:
+        if cfg.descriptor_sharding:
+            raise ValueError("NerfactoConfig.descriptor_sharding=True needs "
+                             "model_axis (and the mesh)")
+        return None
+    if mesh is None:
+        raise ValueError(f"NerfactoConfig.model_axis={cfg.model_axis!r} "
+                         "needs the mesh: NerfactoModel(config, mesh=)")
+    axis = pdist.mesh_axis(mesh, cfg.model_axis)
+    if axis.size != cfg.model_axis_size:
+        raise ValueError(f"NerfactoConfig.model_axis_size="
+                         f"{cfg.model_axis_size} but the mesh's "
+                         f"{cfg.model_axis!r} axis has {axis.size} ranks")
+    return axis
 
 
 class NerfactoModel(nn.Module):
     """Proposal fields + field; parameters are this module's. Build it under
     a torch seed for a reproducible random init, or load
-    :func:`from_jax_params`'s state dict."""
+    :func:`from_jax_params`'s state dict. ``mesh``: the device mesh whose
+    ``config.model_axis`` shards the tables (see ``parallel/dist.py``);
+    each table parameter is then this rank's row shard."""
 
-    def __init__(self, config: NerfactoConfig = NerfactoConfig()):
+    def __init__(self, config: NerfactoConfig = NerfactoConfig(), mesh=None):
         super().__init__()
         check_ported(config)
         self.config = config
+        self.model_axis = _model_axis(config, mesh)
         common = dict(use_contraction=config.use_contraction,
-                      aabb_min=config.aabb_min, aabb_max=config.aabb_max)
+                      aabb_min=config.aabb_min, aabb_max=config.aabb_max,
+                      model_group=(None if self.model_axis is None
+                                   else self.model_axis.group),
+                      model_axis_size=config.model_axis_size,
+                      descriptor_sharding=config.descriptor_sharding)
         n_prop = len(config.num_proposal_samples)
         if config.proposal_type == "dense":
             fields = [DenseProposalField(
@@ -412,12 +438,21 @@ class NerfactoModel(nn.Module):
     def refresh_proposals(self, step: int) -> None:
         """Rewrite one rotating brick slab of every dense proposal grid, in
         place, from the current field density (rounded to nearest even in a
-        bf16 table)."""
+        bf16 table). With a model axis the slab is computed through the
+        sharded field on every rank alike, and each rank writes the rows it
+        holds (the JAX package's ``_tp_refresh_proposals``)."""
         if self.config.proposal_type != "dense":
             raise ValueError("refresh_proposals needs dense proposal grids")
         for pf in self.proposal_fields:
             b0, rows = self._proposal_slab(pf, step)
-            pf.tables[b0:b0 + rows.shape[0]] = rows
+            if self.model_axis is None:
+                pf.tables[b0:b0 + rows.shape[0]] = rows
+                continue
+            R = pf.tables.shape[0]
+            base = self.model_axis.index * R
+            lo, hi = max(b0, base), min(b0 + rows.shape[0], base + R)
+            if lo < hi:
+                pf.tables[lo - base:hi - base] = rows[lo - b0:hi - b0]
 
     @torch.no_grad()
     def _proposal_slab(self, pf, step: int):

@@ -15,8 +15,10 @@ Gauss-Newton over the window poses plus per-pixel inverse depths:
     C^-1 + C^-1 U S^-1 U^T C^-1 (the reference computes the same quantity
     by a dense Cholesky of the reduced camera matrix).
 
-:func:`global_dense_ba` is the terminate-time solver over every keyframe,
-with edges grouped by host frame. Everything runs in full f32 (the port's
+:func:`make_sharded_dense_ba` splits the pixels over a mesh axis (one
+all-reduce of the reduced system an iteration). :func:`global_dense_ba` is
+the terminate-time solver over every keyframe, with edges grouped by host
+frame. Everything runs in full f32 (the port's
 float policy keeps TF32 off).
 """
 
@@ -28,6 +30,7 @@ import torch
 
 from nerf_vo_tpu_torch.core import lie
 from nerf_vo_tpu_torch.ops.ba import _edge_jacobians, project, unproject
+from nerf_vo_tpu_torch.parallel import dist as pdist
 
 
 def pixel_grid(h: int, w: int, device=None) -> torch.Tensor:
@@ -117,26 +120,43 @@ def dense_bundle_adjust(
     N, h, w = problem.disps.shape
     E = problem.ii.shape[0]
     hw = h * w
+    poses, disps, costs, cov = _dense_ba_core(
+        problem.poses, problem.disps.reshape(N, hw), problem.intrinsics,
+        problem.ii, problem.jj, problem.targets.reshape(E, hw, 2),
+        problem.weights.reshape(E, hw, 2), problem.valid,
+        pixel_grid(h, w, problem.poses.device).reshape(hw, 2), slot_map,
+        eta.reshape(N, hw) if eta is not None else None,
+        num_iters=num_iters, window=window, lm_lambda=lm_lambda, ep=ep,
+        disp_clip=disp_clip)
+    return poses, disps.reshape(N, h, w), costs, cov.reshape(N, h, w)
+
+
+def _dense_ba_core(poses, disps, intrinsics, ii, jj, tgt, wgt, valid, grid,
+                   slot_map, eta, *, num_iters: int, window: int,
+                   lm_lambda: float, ep: float,
+                   disp_clip: Tuple[float, float], axis=None):
+    """The GN iterations over one PIXEL BLOCK: disps [N, hwl], tgt / wgt
+    [E, hwl, 2], grid [hwl, 2], eta [N, hwl] or None. With ``axis`` (a
+    ``parallel.dist.Axis`` whose ranks each hold one block of the pixels),
+    the reduced camera system and the cost are summed over it with one
+    all-reduce an iteration; the jacobians, the depth back-substitution and
+    the marginal covariance stay per block."""
+    N, hwl = disps.shape
     P = window
-    dev = problem.poses.device
-    grid = pixel_grid(h, w, dev).reshape(hw, 2)
-    ii = problem.ii.long()
-    jj = problem.jj.long()
+    dev = poses.device
+    ii = ii.long()
+    jj = jj.long()
     slot_map = slot_map.long()
     li = slot_map[ii]
     lj = slot_map[jj]
     li_s = torch.where(li >= 0, li.clamp(0, P - 1), P)  # trash slot P
     lj_s = torch.where(lj >= 0, lj.clamp(0, P - 1), P)
-    edge_valid = problem.valid & (ii != jj)
-    tgt = problem.targets.reshape(E, hw, 2)
-    wgt = problem.weights.reshape(E, hw, 2)
-    k_i = problem.intrinsics[ii]
-    k_j = problem.intrinsics[jj]
-    eta_f = eta.reshape(N, hw) if eta is not None else None
+    edge_valid = valid & (ii != jj)
+    k_i = intrinsics[ii]
+    k_j = intrinsics[jj]
     touched = torch.zeros(N, device=dev).index_add_(
         0, ii, edge_valid.float()) > 0
 
-    poses, disps = problem.poses, problem.disps.reshape(N, hw)
     costs = []
     cov = None
     for _ in range(num_iters):
@@ -144,7 +164,7 @@ def dense_bundle_adjust(
             poses[ii], poses[jj], k_i, k_j, grid, disps[ii], tgt)
         wm = _robust_weights(edge_valid, r, z, wgt)
         wJ_d = wm * J_d
-        sw = torch.sqrt(wm.clamp(min=0.0))  # [E, hw, 2]
+        sw = torch.sqrt(wm.clamp(min=0.0))  # [E, hwl, 2]
         swJd = sw * J_d
 
         # per-edge 12x12 blocks, scattered into the window's pose blocks
@@ -164,46 +184,100 @@ def dense_bundle_adjust(
         v = v[:P].reshape(P * 6)
 
         # pose-depth coupling per (frame, pixel)
-        u12 = torch.einsum("ehck,ehc->ehk", Jcat, swJd)  # [E, hw, 12]
-        U4 = torch.zeros(N * Q, hw, 6, device=dev)
+        u12 = torch.einsum("ehck,ehc->ehk", Jcat, swJd)  # [E, hwl, 12]
+        U4 = torch.zeros(N * Q, hwl, 6, device=dev)
         U4.index_add_(0, ii * Q + li_s, u12[..., :6])
         U4.index_add_(0, ii * Q + lj_s, u12[..., 6:])
-        Uf = U4.reshape(N, Q, hw, 6)[:, :P].permute(0, 2, 1, 3).reshape(
-            N * hw, P * 6)
+        Uf = U4.reshape(N, Q, hwl, 6)[:, :P].permute(0, 2, 1, 3).reshape(
+            N * hwl, P * 6)
 
         # depth terms
-        C = torch.zeros(N, hw, device=dev).index_add_(
+        C = torch.zeros(N, hwl, device=dev).index_add_(
             0, ii, (wJ_d * J_d).sum(-1))
-        w_d = torch.zeros(N, hw, device=dev).index_add_(
+        w_d = torch.zeros(N, hwl, device=dev).index_add_(
             0, ii, (wJ_d * -r).sum(-1))
         damp = lm_lambda * C + 1e-7
-        if eta_f is not None:
-            damp = damp + eta_f
+        if eta is not None:
+            damp = damp + eta
         Cinv = 1.0 / (C + damp)
 
         # Schur complement + solve
-        cf = Cinv.reshape(N * hw)
+        cf = Cinv.reshape(N * hwl)
         H = B - Uf.T @ (cf[:, None] * Uf)
         rhs = v - Uf.T @ (cf * w_d.reshape(-1))
+        cost = torch.sum(wm * r * r)
+        if axis is not None and axis.size > 1:
+            # the reduced system sums over pixels: one all-reduce of
+            # [H, rhs, cost] an iteration
+            flat = pdist.all_reduce_sum(
+                torch.cat([H.reshape(-1), rhs, cost[None]]), axis)
+            H = flat[:H.numel()].reshape(H.shape)
+            rhs = flat[H.numel():-1]
+            cost = flat[-1]
         H = H + torch.diag(lm_lambda * torch.diagonal(H) + ep)
         dx = torch.linalg.solve_ex(H, rhs)[0].reshape(P, 6)
         dx = torch.where(torch.isfinite(dx), dx, 0.0)
 
-        dz = Cinv * (w_d - (Uf @ dx.reshape(P * 6)).reshape(N, hw))
+        dz = Cinv * (w_d - (Uf @ dx.reshape(P * 6)).reshape(N, hwl))
         dz = torch.where(touched[:, None] & torch.isfinite(dz), dz, 0.0)
 
         # marginal depth covariance from this linearization
         Pcov = torch.linalg.inv_ex(H)[0]
-        quad = ((Uf @ Pcov) * Uf).sum(-1).reshape(N, hw)
+        quad = ((Uf @ Pcov) * Uf).sum(-1).reshape(N, hwl)
         cov = torch.where(touched[:, None], Cinv + Cinv * quad * Cinv, 1e6)
 
         xi_full = torch.where((slot_map >= 0)[:, None],
                               dx[slot_map.clamp(0, P - 1)], 0.0)
         poses = lie.se3_retract(poses, xi_full)
         disps = (disps + dz).clamp(disp_clip[0], disp_clip[1])
-        costs.append(torch.sum(wm * r * r))
-    return (poses, disps.reshape(N, h, w), torch.stack(costs),
-            cov.reshape(N, h, w))
+        costs.append(cost)
+    return poses, disps, torch.stack(costs), cov
+
+
+def make_sharded_dense_ba(mesh, axis: str = "data", *, num_iters: int = 2,
+                          window: int = 12, lm_lambda: float = 1e-4,
+                          ep: float = 0.1,
+                          disp_clip: Tuple[float, float] = (1e-3, 10.0)):
+    """A pixel-sharded dense BA over mesh axis ``axis``.
+
+    Each rank linearizes ``hw / D`` of the pixels (the [E, hw, 2, 6]
+    jacobians, the solver's memory and work, shrink 1/D); the (P*6)^2
+    reduced camera system and the cost are summed over the axis once per GN
+    iteration, so every rank solves the same pose update; depth
+    back-substitution and the marginal covariance stay per block, and the
+    blocks are gathered at the end. Every rank of the axis calls it with
+    the same problem.
+
+    Returns ``step(problem, slot_map, eta=None) -> (poses, disps, costs,
+    cov)`` with :func:`dense_bundle_adjust`'s semantics (equal up to f32
+    summation order), the full ``disps`` and ``cov`` on every rank.
+    """
+    ax = pdist.mesh_axis(mesh, axis)
+
+    def step(problem: DenseBAProblem, slot_map, eta=None):
+        N, h, w = problem.disps.shape
+        E = problem.ii.shape[0]
+        hw = h * w
+        if hw % ax.size:
+            raise ValueError(f"{hw} pixels do not split over {ax.size} "
+                             "ranks")
+        k = hw // ax.size
+        blk = slice(ax.index * k, (ax.index + 1) * k)
+        grid = pixel_grid(h, w, problem.poses.device).reshape(hw, 2)
+        poses, disps, costs, cov = _dense_ba_core(
+            problem.poses, problem.disps.reshape(N, hw)[:, blk],
+            problem.intrinsics, problem.ii, problem.jj,
+            problem.targets.reshape(E, hw, 2)[:, blk],
+            problem.weights.reshape(E, hw, 2)[:, blk], problem.valid,
+            grid[blk], slot_map,
+            eta.reshape(N, hw)[:, blk] if eta is not None else None,
+            num_iters=num_iters, window=window, lm_lambda=lm_lambda, ep=ep,
+            disp_clip=disp_clip, axis=ax)
+        disps = pdist.all_gather_cat(disps, ax, dim=1)
+        cov = pdist.all_gather_cat(cov, ax, dim=1)
+        return poses, disps.reshape(N, h, w), costs, cov.reshape(N, h, w)
+
+    return step
 
 
 def frame_distance(poses, disps, intrinsics, ii, jj, beta: float = 0.3):

@@ -45,8 +45,10 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nerf_vo_tpu_torch.ops import gather_cuda as gc
+from nerf_vo_tpu_torch.parallel import dist as pdist
 
 _PRIMES = (1, 2654435761, 805459861)  # Instant-NGP spatial hash primes
 _BRICK = 27  # 3x3x3 corner lattice of a 2x2x2-cell region
@@ -90,12 +92,17 @@ class HashGridConfig:
         )
 
 
-def init_tables(config: HashGridConfig):
+def init_tables(config: HashGridConfig, shard: int = 1):
     """Table init U(-1e-4, 1e-4) as in Instant-NGP, from torch's global
-    generator: brick-major f32 ``[L * NB, 32F]``."""
+    generator: brick-major f32 ``[L * NB, 32F]``. ``shard`` > 1 makes one
+    model-axis shard of it, ``[L * NB / shard, 32F]`` (rank r holds rows
+    ``r * L * NB / shard`` on: the JAX package's column shard r)."""
     F = config.features_per_level
     rows = config.n_levels * config.bricks_per_level
-    return torch.rand(rows, _BRICK_PAD * F) * 2e-4 - 1e-4
+    if rows % shard:
+        raise ValueError(f"{rows} table rows do not split into {shard} "
+                         "shards")
+    return torch.rand(rows // shard, _BRICK_PAD * F) * 2e-4 - 1e-4
 
 
 def tables_from_jax(tables_np):
@@ -200,6 +207,30 @@ def _descriptors(x, config: HashGridConfig):
     return idx, local, frac, W, inside
 
 
+def _brick_dW(tables, idx, cot):
+    """d<features, cot>/dW [M, 32] of M descriptors: ``gather_cols``
+    re-gathers their bf16 brick rows. cot: [M, F] f32."""
+    M, F = cot.shape
+    if tables.dtype != torch.float32:
+        tables = tables.float()  # exact: gather_cols rounds to bf16 again
+    g = gc.gather_cols(tables, idx).float().reshape(M, _BRICK_PAD, F)
+    return torch.sum(g * cot[:, None, :], dim=-1)
+
+
+def _dfrac(dW, local, frac):
+    """[M, 3] d<features, cot>/dfrac from dW [M, 32] through the separable
+    trilinear weights."""
+    M = dW.shape[0]
+    dW = dW[:, :_BRICK].reshape(M, 3, 3, 3)
+    w = [_axis_weights(local[:, a], frac[:, a]) for a in range(3)]
+    dw = [_axis_dweights(local[:, a]) for a in range(3)]
+    return torch.stack([
+        torch.einsum("mijk,mi,mj,mk->m", dW, dw[0], w[1], w[2]),
+        torch.einsum("mijk,mi,mj,mk->m", dW, w[0], dw[1], w[2]),
+        torch.einsum("mijk,mi,mj,mk->m", dW, w[0], w[1], dw[2]),
+    ], dim=-1)
+
+
 def _position_grad(tables, desc, cot, config: HashGridConfig, x_shape,
                    x_dtype):
     """d<features, cot>/dx from one encode's descriptors: ``gather_cols``
@@ -207,21 +238,8 @@ def _position_grad(tables, desc, cot, config: HashGridConfig, x_shape,
     contraction. cot: [L*n, F] level-major f32."""
     idx, local, frac, _, inside = desc
     L = config.n_levels
-    F = config.features_per_level
     n = idx.shape[0] // L
-    M = L * n
-    if tables.dtype != torch.float32:
-        tables = tables.float()  # exact: gather_cols rounds to bf16 again
-    g = gc.gather_cols(tables, idx).float().reshape(M, _BRICK_PAD, F)
-    dW = torch.sum(g * cot[:, None, :], dim=-1)[:, :_BRICK]
-    dW = dW.reshape(M, 3, 3, 3)
-    w = [_axis_weights(local[:, a], frac[:, a]) for a in range(3)]
-    dw = [_axis_dweights(local[:, a]) for a in range(3)]
-    dfrac = torch.stack([
-        torch.einsum("mijk,mi,mj,mk->m", dW, dw[0], w[1], w[2]),
-        torch.einsum("mijk,mi,mj,mk->m", dW, w[0], dw[1], w[2]),
-        torch.einsum("mijk,mi,mj,mk->m", dW, w[0], w[1], dw[2]),
-    ], dim=-1).reshape(L, n, 3)
+    dfrac = _dfrac(_brick_dW(tables, idx, cot), local, frac).reshape(L, n, 3)
     res = torch.tensor([float(r) for r in config.resolutions],
                        device=dfrac.device)
     grad_x = torch.sum(dfrac * res[:, None, None], dim=0) * inside
@@ -303,42 +321,300 @@ class _HashEncode(torch.autograd.Function):
         return grad_tables, grad_x, None, None, None
 
 
-def hash_encode(tables, x, config: HashGridConfig, grad_phase=None):
+# ---------------------------------------------------------------------------
+# model-axis (tensor-parallel) tables
+# ---------------------------------------------------------------------------
+
+def _model_axis(group) -> pdist.Axis:
+    return pdist.Axis(group, dist.get_world_size(group), dist.get_rank(group))
+
+
+class _TPRoute:
+    """One encode's table lookups when the table is row-sharded over a
+    model axis (rank r holds global rows ``[r * R, (r + 1) * R)`` of the
+    brick-major table; the JAX package's column shard r). Counterpart of
+    ``_tp_onehot_slab``, ``_tp_gather_cols`` and ``tp_gather_cols_a2a``.
+
+    The one-hot prefix levels read a replicated slab of their bricks, made
+    by one SUM all-reduce of each rank's owned rows (``gather_interp_mm``
+    on it; its table gradient comes back through ``scatter_cols_accum`` on
+    the slab, and each rank keeps its own rows). The other levels:
+
+    - replicated samples (every rank of the axis encodes the same points):
+      ``gather_interp`` on the local rows with the weights of descriptors
+      owned elsewhere zeroed and their ids clamped, then one SUM
+      all-reduce of the [M, F] features (only the owner's term is
+      non-zero, so the sum is the owner's value); the table gradient is
+      the owned descriptors' ``scatter_cols_accum`` on the local rows, with
+      no collective (the cotangent is the same on every rank); the
+      position gradient sums the owned descriptors' terms and all-reduces
+      [n, 3];
+    - ``descriptor_sharding`` (each rank encodes its own points): each
+      descriptor's local id and weight row go to its owner in one
+      ``all_to_all`` (split sizes exchanged first), the owner interpolates
+      and returns the [R, F] features; the backward routes the [M, F]
+      cotangents the same way, the owner scatters them into its rows (so
+      its table gradient is the SUM over the axis) and returns each
+      descriptor's [32] weight gradient for the requester's position
+      gradient. The exact splits need no capacity and no overflow path.
+    """
+
+    def __init__(self, tables, desc, config: HashGridConfig, axis,
+                 descriptor_sharding: bool):
+        idx, _, _, W, _ = desc
+        L, NB = config.n_levels, config.bricks_per_level
+        self.config, self.axis, self.desc = config, axis, desc
+        self.ds = descriptor_sharding
+        self.rows = R = tables.shape[0]
+        if R * axis.size != L * NB or R >= 1 << 24:
+            raise ValueError(f"a table shard of {R} rows over {axis.size} "
+                             f"ranks for a {L * NB}-row table")
+        self.base = base = axis.index * R
+        self.n = n = idx.shape[0] // L
+        n_oh = _n_onehot(config) if tables.dtype == torch.float32 else 0
+        self.split = split = n_oh * n
+        # one-hot slab: the leading bpa**3 bricks of each one-hot level
+        self.spans, off, sid = [], 0, []
+        for l in range(n_oh):
+            bpa = ((config.resolutions[l] - 1) >> 1) + 1
+            self.spans.append((l * NB, bpa**3, off))
+            sid.append(idx[l * n:(l + 1) * n] - l * NB + off)
+            off += bpa**3
+        self.slab_rows = off
+        self.sid = torch.cat(sid) if sid else None
+        self.slab = None
+        if split == L * n:
+            return
+        idx_s = idx[split:].long()
+        W_s = W[split:]
+        if not self.ds:
+            li = idx_s - base
+            own = (li >= 0) & (li < R)
+            self.w_masked = W_s * own[:, None]
+            self.li_clamped = li.clamp(0, R - 1).to(torch.int32)
+            self.own_rows = own.nonzero()[:, 0]
+            self.own_li = li[self.own_rows].to(torch.int32)
+            return
+        owner = torch.div(idx_s, R, rounding_mode="floor")
+        self.order = torch.argsort(owner, stable=True)
+        send = torch.bincount(owner, minlength=axis.size)
+        recv = pdist.exchange_counts(send, axis)
+        self.send, self.recv = send.tolist(), recv.tolist()
+        # a local id travels as an f32 column beside its weights: exact
+        # below 2**24 rows
+        li = (idx_s - owner * R)[self.order].to(torch.float32)
+        packet = torch.cat([W_s[self.order], li[:, None]], 1)
+        got = pdist.all_to_all_rows(packet, self.send, self.recv, axis)
+        self.recv_w = got[:, :_BRICK_PAD].contiguous()
+        self.recv_li = got[:, _BRICK_PAD].to(torch.int32)
+
+    # -- forward -----------------------------------------------------------
+
+    def _owned_span(self, g0, B):
+        """Global rows [lo, hi) of [g0, g0 + B) held by this rank."""
+        return max(g0, self.base), min(g0 + B, self.base + self.rows)
+
+    def features(self, tables):
+        F = self.config.features_per_level
+        idx, _, _, W, _ = self.desc
+        parts = []
+        if self.split:
+            slab = tables.new_zeros(self.slab_rows, tables.shape[1])
+            for g0, B, off in self.spans:
+                lo, hi = self._owned_span(g0, B)
+                if lo < hi:
+                    slab[off + lo - g0:off + hi - g0] = \
+                        tables[lo - self.base:hi - self.base]
+            self.slab = pdist.all_reduce_sum(slab, self.axis)
+            parts.append(gc.gather_interp_mm(
+                self.slab, self.sid, W[:self.split], F,
+                hot_rows=self.slab_rows))
+        if self.split < idx.shape[0]:
+            if not self.ds:
+                part = gc.gather_interp(tables, self.li_clamped,
+                                        self.w_masked, F)
+                parts.append(pdist.all_reduce_sum(part, self.axis))
+            else:
+                got = gc.gather_interp(tables, self.recv_li, self.recv_w, F)
+                back = pdist.all_to_all_rows(got, self.recv, self.send,
+                                             self.axis)
+                part = torch.empty_like(back)
+                part[self.order] = back
+                parts.append(part)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    # -- backward ----------------------------------------------------------
+
+    def routed_cot(self, cot):
+        """Under descriptor sharding, the [L*n, F] cotangent's rows of the
+        descriptors this rank owns, in the order they arrived (one
+        all-to-all); else None. Every backward routes its own cotangent."""
+        if not self.ds or self.split == cot.shape[0]:
+            return None
+        return pdist.all_to_all_rows(cot[self.split:][self.order], self.send,
+                                     self.recv, self.axis)
+
+    def table_grad(self, shape, cot, routed):
+        """[R, 32F] f32 gradient of this rank's rows. cot: [L*n, F];
+        routed: :meth:`routed_cot`'s."""
+        idx, _, _, W, _ = self.desc
+        F = cot.shape[1]
+        grad = None
+        if self.split < idx.shape[0]:
+            if not self.ds:
+                sel = self.own_rows
+                w_g, c_g, li = W[self.split:][sel], cot[self.split:][sel], \
+                    self.own_li
+            else:
+                w_g, c_g, li = self.recv_w, routed, self.recv_li
+            rows = (w_g[:, :, None] * c_g[:, None, :]).reshape(
+                li.shape[0], shape[1])
+            grad = gc.scatter_cols_accum(rows, li, shape[0])
+        if grad is None:
+            grad = torch.zeros(shape, dtype=torch.float32, device=cot.device)
+        if self.split:
+            rows = (W[:self.split, :, None] * cot[:self.split, None, :]
+                    ).reshape(self.split, 32 * F)
+            g_slab = gc.scatter_cols_accum(rows, self.sid, self.slab_rows,
+                                           hot_rows=self.slab_rows)
+            if self.ds:  # each rank's samples differ
+                pdist.all_reduce_sum(g_slab, self.axis)
+            for g0, B, off in self.spans:
+                lo, hi = self._owned_span(g0, B)
+                if lo < hi:
+                    grad[lo - self.base:hi - self.base] += \
+                        g_slab[off + lo - g0:off + hi - g0]
+        return grad
+
+    def position_grad(self, tables, cot, routed, x_shape, x_dtype):
+        """d<features, cot>/dx of this rank's points (routed:
+        :meth:`routed_cot`'s). The slab's terms are replicated already and
+        never all-reduced."""
+        idx, local, frac, _, inside = self.desc
+        n = self.n
+        res = torch.tensor([float(r) for r in self.config.resolutions],
+                           device=cot.device)
+        row_res = res.repeat_interleave(n)
+        sample = torch.arange(n, device=cot.device).repeat(
+            self.config.n_levels)
+        grad = torch.zeros(n, 3, device=cot.device)
+        if self.split < idx.shape[0]:
+            s = self.split
+            cot_s = cot[s:]
+            if not self.ds:
+                sel = self.own_rows
+                dW = _brick_dW(tables, self.own_li, cot_s[sel])
+                rows = sel + s
+            else:
+                dW_own = _brick_dW(tables, self.recv_li, routed)
+                back = pdist.all_to_all_rows(dW_own, self.recv, self.send,
+                                             self.axis)
+                dW = torch.empty_like(back)
+                dW[self.order] = back
+                rows = torch.arange(s, idx.shape[0], device=cot.device)
+            d = _dfrac(dW, local[rows], frac[rows]) * row_res[rows, None]
+            grad.index_add_(0, sample[rows], d)
+            if not self.ds:
+                pdist.all_reduce_sum(grad, self.axis)
+        if self.split:
+            s = self.split
+            d = _dfrac(_brick_dW(self.slab, self.sid, cot[:s]), local[:s],
+                       frac[:s]) * row_res[:s, None]
+            grad.index_add_(0, sample[:s], d)
+        return (grad * inside).reshape(x_shape).to(x_dtype)
+
+
+class _TPHashEncode(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, tables, x, route):
+        config = route.config
+        L, F = config.n_levels, config.features_per_level
+        feats = route.features(tables)  # [L*n, F] level-major
+        ctx.route = route
+        ctx.x_shape, ctx.x_dtype = x.shape, x.dtype
+        ctx.save_for_backward(tables)
+        out = feats.reshape(L, route.n, F).permute(1, 0, 2)
+        return out.reshape(x.shape[:-1] + (L * F,))
+
+    @staticmethod
+    def backward(ctx, cot):
+        (tables,) = ctx.saved_tensors
+        route = ctx.route
+        cot = _level_major(cot, route.config)
+        routed = route.routed_cot(cot)
+        grad_tables = grad_x = None
+        if ctx.needs_input_grad[0]:
+            grad_tables = route.table_grad(tables.shape, cot, routed)
+        if ctx.needs_input_grad[1]:
+            grad_x = route.position_grad(tables, cot, routed, ctx.x_shape,
+                                         ctx.x_dtype)
+        return grad_tables, grad_x, None
+
+
+def _encode(tables, x, config, grad_phase, group, descriptor_sharding):
+    """(features, descriptors, route or None) of one encode."""
+    desc = _descriptors(x.detach(), config)
+    if group is None:
+        return _HashEncode.apply(tables, x, config, grad_phase, desc), desc, \
+            None
+    route = _TPRoute(tables.detach(), desc, config, _model_axis(group),
+                     descriptor_sharding)
+    return _TPHashEncode.apply(tables, x, route), desc, route
+
+
+def hash_encode(tables, x, config: HashGridConfig, grad_phase=None,
+                group=None, descriptor_sharding: bool = False):
     """Encode points with the multiresolution brick grid.
 
     Args:
       tables: brick-major ``[L * NB, 32F]`` f32 or bf16 table (see
-        :func:`init_tables`); a bf16 table gets a bf16 gradient.
+        :func:`init_tables`); a bf16 table gets a bf16 gradient. With
+        ``group``, this rank's row shard of it (``init_tables(shard=)``).
       x: [..., 3] positions in the unit cube [0, 1]^3 (values outside are
         clamped; callers apply scene contraction first).
       grad_phase: the train step, or None. When set and the grid has more
         than one scattered (non one-hot) level, the backward accumulates
         the table gradient of the one-hot prefix and of scattered level
         ``grad_phase % n_scattered`` only: every other scattered level's
-        gradient is exactly 0 that step.
+        gradient is exactly 0 that step. Single-device only (the JAX
+        package phases only there too).
+      group: the model axis's process group when the table is row-sharded
+        over it (the JAX package's ``model_axis``; see :class:`_TPRoute`).
+        Every rank of the group must make the same encodes in the same
+        order, forward and backward.
+      descriptor_sharding: with ``group``, each rank passes its own points
+        and lookups are routed to the rows' owners; the table gradient a
+        rank gets is then the SUM over the group.
 
     Returns:
       [..., L*F] encoded features (f32), feature-within-level minor
       (level l, feature f at output column l*F + f).
     """
-    return _HashEncode.apply(tables, x, config, grad_phase,
-                             _descriptors(x.detach(), config))
+    return _encode(tables, x, config, grad_phase, group,
+                   descriptor_sharding)[0]
 
 
-def hash_encode_vjp(tables, x, config: HashGridConfig, grad_phase=None):
+def hash_encode_vjp(tables, x, config: HashGridConfig, grad_phase=None,
+                    group=None, descriptor_sharding: bool = False):
     """:func:`hash_encode`'s features, and the pullback of the positions
     alone: ``pullback(cot)`` gives d<features, cot>/dx (detached) from this
     encode's descriptors, with no second encode and no table gradient (no
     ``scatter_cols_accum``); the features stay differentiable in the
-    caller's graph as :func:`hash_encode`'s are."""
-    desc = _descriptors(x.detach(), config)
-    out = _HashEncode.apply(tables, x, config, grad_phase, desc)
+    caller's graph as :func:`hash_encode`'s are. With ``group`` the
+    pullback makes the route's collectives, so every rank calls it."""
+    out, desc, route = _encode(tables, x, config, grad_phase, group,
+                               descriptor_sharding)
 
     def pullback(cot):
         with torch.no_grad():
-            return _position_grad(tables.detach(), desc,
-                                  _level_major(cot, config), config, x.shape,
-                                  x.dtype)
+            cot = _level_major(cot, config)
+            if route is not None:
+                return route.position_grad(tables.detach(), cot,
+                                           route.routed_cot(cot), x.shape,
+                                           x.dtype)
+            return _position_grad(tables.detach(), desc, cot, config,
+                                  x.shape, x.dtype)
     return out, pullback
 
 

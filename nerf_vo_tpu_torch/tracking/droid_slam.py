@@ -90,12 +90,20 @@ def _nhwc(x):
 
 class DROIDSLAMTracker:
     def __init__(self, config: DroidConfig, net: DroidNet, height: int,
-                 width: int, device="cuda"):
+                 width: int, device="cuda", mesh=None):
+        """``mesh``: a device mesh whose first axis shards the frontend
+        dense BA's pixels (``ops.dense_ba.make_sharded_dense_ba``: one
+        all-reduce of the reduced camera system an iteration). Every rank
+        then runs the tracker in lockstep on the same frames."""
         if height % 8 or width % 8:
             raise ValueError(f"frame size {height}x{width} is not a multiple "
                              "of 8")
         self.cfg = config
         self.device = dev = torch.device(device)
+        self._sharded_ba = None if mesh is None else \
+            dense_ba.make_sharded_dense_ba(
+                mesh, mesh.mesh_dim_names[0], num_iters=config.ba_iters,
+                window=config.frontend_window)
         self.net = net.to(dev).eval().requires_grad_(False)  # inference
         self.H, self.W = height, width
         self.h, self.w = h, w = height // 8, width // 8
@@ -213,9 +221,13 @@ class DROIDSLAMTracker:
         problem = dense_ba.DenseBAProblem(
             poses=self.poses, disps=self.disps, intrinsics=self.intrinsics8,
             ii=ba_ii, jj=ba_jj, targets=ba_t, weights=ba_w, valid=ba_v)
-        self.poses, self.disps, _, depth_cov = dense_ba.dense_bundle_adjust(
-            problem, slot_map, num_iters=cfg.ba_iters,
-            window=cfg.frontend_window, eta=eta)
+        if self._sharded_ba is not None:
+            self.poses, self.disps, _, depth_cov = self._sharded_ba(
+                problem, slot_map, eta=eta)
+        else:
+            self.poses, self.disps, _, depth_cov = dense_ba.dense_bundle_adjust(
+                problem, slot_map, num_iters=cfg.ba_iters,
+                window=cfg.frontend_window, eta=eta)
         self.hidden = torch.where(live4, net, self.hidden)
         self.e_target = torch.where(live4, target, self.e_target)
         self.eta = eta

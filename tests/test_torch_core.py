@@ -204,6 +204,9 @@ PORT_MODULES = [
     "nerf_vo_tpu_torch.data.datasets",
     "nerf_vo_tpu_torch.run",
     "nerf_vo_tpu_torch.utils.torch_setup",
+    "nerf_vo_tpu_torch.parallel",
+    "nerf_vo_tpu_torch.parallel.dist",
+    "nerf_vo_tpu_torch.parallel.sharding",
 ] + [f"nerf_vo_tpu_torch.evaluation.{m}" for m in (
     "meshio", "metrics", "lpips", "tsdf", "poisson", "datasets",
     "nerf_renderer", "renderer", "evaluator", "runner")]
@@ -239,11 +242,13 @@ def _imported_roots(path: Path):
 
 
 def test_port_sources_import_nothing_of_jax():
-    """No file of the port, nor chip_smoke.py, imports JAX, Flax, optax,
-    the JAX package, the tests or the examples — not even lazily inside a
+    """No file of the port, nor chip_smoke.py, nor the rank functions the
+    parallel tests start in new processes, imports JAX, Flax, optax, the
+    JAX package, the tests or the examples — not even lazily inside a
     function."""
     files = sorted((REPO / "nerf_vo_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tests" /
+              "torch_parallel_ranks.py"]
     banned = {"jax", "jaxlib", "flax", "optax", "nerf_vo_tpu", "tests",
               "examples"}
     for f in files:

@@ -209,9 +209,13 @@ def test_refresh_proposals_matches_jax(setup, step):
 
 
 def test_unported_paths_raise():
-    """Only the multi-device tables (and an unknown sampler) remain."""
-    for field, value in [("sampler", "uniform"), ("model_axis", "m"),
-                         ("descriptor_sharding", True)]:
+    """An unknown sampler is not ported; the model-axis tables need the
+    mesh they are sharded over (``NerfactoModel(config, mesh=)``), and
+    descriptor sharding needs a model axis."""
+    cfg = dataclasses.replace(tn.NerfactoConfig(**CFG), sampler="uniform")
+    with pytest.raises(NotImplementedError, match="sampler"):
+        tn.NerfactoModel(cfg)
+    for field, value in [("model_axis", "m"), ("descriptor_sharding", True)]:
         cfg = dataclasses.replace(tn.NerfactoConfig(**CFG), **{field: value})
-        with pytest.raises(NotImplementedError, match=field):
+        with pytest.raises(ValueError, match=field):
             tn.NerfactoModel(cfg)
