@@ -6,8 +6,8 @@ GPU and check them.
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``/usr/local/cuda``) and PyTorch built for CUDA. It builds every kernel of
 the path from ``nerf_vo_tpu_torch/csrc/`` (into ``nerf_vo_tpu_torch/_build/``,
-one ``nvcc`` per source, all started together), then runs nine phases
-(in the order a-d, h, e-g, i); any failure ends the run with a non-zero
+one ``nvcc`` per source, all started together), then runs ten phases
+(in the order a-d, h, e-g, i, j); any failure ends the run with a non-zero
 exit:
 
   (a) kernels: each kernel against its plain PyTorch version on the card at
@@ -74,19 +74,37 @@ exit:
       mapper under DP2 x TP2 through a refresh; ``make_sharded_dense_ba``
       at DROID's frontend size and ``DROIDSLAMTracker(mesh=)``, each
       against one rank's. Times of ranks that share a card are no scaling
-      figure.
+      figure;
+  (j) the rest of the JAX package's behaviour: (j1) the upstream-checkpoint
+      hooks: ``dpvo.pth`` and Omnidata depth / normal checkpoints written
+      in the upstream layouts from seeded port nets, loaded by
+      ``TrackingStage`` and ``EnhancementStage`` (12-block DPT-hybrid at
+      384, depth and normals) through ``NERF_VO_DPVO_WEIGHTS`` /
+      ``NERF_VO_OMNIDATA_{DEPTH,NORMAL}_WEIGHTS``: every parameter the
+      file's tensor, then (b)'s first 16 frames and one packet's
+      enhancement bit for bit as by stages given the same state dicts
+      (deterministic algorithms on), and a 1-channel normal head refused;
+      (j2) ``NERF_VO_PIXEL_DTYPE=float32`` in a child process
+      (``chip_smoke.py pixel-f32 <dir>``; the knob is read at import):
+      (d)'s 64 steps on (c)'s packets with an f32 buffer that holds the
+      inserted rows exactly, rows 2-5 launched, held and timed, its ms a
+      step beside (d)'s; an invalid value must fail the import; (j3) the
+      port's parity harness (``nerf_vo_tpu_torch/parity.py``): (f)'s
+      metrics as report rows with the hooks present, the ``DRY-RUN``
+      stamp without them, and ``run_parity``'s exit code 2.
 
 Output: progress on stderr; on stdout the card's name and power limit, the
 per-phase results, one JSON line with every kernel's numbers (its
-launches on the (e), (f), (g2), (h) and (i) paths among them; the bf16-table
-``gather_interp``'s ``launches`` are (h2)'s, the only path with a bf16
-table), and as the last line
+launches on the (e), (f), (g2), (h), (i) and (j) paths among them; the
+bf16-table ``gather_interp``'s ``launches`` are (h2)'s, the only path with a
+bf16 table), the whole run's seconds, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
 non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -418,6 +436,21 @@ def kernel_launches():
     return {"corr_level": correlation_cuda.corr_level,
             "corr_two_level": correlation_cuda.corr_two_level,
             **{k.__name__: k for k in gather_cuda.KERNELS}}
+
+
+def reset_launches():
+    """Set every counted kernel's launches to 0."""
+    for k in kernel_launches().values():
+        k.launches = 0
+
+
+def read_launches():
+    """Every counted kernel's launches by name."""
+    return {name: k.launches for name, k in kernel_launches().items()}
+
+
+# the correlation kernels: a path that runs no tracking launches neither
+CORR_KERNELS = ("corr_level", "corr_two_level")
 
 
 def check_close(name, got, want, rel):
@@ -947,7 +980,6 @@ def run_variant(dev, smi, tag, overrides, enhanced, frame_of, record=(),
     and the peak memory set to 0 just before. Returns the stage, the steps'
     metrics, the launches in all and per ordinary step, and the last
     step's recorded calls."""
-    from nerf_vo_tpu_torch.ops import gather_cuda
     from nerf_vo_tpu_torch.runtime.stages import MappingStage
 
     gc.collect()
@@ -965,11 +997,13 @@ def run_variant(dev, smi, tag, overrides, enhanced, frame_of, record=(),
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
-    for k in gather_cuda.KERNELS:
-        k.launches = 0
+    reset_launches()
     history, times, per_step, calls = drive_mapping(stage, enhanced,
                                                     frame_of, record)
-    counts = {k.__name__: k.launches for k in gather_cuda.KERNELS}
+    counts = read_launches()
+    for name in CORR_KERNELS:
+        if counts[name]:
+            fail(f"({tag}) the mapping path launched {name}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     steady = times[8:]
     ms = sum(steady) / len(steady) * 1e3
@@ -2785,10 +2819,398 @@ def phase_parallel(dev, smi):
     return launches, res[0]["held"]
 
 
+# ---------------------------------------------------------------------------
+# (j) the checkpoint hooks, NERF_VO_PIXEL_DTYPE, the parity harness
+# ---------------------------------------------------------------------------
+
+HOOK_ENV = {"dpvo": "NERF_VO_DPVO_WEIGHTS",
+            "depth": "NERF_VO_OMNIDATA_DEPTH_WEIGHTS",
+            "normal": "NERF_VO_OMNIDATA_NORMAL_WEIGHTS"}
+# (j1): the replica front end with normals, fed phase (b)'s first frames
+HOOKED = dict(REPLICA, enhancement_module="depth_normal")
+HOOK_FRAMES = 16
+# keys of a real Omnidata file that no loader reads
+OMNIDATA_EXTRA = ("pretrained.act_postprocess1.0.project.0.weight",
+                  "pretrained.act_postprocess2.3.weight",
+                  "pretrained.model.norm.weight",
+                  "pretrained.model.head.weight")
+# what (j2) keeps of each of (c)'s packets: the keys MappingStage.update reads
+PACKET_KEYS = ("camera_intrinsics", "camera_extrinsics", "frames_color_float",
+               "frames_depth", "frames_normal", "frames_depth_cov")
+
+
+@contextlib.contextmanager
+def hook_env(**values):
+    """Sets (or with ``None`` unsets) env vars for a block, then puts them
+    back as they were."""
+    def put(env):
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    saved = {k: os.environ.get(k) for k in values}
+    put(values)
+    try:
+        yield
+    finally:
+        put(saved)
+
+
+def write_checkpoints(tmp):
+    """(j1)'s three files in the upstream layouts, from seeded port nets
+    at the replica width: ``dpvo.pth`` with ``module.`` prefixes and a
+    non-zero ``update.lmbda``; the Omnidata depth and normal models as
+    ``{"state_dict": {"model." + k: v}}`` with keys the port's module
+    lacks. Returns the paths and the state dicts the stages must load."""
+    from nerf_vo_tpu_torch.models.dpt import DPTHybrid
+    from nerf_vo_tpu_torch.models.dpvo_net import DPVONet
+
+    paths = {name: os.path.join(tmp, f) for name, f in (
+        ("dpvo", "dpvo.pth"), ("depth", "omnidata_depth.ckpt"),
+        ("normal", "omnidata_normal.ckpt"))}
+    torch.manual_seed(1)
+    vo = DPVONet(corr_radius=RADIUS).state_dict()
+    torch.save(dict({"module." + k: v for k, v in vo.items()},
+                    **{"module.update.lmbda": torch.tensor([0.37])}),
+               paths["dpvo"])
+    sds = {"dpvo": vo}
+    for name, ch, seed in (("depth", 1, 2), ("normal", 3, 3)):
+        torch.manual_seed(seed)
+        sd = DPTHybrid(ch, image_size=REPLICA["enhancement_image_size"],
+                       depth_layers=12, dtype=torch.float32).state_dict()
+        blob = {"model." + k: v for k, v in sd.items()}
+        for i, k in enumerate(OMNIDATA_EXTRA):
+            blob["model." + k] = torch.full((8,), float(i))
+        torch.save({"state_dict": blob, "epoch": 1}, paths[name])
+        sds[name] = sd
+    return paths, sds
+
+
+def same_params(name, module, sd):
+    """Every tensor of ``module`` equals ``sd``'s, key for key."""
+    got = module.state_dict()
+    if sorted(got) != sorted(sd):
+        fail(f"(j1) {name} has other keys than its checkpoint")
+    for k, v in sd.items():
+        if not torch.equal(got[k].cpu(), v):
+            fail(f"(j1) {name}'s {k} is not the checkpoint's tensor")
+
+
+def bitwise(x, y, where):
+    """Packets, tensors and arrays equal bit for bit."""
+    if isinstance(x, dict):
+        if sorted(x) != sorted(y):
+            fail(f"(j1) {where}: other keys")
+        for k in x:
+            bitwise(x[k], y[k], f"{where}/{k}")
+    elif torch.is_tensor(x):
+        if not (torch.is_tensor(y) and x.dtype == y.dtype
+                and torch.equal(x, y)):
+            fail(f"(j1) {where} differs")
+    elif isinstance(x, np.ndarray):
+        if not np.array_equal(x, y):
+            fail(f"(j1) {where} differs")
+    elif x != y:
+        fail(f"(j1) {where} differs: {x} != {y}")
+
+
+def hooked_front_end(stage, enh, frames):
+    """Tracks ``frames`` (the last flushes the stream) and enhances the
+    first packet; returns the packets and the enhanced packet."""
+    W, H = REPLICA["frame_width"], REPLICA["frame_height"]
+    intr = dict(fx=320.0, fy=320.0, cx=W / 2, cy=H / 2)
+    packets = []
+    for i, img in enumerate(frames):
+        pkt = stage.step(dict(frame_index=i, frame_color=img,
+                              camera_intrinsics=intr,
+                              last_frame=i == len(frames) - 1))
+        if pkt is not None:
+            packets.append(pkt)
+    if not packets:
+        fail("(j1) tracking retired no keyframe")
+    out = enh.step(packets[0])
+    torch.cuda.synchronize()
+    return packets, out
+
+
+def phase_hooks(dev, smi, tmp):
+    """(j1) the DPVO and Omnidata checkpoint hooks at the replica width:
+    the stages built with no weights and the three env vars set load the
+    files (every parameter the file's tensor, ``lmbda`` zero) and track
+    and enhance bit for bit as stages given the same state dicts do (both
+    runs deterministic). Returns the hooks' paths and every kernel's
+    launches in the hooked run."""
+    from nerf_vo_tpu_torch.runtime.stages import (
+        EnhancementStage,
+        TrackingStage,
+    )
+
+    t0 = time.perf_counter()
+    paths, sds = write_checkpoints(tmp)
+    mb = sum(os.path.getsize(p) for p in paths.values()) / 2**20
+    write_s = time.perf_counter() - t0
+    args = SimpleNamespace(**HOOKED)
+    t0 = time.perf_counter()
+    with hook_env(**{HOOK_ENV[k]: p for k, p in paths.items()}):
+        track = TrackingStage(args, device=dev)
+        enh = EnhancementStage(args, device=dev)
+    load_s = time.perf_counter() - t0
+    same_params("the tracker's net",
+                track.tracker.net, dict(sds["dpvo"], **{
+                    "update.lmbda": torch.zeros(1)}))
+    same_params("the depth DPT", enh.estimator.depth_model, sds["depth"])
+    same_params("the normal DPT", enh.estimator.normal_model, sds["normal"])
+    print(f"(j1) hooks: 3 checkpoints ({mb:.0f} MiB) written in "
+          f"{write_s:.2f} s, loaded into TrackingStage + EnhancementStage "
+          f"(12-block DPT-hybrid at 384, depth and normals) in {load_s:.2f} "
+          f"s; every parameter is its file's tensor, update.lmbda 0 (the "
+          f"file's 0.37 dropped), {len(OMNIDATA_EXTRA)} extra keys a file "
+          "dropped", flush=True)
+
+    frames = synthetic_frames(N_FRAMES, REPLICA["frame_height"],
+                              REPLICA["frame_width"])[:HOOK_FRAMES]
+    with hook_env(**{v: None for v in HOOK_ENV.values()}):
+        direct = TrackingStage(args, state_dict=sds["dpvo"], device=dev)
+        direct_enh = EnhancementStage(args, depth_state_dict=sds["depth"],
+                                      normal_state_dict=sds["normal"],
+                                      device=dev)
+    # the index_add_ sums of the update net and BA run deterministically,
+    # so two runs can be held bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        got, got_enh = hooked_front_end(track, enh, frames)
+        run_s = time.perf_counter() - t0
+        counts = read_launches()
+        want, want_enh = hooked_front_end(direct, direct_enh, frames)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if len(got) != len(want):
+        fail("(j1) the hooked stage retired other packets")
+    for i, (g, w) in enumerate(zip(got, want)):
+        bitwise(g, w, f"packet {i}")
+    bitwise(got_enh, want_enh, "the enhanced packet")
+    traj = np.stack(list(track.tracker.trajectory().values()))
+    if not np.isfinite(traj).all():
+        fail("(j1) non-finite poses")
+    if not counts["corr_two_level"]:
+        fail("(j1) the hooked tracker never launched corr_two_level")
+    if counts["corr_level"]:
+        fail("(j1) the hooked tracker made one-level corr_level launches")
+    print(f"(j1) {HOOK_FRAMES} frames tracked ({run_s:.2f} s with the "
+          f"enhancement of one packet, deterministic algorithms on): "
+          f"{len(got)} packets, "
+          f"{sum(len(p['keyframe_indices']) for p in got)} keyframes, "
+          f"bitwise equal to the stages given the same state dicts; "
+          f"frames_depth / frames_normal of the first packet bitwise "
+          f"equal; launches {counts}; {smi}", flush=True)
+    del direct, direct_enh, track, enh, sds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with hook_env(NERF_VO_OMNIDATA_NORMAL_WEIGHTS=paths["depth"]):
+        try:
+            EnhancementStage(args, device=dev)
+        except ValueError as e:
+            if str(e) != "checkpoint head has 1 channels, model expects 3":
+                fail(f"(j1) a 1-channel normal head raised {e!r}")
+            print(f"(j1) a normal checkpoint with a 1-channel head raises: "
+                  f"ValueError({str(e)!r})", flush=True)
+        else:
+            fail("(j1) a normal checkpoint with a 1-channel head loaded")
+    return paths, counts
+
+
+def save_packets(enhanced, frame_of, tmp):
+    """(c)'s enhanced packets, the keys the mapping stage reads, to a file
+    for (j2)'s child process."""
+    path = os.path.join(tmp, "packets.pt")
+    torch.save({"frame_of": list(frame_of),
+                "packets": [{k: torch.as_tensor(p[k]).cpu()
+                             for k in PACKET_KEYS if k in p}
+                            for p in enhanced]}, path)
+    return path
+
+
+def pixel_f32_child(tmp):
+    """(j2), in a process started with ``NERF_VO_PIXEL_DTYPE=float32``:
+    ``MappingStage`` at the replica config fed (c)'s packets as (d) feeds
+    them, 64 steps. The buffer must hold the inserted f32 rows exactly;
+    rows 2-5 must launch, and the last step's largest call of each is held
+    against its plain version and timed. Writes its results to
+    ``<tmp>/j2.json``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from nerf_vo_tpu_torch.mapping import keyframe_buffer as kb
+    from nerf_vo_tpu_torch.ops import cuda_build
+    from nerf_vo_tpu_torch.runtime.stages import MappingStage
+
+    dev = torch.device("cuda", 0)
+    cuda_build.build_all(["gather"])  # built by the parent: loads it
+    if kb.PIXEL_DTYPE != torch.float32:
+        fail(f"(j2) NERF_VO_PIXEL_DTYPE=float32 gave {kb.PIXEL_DTYPE}")
+    blob = torch.load(os.path.join(tmp, "packets.pt"), weights_only=True)
+    enhanced = [{k: v.to(dev) for k, v in p.items()}
+                for p in blob["packets"]]
+    stage = MappingStage(SimpleNamespace(**REPLICA, **MAPPING), device=dev)
+    if stage.buffer.pixels.dtype != torch.float32:
+        fail(f"(j2) the buffer holds {stage.buffer.pixels.dtype} pixels")
+    reset_launches()
+    history, times, per_step, calls = drive_mapping(
+        stage, enhanced, blob["frame_of"], record=TABLE_ROWS)
+    counts = read_launches()
+    n = stage.num_inserted
+    rows = torch.cat([torch.cat([p["frames_color_float"],
+                                 p["frames_depth"][..., None]], -1)
+                      for p in enhanced])[:n]
+    if not torch.equal(stage.buffer.pixels[:n], rows.reshape(n, -1)):
+        fail("(j2) the f32 buffer does not hold the inserted rows exactly")
+    for name in TABLE_ROWS:
+        if not counts[name]:
+            fail(f"(j2) the f32-target mapping path never launched {name}")
+    for name in CORR_KERNELS:
+        if counts[name]:
+            fail(f"(j2) the mapping path launched {name}")
+    largest = {}  # each row's call with the most descriptors
+    for c in calls:
+        if c[0] not in largest or (c[1][1].shape[0]
+                                   > largest[c[0]][1][1].shape[0]):
+            largest[c[0]] = c
+    held = hold_calls(list(largest.values()), "the f32-target step", "(j2)")
+    steady = times[8:]
+    out = dict(ms=sum(steady) / len(steady) * 1e3, launches=counts,
+               per_step=per_step, keyframes=n, steps=len(history),
+               first_loss=float(np.mean([h["rgb_loss"]
+                                         for h in history[:8]])),
+               last_loss=float(np.mean([h["rgb_loss"]
+                                        for h in history[-8:]])),
+               held=held)
+    with open(os.path.join(tmp, "j2.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_pixel_f32(smi, tmp, bf16_ms):
+    """(j2) in a child process (the knob is read at import), then an
+    invalid value, which must make the import fail. Returns the child's
+    launches and its held calls."""
+    env = dict(os.environ, NERF_VO_PIXEL_DTYPE="float32")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "pixel-f32", tmp], env=env, capture_output=True,
+                         text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    print(out.stdout, end="", flush=True)
+    log(out.stderr[-4000:])
+    if out.returncode:
+        fail(f"(j2) the NERF_VO_PIXEL_DTYPE=float32 child exited "
+             f"{out.returncode}")
+    with open(os.path.join(tmp, "j2.json")) as f:
+        res = json.load(f)
+    print(f"(j2) NERF_VO_PIXEL_DTYPE=float32: {res['keyframes']} keyframes, "
+          f"{res['steps']} steps, f32 buffer equal to the inserted rows; "
+          f"steady {res['ms']:.2f} ms/step against (d)'s {bf16_ms:.2f} "
+          f"ms/step at bf16 targets (another process, same card); rgb_loss "
+          f"first 8 {res['first_loss']:.5f} -> last 8 "
+          f"{res['last_loss']:.5f}; launches {res['launches']}, per "
+          f"ordinary step (most seen) {res['per_step']}; child "
+          f"{child_s:.1f} s; {smi}", flush=True)
+    if not res["last_loss"] < res["first_loss"]:
+        fail("(j2) rgb_loss did not fall at f32 targets")
+
+    env["NERF_VO_PIXEL_DTYPE"] = "float16"
+    bad = subprocess.run(
+        [sys.executable, "-c", "import nerf_vo_tpu_torch.mapping."
+         "keyframe_buffer"], env=env, capture_output=True, text=True,
+        timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    want = ("ValueError: NERF_VO_PIXEL_DTYPE must be 'float32' or "
+            "'bfloat16', got 'float16'")
+    if bad.returncode == 0 or want not in bad.stderr:
+        fail(f"(j2) NERF_VO_PIXEL_DTYPE=float16 did not raise: exit "
+             f"{bad.returncode}, {bad.stderr[-500:]}")
+    print(f"(j2) NERF_VO_PIXEL_DTYPE=float16: the import exits "
+          f"{bad.returncode} with {want}", flush=True)
+    return res["launches"], res["held"]
+
+
+def phase_harness(metrics, paths):
+    """(j3) the port's parity harness: (f)'s metrics as report rows with
+    the hooks present, a dry run's stamp with them unset, and the abort
+    of ``run_parity`` without them (before ``execute``: no dataset).
+    ``configs/*.yaml`` needs yaml, which the card lacks: ``load_config``
+    gets this script's copy of the replica config."""
+    import io
+
+    from nerf_vo_tpu_torch import parity
+
+    config = dict(REPLICA, **MAPPING, **PIPELINE)
+    lpips = bool(os.environ.get("NERF_VO_LPIPS_WEIGHTS"))
+    with hook_env(**{HOOK_ENV[k]: p for k, p in paths.items()}):
+        hooks = parity.weight_hooks_for(config)
+        if parity.is_dry_run(hooks):
+            fail(f"(j3) the hooks' files are not seen: {hooks}")
+        rows = parity.report_rows("nerf_vo_replica", metrics, False)
+    if [r["metric"] for r in rows] != parity.REPORT_METRICS:
+        fail(f"(j3) the rows are not REPORT_METRICS: {rows}")
+    by = {r["metric"]: r for r in rows}
+    if not lpips and (by["2d/lpips"]["status"] != "N/A" or by["2d/lpips"][
+            "note"] != "N/A (set NERF_VO_LPIPS_WEIGHTS)"):
+        fail(f"(j3) the LPIPS row without its weights: {by['2d/lpips']}")
+    if any(r["status"] == "DRY-RUN" for r in rows):
+        fail("(j3) a row is stamped DRY-RUN with the checkpoints present")
+    report = {"rows": [(r["metric"], r["value"], r["status"]) for r in rows],
+              "verdict": parity.verdict({"room": rows}, False)}
+    print(f"(j3) report rows of (f)'s metrics with the hooks present: "
+          f"{json.dumps(report)}", flush=True)
+
+    with hook_env(**{v: None for v in HOOK_ENV.values()}):
+        hooks = parity.weight_hooks_for(config)
+        dry = parity.is_dry_run(hooks)
+        rows = parity.report_rows("nerf_vo_replica", metrics, dry)
+        stamp = parity.verdict({"room": rows}, dry)
+        weights = parity.weight_provenance(hooks)
+        if not (dry and stamp.startswith("DRY-RUN")
+                and weights["dpvo"]["weights"] == "RANDOM (dry run)"
+                and all(r["status"] in ("DRY-RUN", "N/A", "INFO")
+                        for r in rows)):
+            fail(f"(j3) the dry run is not stamped: {stamp}, {rows}")
+        err = io.StringIO()
+        load = parity.load_config
+        parity.load_config = lambda name: dict(config)
+        try:
+            with contextlib.redirect_stderr(err):
+                parity.run_parity("nerf_vo_replica", device="cuda")
+        except SystemExit as e:
+            code = e.code
+        else:
+            code = 0
+        finally:
+            parity.load_config = load
+    named = all(v in err.getvalue() for v in (
+        "NERF_VO_DPVO_WEIGHTS", "NERF_VO_OMNIDATA_DEPTH_WEIGHTS"))
+    if code != 2 or not named:
+        fail(f"(j3) run_parity without checkpoints: exit {code}, "
+             f"{err.getvalue()!r}")
+    required = [h["env"] for h in hooks.values() if h["required"]]
+    print(f"(j3) hooks unset: verdict {stamp!r}; run_parity exits 2 "
+          f"naming {', '.join(required)}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
                          "on an NVIDIA GPU")
+    jtmp = tempfile.mkdtemp(prefix="chip_smoke_j_")
+    try:
+        run_phases(jtmp)
+    finally:
+        shutil.rmtree(jtmp, ignore_errors=True)
+
+
+def run_phases(jtmp):
+    """Phases (a)-(j); ``jtmp`` holds (j)'s checkpoints and (c)'s packets."""
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from nerf_vo_tpu_torch.ops import correlation_cuda, cuda_build, gather_cuda
 
@@ -2828,7 +3250,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     for k in gather_cuda.KERNELS:
         k.launches = 0
-    phase_mapping(dev, enhanced, frame_of)
+    map_ms = phase_mapping(dev, enhanced, frame_of)
     counts = {k.__name__: k.launches for k in gather_cuda.KERNELS}
     print(f"(d) launches on the mapping path: {counts}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -2838,6 +3260,7 @@ def main():
 
     variant_launches, held = phase_variants(dev, smi, enhanced, frame_of)
     phase_pyramid(dev, smi)
+    save_packets(enhanced, frame_of, jtmp)  # for (j2)
 
     del packets, enhanced  # phases (b)-(d), (h) hold nothing on the card now
     gc.collect()
@@ -2850,7 +3273,8 @@ def main():
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
         torch.cuda.reset_peak_memory_stats()
-        eval_counts, _ = phase_evaluation(dev, smi, mapping, args, tmp)
+        eval_counts, eval_metrics = phase_evaluation(dev, smi, mapping,
+                                                     args, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"(f) launches on the evaluation path: {eval_counts}; peak device "
@@ -2871,6 +3295,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     parallel_launches, parallel_held = phase_parallel(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths, j1_launches = phase_hooks(dev, smi, jtmp)
+    j2_launches, j2_held = phase_pixel_f32(smi, jtmp, map_ms)
+    phase_harness(eval_metrics, paths)
+    print(f"(j) {time.perf_counter() - t0:.1f} s; {smi}", flush=True)
     bf16_entry = dict(held["h2"][0][1], name="gather_interp_bf16",
                       route="cuda", source="nerf_vo_tpu_torch/csrc/gather.cu",
                       replaces="nerf_vo_tpu/ops/gather_pallas.py:133",
@@ -2880,17 +3311,23 @@ def main():
         entry["launches"] = counts[name]
         entry["evaluation_launches"] = eval_counts[name]
         entry["slam_launches"] = slam_counts[name]
-        for tag, c in variant_launches.items():  # (h) runs no tracking
-            entry[f"{tag}_launches"] = c.get(name, 0)
+        for tag, c in variant_launches.items():
+            entry[f"{tag}_launches"] = c[name]
         if name in TABLE_ROWS:
             entry["h1_proposal_f2"] = [t for n, t in held["h1"] if n == name]
         if name in TP_ROWS:  # (i): by case, per rank
             entry["i_launches"] = parallel_launches[name]
             entry["i_tp_route"] = [t for n, t in parallel_held if n == name]
+        entry["j1_launches"] = j1_launches[name]
+        entry["j2_launches"] = j2_launches[name]
+        if name in TABLE_ROWS:
+            entry["j2_f32_targets"] = [t for n, t in j2_held if n == name]
     # the bf16 kernel's path is (h2)'s: no other path has a bf16 table
     bf16_entry["launches"] = variant_launches["h2"]["gather_interp_bf16"]
     kernels.append(bf16_entry)
 
+    print(f"chip_smoke: phases (a)-(j) in "
+          f"{time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2898,4 +3335,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["pixel-f32"]:  # (j2)'s child process
+        pixel_f32_child(sys.argv[2])
+    else:
+        main()

@@ -14,10 +14,12 @@ axis.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from nerf_vo_tpu_torch.models import dpt
 from nerf_vo_tpu_torch.models.dpt import DPTHybrid
 
 
@@ -60,9 +62,12 @@ class OmnidataEstimator:
                  normal_state_dict: Optional[Dict] = None,
                  use_normals: bool = True, image_size: int = 384,
                  seed: int = 0, depth_layers: int = 12, device="cuda"):
-        """Random weights from ``seed`` unless state dicts are given. The
-        DPT computes in bf16 on cuda, as the JAX model does, and in f32 on
-        the CPU."""
+        """Each model's weights: the state dict given; else the checkpoint
+        that ``NERF_VO_OMNIDATA_DEPTH_WEIGHTS`` (depth) or
+        ``NERF_VO_OMNIDATA_NORMAL_WEIGHTS`` (normals, read only with
+        ``use_normals``) names, which must load; else random from ``seed``.
+        The DPT computes in bf16 on cuda, as the JAX model does, and in f32
+        on the CPU."""
         self.device = torch.device(device)
         self.image_size = image_size
         self.use_normals = use_normals
@@ -73,6 +78,16 @@ class OmnidataEstimator:
         self.depth_layers = depth_layers
         self.dtype = (torch.bfloat16 if self.device.type == "cuda"
                       else torch.float32)
+        if depth_state_dict is None and os.environ.get(
+                "NERF_VO_OMNIDATA_DEPTH_WEIGHTS"):
+            depth_state_dict = dpt.load_torch_weights(
+                os.environ["NERF_VO_OMNIDATA_DEPTH_WEIGHTS"], 1,
+                depth_layers)
+        if normal_state_dict is None and use_normals and os.environ.get(
+                "NERF_VO_OMNIDATA_NORMAL_WEIGHTS"):
+            normal_state_dict = dpt.load_torch_weights(
+                os.environ["NERF_VO_OMNIDATA_NORMAL_WEIGHTS"], 3,
+                depth_layers)
         self.depth_model = self._build(1, depth_state_dict, seed)
         self.normal_model = (
             self._build(3, normal_state_dict, seed + 1) if use_normals

@@ -6,9 +6,11 @@ normals, poses, intrinsics); the mapping stage inserts keyframes in place
 (this port updates the tensors in place where the JAX package returns a new
 buffer); the trainer samples random pixels over the active prefix each step.
 
-All per-pixel channels live interleaved in one flat bf16 ``pixels`` tensor
-``[K, H*W*C]`` (the JAX package's default storage), so one gather fetches a
-ray's every target. Channel layout within a pixel's C-element block:
+All per-pixel channels live interleaved in one flat ``pixels`` tensor
+``[K, H*W*C]`` of ``PIXEL_DTYPE``, so one gather fetches a ray's every
+target. ``NERF_VO_PIXEL_DTYPE``, read at import as the JAX module reads it,
+picks it: ``bfloat16`` (the default) or ``float32`` (exact targets); any
+other value raises. Channel layout within a pixel's C-element block:
 
   0:3  color rgb
   3    z-depth (0 = invalid)
@@ -22,13 +24,19 @@ and every pose is stored pre-multiplied by that normalization.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional
 
 import torch
 
 from nerf_vo_tpu_torch.core import cameras, conventions, lie
 
-PIXEL_DTYPE = torch.bfloat16
+_PIXEL_DTYPE_NAME = os.environ.get("NERF_VO_PIXEL_DTYPE", "bfloat16")
+if _PIXEL_DTYPE_NAME not in ("float32", "bfloat16"):
+    raise ValueError(
+        "NERF_VO_PIXEL_DTYPE must be 'float32' or 'bfloat16', got "
+        f"{_PIXEL_DTYPE_NAME!r}")
+PIXEL_DTYPE = getattr(torch, _PIXEL_DTYPE_NAME)
 
 
 @dataclasses.dataclass

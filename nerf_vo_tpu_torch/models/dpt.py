@@ -3,7 +3,8 @@
 Counterpart of ``nerf_vo_tpu/models/dpt.py`` (Omnidata's ``DPTDepthModel``
 with ``backbone='vitb_rn50_384'``). The modules carry the Omnidata torch key
 layout (``pretrained.model.*``, ``pretrained.act_postprocess{3,4}.*``,
-``scratch.*``), so an Omnidata state dict loads directly, and
+``scratch.*``), so an Omnidata checkpoint loads through
+:func:`load_torch_weights` (as the JAX package's loader reads it), and
 :func:`from_jax_params` maps the JAX package's Flax params onto it.
 
   * backbone: a ResNetV2 stem — weight-standardized convs (eps 1e-8) +
@@ -431,3 +432,50 @@ def from_jax_params(params_np: Dict[str, Any],
     _conv(sd, "scratch.output_conv.2", p["head_c2"])
     _conv(sd, "scratch.output_conv.4", p["head_out"])
     return sd
+
+
+# --------------------------------------------------------------------------
+# Omnidata checkpoint -> state_dict (the JAX convert_torch_checkpoint)
+# --------------------------------------------------------------------------
+
+def convert_checkpoint(state_dict: Dict[str, Any], num_channels: int,
+                       depth_layers: int = 12) -> Dict[str, torch.Tensor]:
+    """An Omnidata ``DPTDepthModel`` state dict -> :class:`DPTHybrid`'s at
+    ``depth_layers`` blocks, read as the JAX ``convert_torch_checkpoint``
+    reads it: a leading ``model.`` (the Lightning dump's) stripped; every
+    key that converter reads must be there (all 12 transformer blocks and
+    ``refinenet4``'s ``resConfUnit1``, which the forward never calls), and
+    the head conv must have ``num_channels`` outputs; keys it never reads
+    (``pretrained.act_postprocess{1,2}.*``, the timm ViT's ``norm`` and
+    ``head``) are dropped. A model cut to fewer blocks keeps the file's
+    first ``depth_layers``, as the JAX model reads only those.
+
+    Raises ``KeyError`` naming a missing key, ``ValueError`` on the head.
+    """
+    sd = {(k[6:] if k.startswith("model.") else k): torch.as_tensor(v)
+          for k, v in state_dict.items()}
+    with torch.device("meta"):
+        needed = DPTHybrid(num_channels).state_dict()  # all 12 blocks
+    for k in needed:
+        if k not in sd:
+            raise KeyError(f"omnidata checkpoint has no {k!r}")
+    head = sd["scratch.output_conv.4.weight"].shape[0]
+    if head != num_channels:
+        raise ValueError(f"checkpoint head has {head} channels, "
+                         f"model expects {num_channels}")
+    return {k: sd[k] for k in needed
+            if not (k.startswith("pretrained.model.blocks.")
+                    and int(k.split(".")[3]) >= depth_layers)}
+
+
+def load_torch_weights(path: str, num_channels: int,
+                       depth_layers: int = 12) -> Dict[str, torch.Tensor]:
+    """Load an Omnidata checkpoint from disk (a ``state_dict`` wrapper is
+    unwrapped) as :class:`DPTHybrid`'s state dict; see
+    :func:`convert_checkpoint`. ``NERF_VO_OMNIDATA_DEPTH_WEIGHTS`` /
+    ``NERF_VO_OMNIDATA_NORMAL_WEIGHTS`` name the files for the enhancement
+    stage."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    return convert_checkpoint(ckpt, num_channels, depth_layers)

@@ -2,8 +2,9 @@
 
 Counterpart of ``nerf_vo_tpu/models/dpvo_net.py``. The modules carry
 upstream DPVO's torch key layout (``patchify.fnet``, ``patchify.inet``,
-``update.*``), so a ``dpvo.pth`` state dict loads directly, and
-:func:`from_jax_params` maps the JAX package's Flax params onto it.
+``update.*``), so a ``dpvo.pth`` loads through :func:`load_torch_weights`
+(as the JAX package's loader reads it), and :func:`from_jax_params` maps the
+JAX package's Flax params onto it.
 
   * ``patchify.fnet``: BasicEncoder4 (1/4 res, instance norm, matching
     features) and ``patchify.inet`` (no norm, context), both scaled by 1/4,
@@ -301,3 +302,50 @@ def from_jax_params(params_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     _lin(sd, "update.w.1", u["w1"])
     sd["update.lmbda"] = torch.zeros(1)
     return sd
+
+
+# --------------------------------------------------------------------------
+# dpvo.pth -> state_dict (the JAX package's convert_torch_checkpoint)
+# --------------------------------------------------------------------------
+
+def convert_checkpoint(state_dict: Dict[str, Any],
+                       corr_perm=None) -> Dict[str, torch.Tensor]:
+    """An upstream ``dpvo.pth`` state dict -> :class:`DPVONet`'s, read as
+    the JAX ``convert_torch_checkpoint`` reads it: ``module.`` prefixes
+    stripped, ``update.lmbda`` dropped (the net's stays zero: no tracker
+    reads it), keys the net does not have ignored.
+
+    Args:
+      corr_perm: optional [882] permutation of the input columns of
+        ``update.corr.0.weight``: the JAX converter permutes the rows of
+        its [in, out] kernel, this net's weight is [out, in].
+
+    Raises ``KeyError`` naming a key the net needs that the file lacks.
+    """
+    sd = {}
+    for k, v in state_dict.items():
+        k = k.replace("module.", "")
+        if "update.lmbda" not in k:
+            sd[k] = torch.as_tensor(v)
+    with torch.device("meta"):
+        names = list(DPVONet().state_dict())
+    out = {}
+    for k in names:
+        if k == "update.lmbda":
+            out[k] = torch.zeros(1)
+        elif k in sd:
+            out[k] = sd[k]
+        else:
+            raise KeyError(f"dpvo checkpoint has no {k!r}")
+    if corr_perm is not None:
+        perm = torch.as_tensor(np.asarray(corr_perm), dtype=torch.long)
+        out["update.corr.0.weight"] = out["update.corr.0.weight"][:, perm]
+    return out
+
+
+def load_torch_weights(path: str, corr_perm=None) -> Dict[str, torch.Tensor]:
+    """Load a ``dpvo.pth`` from disk as :class:`DPVONet`'s state dict
+    (``NERF_VO_DPVO_WEIGHTS`` names it for the tracking stage); see
+    :func:`convert_checkpoint`."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return convert_checkpoint(sd, corr_perm)

@@ -144,6 +144,7 @@ def _dense_ba_core(poses, disps, intrinsics, ii, jj, tgt, wgt, valid, grid,
     N, hwl = disps.shape
     P = window
     dev = poses.device
+    kw = dict(device=dev, dtype=poses.dtype)  # buffers follow the inputs
     ii = ii.long()
     jj = jj.long()
     slot_map = slot_map.long()
@@ -154,8 +155,8 @@ def _dense_ba_core(poses, disps, intrinsics, ii, jj, tgt, wgt, valid, grid,
     edge_valid = valid & (ii != jj)
     k_i = intrinsics[ii]
     k_j = intrinsics[jj]
-    touched = torch.zeros(N, device=dev).index_add_(
-        0, ii, edge_valid.float()) > 0
+    touched = torch.zeros(N, **kw).index_add_(
+        0, ii, edge_valid.to(poses.dtype)) > 0
 
     costs = []
     cov = None
@@ -172,29 +173,29 @@ def _dense_ba_core(poses, disps, intrinsics, ii, jj, tgt, wgt, valid, grid,
         Hb = torch.einsum("ehck,ehcl->ekl", Jcat, Jcat)  # [E, 12, 12]
         vb = torch.einsum("ehck,ehc->ek", Jcat, sw * -r)  # [E, 12]
         Q = P + 1
-        B4 = torch.zeros(Q * Q, 6, 6, device=dev)
+        B4 = torch.zeros(Q * Q, 6, 6, **kw)
         B4.index_add_(0, li_s * Q + li_s, Hb[:, :6, :6])
         B4.index_add_(0, li_s * Q + lj_s, Hb[:, :6, 6:])
         B4.index_add_(0, lj_s * Q + li_s, Hb[:, 6:, :6])
         B4.index_add_(0, lj_s * Q + lj_s, Hb[:, 6:, 6:])
         B = B4.reshape(Q, Q, 6, 6)[:P, :P].permute(0, 2, 1, 3).reshape(
             P * 6, P * 6)
-        v = torch.zeros(Q, 6, device=dev)
+        v = torch.zeros(Q, 6, **kw)
         v.index_add_(0, li_s, vb[:, :6]).index_add_(0, lj_s, vb[:, 6:])
         v = v[:P].reshape(P * 6)
 
         # pose-depth coupling per (frame, pixel)
         u12 = torch.einsum("ehck,ehc->ehk", Jcat, swJd)  # [E, hwl, 12]
-        U4 = torch.zeros(N * Q, hwl, 6, device=dev)
+        U4 = torch.zeros(N * Q, hwl, 6, **kw)
         U4.index_add_(0, ii * Q + li_s, u12[..., :6])
         U4.index_add_(0, ii * Q + lj_s, u12[..., 6:])
         Uf = U4.reshape(N, Q, hwl, 6)[:, :P].permute(0, 2, 1, 3).reshape(
             N * hwl, P * 6)
 
         # depth terms
-        C = torch.zeros(N, hwl, device=dev).index_add_(
+        C = torch.zeros(N, hwl, **kw).index_add_(
             0, ii, (wJ_d * J_d).sum(-1))
-        w_d = torch.zeros(N, hwl, device=dev).index_add_(
+        w_d = torch.zeros(N, hwl, **kw).index_add_(
             0, ii, (wJ_d * -r).sum(-1))
         damp = lm_lambda * C + 1e-7
         if eta is not None:

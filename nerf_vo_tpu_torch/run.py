@@ -36,6 +36,50 @@ def _set_random_seed(seed: int) -> None:
     torch.manual_seed(seed)
 
 
+def start_run(config: dict, run_name: str):
+    """Make ``<dir_prediction>/<run_name>/`` and its ``results/``, write
+    ``config.json`` there and seed the generators with 42, as ``run.py``
+    at the root does (:63-70). Returns the two directories."""
+    dir_prediction = config["dir_prediction"] + f"/{run_name}"
+    os.makedirs(dir_prediction, exist_ok=True)
+    dir_result = dir_prediction + "/results"
+    os.makedirs(dir_result, exist_ok=True)
+
+    with open(dir_prediction + "/config.json", "w") as f:
+        json.dump(config, f)
+
+    _set_random_seed(42)
+    return dir_prediction, dir_result
+
+
+def run_scene(config: dict, scene_name: str, index: int, dir_dataset: str,
+              dir_prediction: str, dir_result: str, experiment: str,
+              device="cuda") -> dict:
+    """One scene of a run: its directories, the per-scene overrides of the
+    scene at ``index`` of ``scene_names`` (``run.py`` at the root, :78-95), then
+    :func:`execute` and :func:`render_and_evaluate` on ``device``. Sets the
+    scene's keys in ``config`` as the reference does; returns the
+    metrics."""
+    config["dir_dataset"] = dir_dataset + f"/{scene_name}"
+    config["dir_prediction"] = dir_prediction + f"/{scene_name}"
+    os.makedirs(config["dir_prediction"], exist_ok=True)
+    config["dir_result"] = dir_result + f"/{scene_name}"
+    os.makedirs(config["dir_result"], exist_ok=True)
+    config["experiment"] = experiment
+    config["scene_name"] = scene_name
+    if "depth_supervision_lambdas" in config:
+        config["depth_supervision_lambda"] = config[
+            "depth_supervision_lambdas"
+        ][index]
+    if "extrinsic_learning_rates" in config:
+        config["extrinsic_learning_rate"] = config[
+            "extrinsic_learning_rates"
+        ][index]
+    args = argparse.Namespace(**config)
+    mapping = execute(args, device=device)
+    return render_and_evaluate(args, config, mapping)
+
+
 def main(argv: Optional[List[str]] = None, device="cuda") -> None:
     """Parse ``argv`` (``sys.argv[1:]`` when None) and run every selected
     scene on ``device``."""
@@ -60,45 +104,19 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> None:
     dir_dataset = config["dir_dataset"]
     stamp = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
     suffix = "" if cli.experiment == "" else f"_{cli.experiment}"
-    dir_prediction = config["dir_prediction"] + f"/{cli.config}_{stamp}{suffix}"
     experiment = (
         f"/{cli.config}_{stamp}" if cli.experiment == "" else cli.experiment
     )
-    os.makedirs(dir_prediction, exist_ok=True)
-    dir_result = dir_prediction + "/results"
-    os.makedirs(dir_result, exist_ok=True)
-
-    with open(dir_prediction + "/config.json", "w") as f:
-        json.dump(config, f)
-
-    _set_random_seed(42)
+    dir_prediction, dir_result = start_run(config,
+                                           f"{cli.config}_{stamp}{suffix}")
 
     for index, scene_name in enumerate(config["scene_names"]):
         if index < cli.first_scene:
             continue
         if index > cli.last_scene:
             break
-
-        config["dir_dataset"] = dir_dataset + f"/{scene_name}"
-        config["dir_prediction"] = dir_prediction + f"/{scene_name}"
-        os.makedirs(config["dir_prediction"], exist_ok=True)
-        config["dir_result"] = dir_result + f"/{scene_name}"
-        os.makedirs(config["dir_result"], exist_ok=True)
-        config["experiment"] = experiment
-        config["scene_name"] = scene_name
-        # per-scene overrides (reference run.py:156-161)
-        if "depth_supervision_lambdas" in config:
-            config["depth_supervision_lambda"] = config[
-                "depth_supervision_lambdas"
-            ][index]
-        if "extrinsic_learning_rates" in config:
-            config["extrinsic_learning_rate"] = config[
-                "extrinsic_learning_rates"
-            ][index]
-        args = argparse.Namespace(**config)
-        mapping = execute(args, device=device)
-        render_and_evaluate(args, config, mapping)
-
+        run_scene(config, scene_name, index, dir_dataset, dir_prediction,
+                  dir_result, experiment, device)
 
 if __name__ == "__main__":
     main()

@@ -30,7 +30,7 @@ from nerf_vo_tpu_torch.enhancement import alignment
 from nerf_vo_tpu_torch.enhancement.omnidata import OmnidataEstimator
 from nerf_vo_tpu_torch.mapping import keyframe_buffer as kb
 from nerf_vo_tpu_torch.mapping.trainer import MappingTrainer, TrainerConfig
-from nerf_vo_tpu_torch.models import droid_net
+from nerf_vo_tpu_torch.models import droid_net, dpvo_net
 from nerf_vo_tpu_torch.models.dpvo_net import DPVONet
 from nerf_vo_tpu_torch.models.nerfacto import NerfactoConfig, NerfactoModel
 from nerf_vo_tpu_torch.runtime.viewer import LiveViewer
@@ -68,8 +68,10 @@ class TrackingStage:
                  device="cuda"):
         """``state_dict``: the tracker's weights in upstream's layout (see
         ``from_jax_params`` in ``models.dpvo_net`` / ``models.droid_net``);
-        for ``droid-slam`` the ``droid.pth`` that ``NERF_VO_DROID_WEIGHTS``
-        names otherwise; random weights from seed 42 failing both."""
+        otherwise the checkpoint that ``NERF_VO_DPVO_WEIGHTS`` (a
+        ``dpvo.pth``) or, for ``droid-slam``, ``NERF_VO_DROID_WEIGHTS`` (a
+        ``droid.pth``) names, which must load; random weights from seed 42
+        when neither is given."""
         set_float_policy()
         self.name = getattr(args, "tracking_module", "dpvo")
         self.frame_stride = getattr(args, "frame_stride", 1)
@@ -94,6 +96,9 @@ class TrackingStage:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(42)
             net = DPVONet(corr_radius=cfg.corr_radius)
+        if state_dict is None and os.environ.get("NERF_VO_DPVO_WEIGHTS"):
+            state_dict = dpvo_net.load_torch_weights(
+                os.environ["NERF_VO_DPVO_WEIGHTS"])
         if state_dict is not None:
             net.load_state_dict(state_dict)
         self.tracker = DPVOTracker(cfg, net, args.frame_height,
@@ -181,7 +186,10 @@ class EnhancementStage:
     def __init__(self, args, depth_state_dict: Optional[Dict] = None,
                  normal_state_dict: Optional[Dict] = None, device="cuda"):
         """State dicts in the Omnidata layout (see
-        ``models.dpt.from_jax_params``); random weights otherwise."""
+        ``models.dpt.from_jax_params``); otherwise the checkpoints that
+        ``NERF_VO_OMNIDATA_DEPTH_WEIGHTS`` and, with normals,
+        ``NERF_VO_OMNIDATA_NORMAL_WEIGHTS`` name (``OmnidataEstimator``);
+        random weights otherwise."""
         set_float_policy()
         self.mode = getattr(args, "enhancement_module", "depth")
         self.device = _pick_device(args, "enhancement", device)

@@ -203,6 +203,7 @@ PORT_MODULES = [
     "nerf_vo_tpu_torch.data.utils",
     "nerf_vo_tpu_torch.data.datasets",
     "nerf_vo_tpu_torch.run",
+    "nerf_vo_tpu_torch.parity",
     "nerf_vo_tpu_torch.utils.torch_setup",
     "nerf_vo_tpu_torch.parallel",
     "nerf_vo_tpu_torch.parallel.dist",

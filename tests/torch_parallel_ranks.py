@@ -228,7 +228,8 @@ def world_two(rank, world, device, spec):
 def world_four(rank, world, device, spec):
     """Four ranks: the descriptor-routed encodes (4 shards), DP(4), DP2 x
     TP2 and descriptor-sharded 2 x 2 train steps, the table-sharded
-    occupancy mapper, the pixel-sharded dense BA, the pod mesh."""
+    occupancy mapper, the pixel-sharded dense BA (in f32, and in f64 at
+    several seeds), the pod mesh."""
     out = {}
     m_mesh = pdist.make_mesh(world, "model")
     out["encode_ds"] = {name: encode(rank, world, m_mesh, *args, True)
@@ -251,6 +252,8 @@ def world_four(rank, world, device, spec):
         "ds": train(rank, mesh2, MODEL, spec["params0"], None, "ds")}
     out["dense_ba"] = {n: dense_ba(rank, mesh, *spec["dense_ba"], n)
                        for n in (1, 2)}
+    out["dense_ba_f64"] = [dense_ba(rank, mesh, *args, 2)
+                           for args in spec["dense_ba_f64"]]
     pod = pdist.make_pod_mesh(n_model=2)
     out["pod"] = dict(names=pod.mesh_dim_names, ranks=pod.mesh.tolist(),
                       ranks_2d=mesh2.mesh.tolist(),
