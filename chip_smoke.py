@@ -53,7 +53,9 @@ exit:
       it) fed (c)'s packets as (d) feeds them, 64 steps: (h1) nerfstudio's
       mapper (hash proposals trained by the interlevel loss, per-sample
       normals), whose normal pullback must launch no table scatter, with
-      rows 2-5 held and timed at the last step's F = 2 proposal inputs;
+      rows 2-5 held and timed at the last step's F = 2 inputs of both
+      proposals, and per level of each proposal's scatter its ids' runs,
+      distinct ids and most descriptors on one id printed;
       (h2) bf16 dense proposal tables with phased table gradients under
       ``NERF_VO_PREFETCH_BATCH=1`` (the bf16-table ``gather_interp`` held
       and timed at both grids' inputs, bitwise against the f32 kernel; the
@@ -1047,6 +1049,10 @@ def phase_variants(dev, smi, enhanced, frame_of):
     if counts["gather_interp_bf16"]:
         fail("(h1) f32 tables launched the bf16-table kernel")
     f2 = [c for c in calls if features(c[0], c[1]) == 2]
+    for name, a, _ in f2:
+        if name == "scatter_cols_accum":
+            print_id_runs(a[1], PROPOSAL_LEVELS,
+                          f"(h1) the scatter at M={a[1].shape[0]}")
     print(f"(h1) the last step's {len(f2)} table-kernel launches at the "
           "hash proposals' F = 2 (of its "
           f"{len(calls)}), held against their plain versions on the same "
@@ -1482,6 +1488,36 @@ def record_calls(fn, names):
         for name, k in kernel.items():
             setattr(gc, name, k)
     return out, calls
+
+
+# levels of both hash proposal grids (models/nerfacto.py: HashGridConfig(5,
+# 2, 17, 16, 128 / 256))
+PROPOSAL_LEVELS = 5
+
+
+def id_runs(idx, levels):
+    """Per level of level-major ids: descriptors, id runs
+    (``(idx[1:] != idx[:-1]).sum() + 1``), distinct ids and the most
+    descriptors on one id. ``scatter_cols_accum`` at F <= 2 adds once a
+    run; the most on one id is what one table row took before."""
+    n = idx.shape[0] // levels
+    rows = []
+    for lv in range(levels):
+        s = idx[lv * n:(lv + 1) * n].long()
+        counts = torch.unique(s, return_counts=True)[1]
+        rows.append(dict(level=lv, n=n, lo=int(s.min()), hi=int(s.max()),
+                         runs=int((s[1:] != s[:-1]).sum()) + 1,
+                         distinct=int(counts.numel()),
+                         most=int(counts.max())))
+    return rows
+
+
+def print_id_runs(idx, levels, label):
+    for r in id_runs(idx, levels):
+        print(f"{label} level {r['level']}: {r['n']} descriptors, ids "
+              f"{r['lo']}..{r['hi']}, {r['runs']} runs (mean length "
+              f"{r['n'] / r['runs']:.2f}), {r['distinct']} distinct ids, "
+              f"most on one id {r['most']}", flush=True)
 
 
 def hold_calls(calls, label, tag):

@@ -30,22 +30,35 @@
 //
 // What bounds them on an H100, at the replica configuration's mapping step
 // (field: 4096 rays x 48 samples = 196,608 descriptors per level; F = 8, R =
-// 256; proposals F = 1, R = 32): all four move bytes and do next to no
-// arithmetic (at most 32F multiply-adds per descriptor), so the bound is
-// bytes over 3.35 TB/s. Per descriptor, gather_interp reads its w row
-// (128 B) and the 8 live entries of one table row (256 B of 1 KB at F = 8)
-// and writes 32 B; gather_cols
-// writes a 512 B bf16 row; scatter_cols_accum reads a 1 KB f32 cotangent row
-// and adds it into one 1 KB table row. Bounds at those shapes (bytes moved
-// once over 3.35 TB/s, as chip_smoke.py phase (a) computes them):
+// 256; hash proposals, nerfstudio's mapper: 5 levels x 4096 rays x 96 / 48
+// samples, F = 2, R = 64; dense proposals F = 1, R = 32): all four move
+// bytes and do next to no arithmetic (at most 32F multiply-adds per
+// descriptor), so the bound is bytes over 3.35 TB/s. Per descriptor,
+// gather_interp reads its w row (128 B) and the 8 live entries of one
+// table row (256 B of 1 KB at F = 8) and writes 32 B; gather_cols writes
+// a 2R-byte bf16 row; scatter_cols_accum reads a 4R-byte f32 cotangent row
+// and adds it into one table row. Bounds at those shapes (bytes moved once
+// over 3.35 TB/s, as chip_smoke.py phases (a) and (h1) compute them):
 //   gather_cols        M 589,824 x 256: 302 MB out + touched rows  ~0.10 ms
+//                      M 1,966,080 x 64 (proposal 0): 252 MB out   ~0.078 ms
 //   gather_interp      M 393,216, F 8 (hashed levels 1-2): ~98 MB  ~0.029 ms
 //   gather_interp_mm   M 196,608, F 8 (level 0, 512 bricks): ~33 MB ~0.010 ms
 //   scatter_cols_accum M 589,824 x 256 into 49,152 bricks: 657 MB ~0.20 ms
+//                      M 1,966,080 x 64 into 20,480 bricks: 516 MB ~0.154 ms
 //
 // Designs.
 //
-// gather_cols: one warp per descriptor; each warp reads its row coalesced.
+// gather_cols (every R = 32F; other widths, on no path, one warp a
+// descriptor): L = R / 8 lanes serve one descriptor, 8 floats a lane, so a
+// warp serves 32 / L descriptors a round (at F = 2 eight lanes and four
+// descriptors; at F = 8 the whole warp). Lane j's two 16-byte loads of
+// floats 8j..8j+7 become one 16-byte bf16 store, streamed (st.global.cs:
+// the caller reads the rows once). A persistent grid; each warp loads the
+// ids of 8 rounds (4 at F = 1) at once, one a lane, broadcasts them by
+// shuffle, and issues the row loads of all its rounds (predicated, no
+// branch) before it converts and stores any. One warp a descriptor leaves
+// half of each warp idle at R = 64, with one 16-byte load a lane in flight
+// behind a dependent id load: 35.8% of the bound at 2h.
 //
 // gather_interp: a persistent grid; L lanes serve one descriptor (L = 8,
 // 4 descriptors a warp; at F = 1 the L of kGiLanesF1). Lane j loads its
@@ -87,16 +100,47 @@
 // global memory where their weight is non-zero (the hash grid's descriptors
 // give them weight 0), so any input is computed right.
 //
-// scatter_cols_accum: R = 32F is a template parameter. A block owns one
-// 32-column slab of the table and a strided share of the descriptors: 8
-// lanes take one descriptor's 128 B of the slab as one 16-byte load each (4
-// loads in flight per lane); the id is loaded once per descriptor batch and
-// broadcast by shuffle. Ids below `hot` (level 0's 512 bricks, where ~384
-// descriptors hit each brick) accumulate in the block's shared-memory copy
-// of those rows' slab (shared f32 atomics; rows rotated by their index to
-// spread banks), flushed once at the end with global vector atomics; every
-// other id adds straight into the table with sm_90's 16-byte atomicAdd on
-// float4 (4x fewer atomic operations than scalar adds).
+// scatter_cols_accum: two designs, picked by the template F.
+//
+// F <= 2 (the hash proposals' F = 2 grids; F = 1): what held the scatter
+// back was same-address atomics, which serialize in L2 (~4.8 ns each on an
+// H100). The descriptors come level-major, and within a level ray-major
+// with a ray's samples adjacent (hash_grid._descriptors over positions
+// [rays, samples, 3]), so equal ids come in runs (mean length 17.5 / 10.7
+// / 7.8 / 6.6 / 4.9 over proposal 0's levels in chip_smoke.py (h1)), and
+// the rays meet in few bricks: one brick took 292,632 of level 1's 393,216
+// descriptors, and its slice alone 1.40 of the 2.16 ms that one float4
+// atomic per 16 bytes a descriptor cost. So runs are summed in registers
+// before any atomic: R / 8 lanes serve a descriptor (two 16-byte streaming
+// loads a lane), each lane group owns a contiguous range of descriptors
+// (a block's groups consecutive ranges), loads the ids of 8 descriptors at
+// once (broadcast by shuffle) and their rows, then walks them in order,
+// summing while the id repeats and adding the sum into the table with two
+// float4 atomics a lane where it changes. Zero 16-byte pieces are not
+// added (+0 changes no sum; a point's zero trilinear weights and the
+// padding entries 27..31 give many). On (h1)'s ids the row adds fall from
+// 1,966,080 to ~256,000 and the most on one row from ~290,000 to ~5,300
+// (scripts/model_scatter_runs.py). A second stage, a per-block table in
+// shared memory keyed by brick id, was built and measured slower than runs
+// alone at both proposals' shapes (its shared-memory f32 adds are CAS
+// loops, and after the runs the global atomics no longer set the pace), so
+// there is none; nor are the `hot` rows kept on chip: `hot` is not read at
+// F <= 2.
+//
+// F >= 4 (the field's F = 8): phase (a)'s F = 8 calls, uniform random
+// points, have no runs, and there level 0's 512 bricks take ~384 adds
+// each, which a block keeps on chip only as 32-column slabs (768 whole
+// rows of 1 KB do not fit in shared memory). So F >= 4 keeps the slab
+// design: a block owns one 32-column slab of the table and a strided
+// share of the descriptors: 8 lanes take one descriptor's 128 B of the
+// slab as one 16-byte load each (4 loads in flight per lane); the id is
+// loaded once per descriptor batch and broadcast by shuffle. Ids
+// below `hot` (level 0's 512 bricks, where ~384 descriptors hit each
+// brick) accumulate in the block's shared-memory copy of those rows' slab
+// (shared f32 atomics; rows rotated by their index to spread banks),
+// flushed once at the end with global vector atomics; every other id adds
+// straight into the table with sm_90's 16-byte atomicAdd on float4 (4x
+// fewer atomic operations than scalar adds).
 //
 // Plain C interface, bound with ctypes (nerf_vo_tpu_torch/ops/gather_cuda.py).
 
@@ -115,6 +159,79 @@ constexpr int kSmemMax = 232448;  // dynamic shared memory of one sm_90 block
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// 16 / 8 bytes at p where pred holds, else zeros: a predicated load, so
+// that no branch separates a descriptor's row loads from one another.
+__device__ __forceinline__ float4 ldg_f4_if(const float* p, bool pred) {
+  float4 v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %5, 0;\n\t"
+      "mov.f32 %0, 0f00000000;\n\tmov.f32 %1, 0f00000000;\n\t"
+      "mov.f32 %2, 0f00000000;\n\tmov.f32 %3, 0f00000000;\n\t"
+      "@q ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+__device__ __forceinline__ float2 ldg_f2_if(const float* p, bool pred) {
+  float2 v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %3, 0;\n\t"
+      "mov.f32 %0, 0f00000000;\n\tmov.f32 %1, 0f00000000;\n\t"
+      "@q ld.global.nc.v2.f32 {%0, %1}, [%2];\n\t}"
+      : "=f"(v.x), "=f"(v.y)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+// 16 / 8 / 4 raw bytes at p where pred holds, else zeros (bf16 tables).
+__device__ __forceinline__ uint4 ldg_u4_if(const void* p, bool pred) {
+  uint4 v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %5, 0;\n\t"
+      "mov.b32 %0, 0;\n\tmov.b32 %1, 0;\n\tmov.b32 %2, 0;\n\t"
+      "mov.b32 %3, 0;\n\t"
+      "@q ld.global.nc.v4.b32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+__device__ __forceinline__ uint2 ldg_u2_if(const void* p, bool pred) {
+  uint2 v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %3, 0;\n\t"
+      "mov.b32 %0, 0;\n\tmov.b32 %1, 0;\n\t"
+      "@q ld.global.nc.v2.b32 {%0, %1}, [%2];\n\t}"
+      : "=r"(v.x), "=r"(v.y)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ldg_u1_if(const void* p, bool pred) {
+  uint32_t v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %2, 0;\n\t"
+      "mov.b32 %0, 0;\n\t"
+      "@q ld.global.nc.b32 %0, [%1];\n\t}"
+      : "=r"(v)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
 }
 
 constexpr int kMaxDevices = 64;
@@ -168,10 +285,15 @@ cudaError_t resident_grid(Kernel kernel, KernelFacts* facts, int threads,
 }
 
 // ---------------------------------------------------------------------------
-// gather_cols: one warp per descriptor, 16-byte loads, 8-byte stores
+// gather_cols: R / 8 lanes per descriptor, a batch of ids a warp at once,
+// 16-byte streaming stores
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads) gather_cols_kernel(
+constexpr int kGcUnroll = 8;  // descriptor rounds loaded at once
+
+// any R % 4 == 0 (no path has another width than 32F): one warp per
+// descriptor, 16-byte loads, 8-byte stores
+__global__ void __launch_bounds__(kThreads) gather_cols_any_kernel(
     const float* __restrict__ tab, const int* __restrict__ idx,
     __nv_bfloat16* __restrict__ out, int M, int R, int n_bricks) {
   const int lane = threadIdx.x & 31;
@@ -186,13 +308,71 @@ __global__ void __launch_bounds__(kThreads) gather_cols_kernel(
   uint2* dst = reinterpret_cast<uint2*>(out + t * R);
   for (int v = lane; v < nvec; v += 32) {
     float4 x = ok ? src[v] : make_float4(0.f, 0.f, 0.f, 0.f);
-    __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-    uint2 pack;
-    pack.x = *reinterpret_cast<uint32_t*>(&lo);
-    pack.y = *reinterpret_cast<uint32_t*>(&hi);
-    dst[v] = pack;
+    dst[v] = make_uint2(pack_bf16x2(x.x, x.y), pack_bf16x2(x.z, x.w));
   }
+}
+
+// R = 8L: lane j of a descriptor's L reads floats 8j..8j+7 of its row (two
+// 16-byte loads) and writes them as one 16-byte bf16 store. A warp serves
+// batches of 32 / L x U descriptors (U = kGcUnroll, at most L): it loads
+// their ids at once (one a lane) and serves them in U rounds of 32 / L
+// descriptors, the ids broadcast by shuffle, with the row loads of all U
+// rounds issued (predicated) before any convert or store.
+template <int L>
+__global__ void __launch_bounds__(kThreads) gather_cols_kernel(
+    const float* __restrict__ tab, const int* __restrict__ idx,
+    __nv_bfloat16* __restrict__ out, int M, int n_bricks) {
+  constexpr int R = 8 * L;
+  constexpr int DPW = 32 / L;  // descriptors a round
+  constexpr int U = L < kGcUnroll ? L : kGcUnroll;
+  constexpr int B = DPW * U;  // descriptors a batch
+  const int lane = threadIdx.x & 31;
+  const int q = lane / L;
+  const int j = lane % L;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps * B;
+  for (long long t0 =
+           (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) *
+           B;
+       t0 < M; t0 += stride) {
+    const int my_id =
+        lane < B && t0 + lane < M ? __ldcs(idx + t0 + lane) : -1;
+    float4 a[U], b[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int bk = __shfl_sync(0xffffffffu, my_id, u * DPW + q);
+      const bool ok = bk >= 0 && bk < n_bricks;
+      const float* src = tab + static_cast<long long>(ok ? bk : 0) * R + 8 * j;
+      a[u] = ldg_f4_if(src, ok);
+      b[u] = ldg_f4_if(src + 4, ok);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long t = t0 + u * DPW + q;
+      if (t < M)
+        __stcs(reinterpret_cast<uint4*>(out + t * R) + j,
+               make_uint4(pack_bf16x2(a[u].x, a[u].y),
+                          pack_bf16x2(a[u].z, a[u].w),
+                          pack_bf16x2(b[u].x, b[u].y),
+                          pack_bf16x2(b[u].z, b[u].w)));
+    }
+  }
+}
+
+template <int L>
+int launch_gather_cols(const float* tab, const int* idx, __nv_bfloat16* out,
+                       int M, int n_bricks, cudaStream_t stream) {
+  static KernelFacts facts[kMaxDevices];
+  auto kernel = gather_cols_kernel<L>;
+  long long blocks = 0;
+  cudaError_t err = resident_grid(kernel, facts, kThreads, 0, 0, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int U = L < kGcUnroll ? L : kGcUnroll;
+  const long long per_block = kWarps * (32 / L) * U;
+  const long long need = (M + per_block - 1) / per_block;
+  if (blocks > need) blocks = need;
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
+      tab, idx, out, M, n_bricks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -222,19 +402,6 @@ __device__ __forceinline__ void load_rounded(const float* p, float* v) {
   } else {
     v[0] = bf16_round(__ldg(p));
   }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t u) {
-  return __uint_as_float(u << 16);
-}
-
-__device__ __forceinline__ float bf16_hi(uint32_t u) {
-  return __uint_as_float(u & 0xffff0000u);
 }
 
 // F bf16-exact floats -> F bf16 at dst (2F bytes, aligned to 2F).
@@ -462,66 +629,6 @@ __device__ __forceinline__ void gi_fetch(const float4* __restrict__ w4,
                        : make_float4(0.f, 0.f, 0.f, 0.f);
     bd[u] = t < M ? __ldg(idx + t) : -1;
   }
-}
-
-// 16 / 8 bytes at p where pred holds, else zeros: a predicated load, so
-// that no branch separates a descriptor's row loads from one another.
-__device__ __forceinline__ float4 ldg_f4_if(const float* p, bool pred) {
-  float4 v;
-  asm("{\n\t.reg .pred q;\n\t"
-      "setp.ne.b32 q, %5, 0;\n\t"
-      "mov.f32 %0, 0f00000000;\n\tmov.f32 %1, 0f00000000;\n\t"
-      "mov.f32 %2, 0f00000000;\n\tmov.f32 %3, 0f00000000;\n\t"
-      "@q ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
-      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-      : "l"(p), "r"(static_cast<int>(pred)));
-  return v;
-}
-
-__device__ __forceinline__ float2 ldg_f2_if(const float* p, bool pred) {
-  float2 v;
-  asm("{\n\t.reg .pred q;\n\t"
-      "setp.ne.b32 q, %3, 0;\n\t"
-      "mov.f32 %0, 0f00000000;\n\tmov.f32 %1, 0f00000000;\n\t"
-      "@q ld.global.nc.v2.f32 {%0, %1}, [%2];\n\t}"
-      : "=f"(v.x), "=f"(v.y)
-      : "l"(p), "r"(static_cast<int>(pred)));
-  return v;
-}
-
-// 16 / 8 / 4 raw bytes at p where pred holds, else zeros (bf16 tables).
-__device__ __forceinline__ uint4 ldg_u4_if(const void* p, bool pred) {
-  uint4 v;
-  asm("{\n\t.reg .pred q;\n\t"
-      "setp.ne.b32 q, %5, 0;\n\t"
-      "mov.b32 %0, 0;\n\tmov.b32 %1, 0;\n\tmov.b32 %2, 0;\n\t"
-      "mov.b32 %3, 0;\n\t"
-      "@q ld.global.nc.v4.b32 {%0, %1, %2, %3}, [%4];\n\t}"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p), "r"(static_cast<int>(pred)));
-  return v;
-}
-
-__device__ __forceinline__ uint2 ldg_u2_if(const void* p, bool pred) {
-  uint2 v;
-  asm("{\n\t.reg .pred q;\n\t"
-      "setp.ne.b32 q, %3, 0;\n\t"
-      "mov.b32 %0, 0;\n\tmov.b32 %1, 0;\n\t"
-      "@q ld.global.nc.v2.b32 {%0, %1}, [%2];\n\t}"
-      : "=r"(v.x), "=r"(v.y)
-      : "l"(p), "r"(static_cast<int>(pred)));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t ldg_u1_if(const void* p, bool pred) {
-  uint32_t v;
-  asm("{\n\t.reg .pred q;\n\t"
-      "setp.ne.b32 q, %2, 0;\n\t"
-      "mov.b32 %0, 0;\n\t"
-      "@q ld.global.nc.b32 %0, [%1];\n\t}"
-      : "=r"(v)
-      : "l"(p), "r"(static_cast<int>(pred)));
-  return v;
 }
 
 // The F values of entries k .. k + n - 1 of a bf16 row, unpacked from the
@@ -778,7 +885,7 @@ __global__ void __launch_bounds__(kScThreads) scatter_cols_accum_kernel(
 }
 
 template <int F>
-int launch_scatter(const float* g, const int* idx, float* out, int M,
+int launch_scatter_slabs(const float* g, const int* idx, float* out, int M,
                    int n_bricks, int hot, cudaStream_t stream) {
   static KernelFacts facts[kMaxDevices];
   hot = hot < 0 ? 0 : hot;
@@ -796,6 +903,123 @@ int launch_scatter(const float* g, const int* idx, float* out, int M,
   if (chunks < 1) chunks = 1;
   kernel<<<static_cast<unsigned int>(chunks * F), kScThreads, smem, stream>>>(
       g, idx, out, M, n_bricks, hot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// scatter_cols_accum at F <= 2: contiguous ranges, runs of equal ids summed
+// in registers
+// ---------------------------------------------------------------------------
+
+constexpr int kRunThreads = 512;
+constexpr int kRunWarps = kRunThreads / 32;
+constexpr int kRunTile = 8;  // descriptors whose rows load at once
+
+// 16 bytes at p where pred holds, else zeros; streaming (read once).
+__device__ __forceinline__ float4 ldcs_f4_if(const float* p, bool pred) {
+  float4 v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %5, 0;\n\t"
+      "mov.f32 %0, 0f00000000;\n\tmov.f32 %1, 0f00000000;\n\t"
+      "mov.f32 %2, 0f00000000;\n\tmov.f32 %3, 0f00000000;\n\t"
+      "@q ld.global.cs.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+__device__ __forceinline__ bool nonzero(float4 v) {
+  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+}
+
+// One lane's share of a run's sum, floats 8j..8j+7 of row b: two vector
+// atomics, each left out where its 16 bytes are zero (+0 changes no sum).
+template <int R>
+__device__ __forceinline__ void add_run(float* out, int b, int j, float4 a,
+                                        float4 c) {
+  float4* o =
+      reinterpret_cast<float4*>(out + static_cast<long long>(b) * R + 8 * j);
+  if (nonzero(a)) atomicAdd(o, a);
+  if (nonzero(c)) atomicAdd(o + 1, c);
+}
+
+// R = 8L: L lanes serve one descriptor (lane j: floats 8j..8j+7, two
+// 16-byte streaming loads), 32 / L lane groups a warp, and each group owns
+// a contiguous range of `span` descriptors (a block's groups consecutive
+// ranges). A group loads kRunTile ids at once (broadcast by shuffle) and
+// their rows, then walks them in order, summing in registers while the id
+// repeats and adding the sum where it changes. An id outside [0,
+// n_bricks) is skipped (it neither adds nor ends a run).
+template <int F>
+__global__ void __launch_bounds__(kRunThreads, 1) scatter_runs_kernel(
+    const float* __restrict__ g, const int* __restrict__ idx,
+    float* __restrict__ out, int M, int n_bricks, long long span) {
+  constexpr int R = 32 * F;
+  constexpr int L = R / 8;
+  constexpr int G = 32 / L;
+  constexpr int IDS = (kRunTile + L - 1) / L;  // ids a lane loads a tile
+  const int lane = threadIdx.x & 31;
+  const int q = lane / L;
+  const int j = lane % L;
+  const long long lo =
+      ((static_cast<long long>(blockIdx.x) * kRunWarps + (threadIdx.x >> 5)) *
+           G + q) * span;
+  const long long hi = lo + span < M ? lo + span : M;
+  const float* gj = g + 8 * j;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 c = a;
+  int cur = -1;
+  // every group of the warp takes the same number of tiles, so that the
+  // shuffles see all 32 lanes
+  for (long long t0 = lo; t0 < lo + span; t0 += kRunTile) {
+    int my[IDS];
+#pragma unroll
+    for (int k = 0; k < IDS; ++k) {
+      const long long t = t0 + k * L + j;
+      my[k] = k * L + j < kRunTile && t < hi ? __ldcs(idx + t) : -1;
+    }
+    int b[kRunTile];
+    float4 va[kRunTile], vc[kRunTile];
+#pragma unroll
+    for (int u = 0; u < kRunTile; ++u) {
+      b[u] = __shfl_sync(0xffffffffu, my[u / L], q * L + u % L);
+      const bool ok = b[u] >= 0 && b[u] < n_bricks;
+      if (!ok) b[u] = -1;
+      const float* src = gj + (t0 + u) * R;
+      va[u] = ldcs_f4_if(src, ok);
+      vc[u] = ldcs_f4_if(src + 4, ok);
+    }
+#pragma unroll
+    for (int u = 0; u < kRunTile; ++u) {
+      if (b[u] < 0) continue;
+      if (b[u] != cur) {
+        if (cur >= 0) add_run<R>(out, cur, j, a, c);
+        cur = b[u];
+        a = va[u];
+        c = vc[u];
+      } else {
+        a.x += va[u].x; a.y += va[u].y; a.z += va[u].z; a.w += va[u].w;
+        c.x += vc[u].x; c.y += vc[u].y; c.z += vc[u].z; c.w += vc[u].w;
+      }
+    }
+  }
+  if (cur >= 0) add_run<R>(out, cur, j, a, c);
+}
+
+template <int F>
+int launch_scatter_runs(const float* g, const int* idx, float* out, int M,
+                        int n_bricks, cudaStream_t stream) {
+  static KernelFacts facts[kMaxDevices];
+  constexpr int groups = kRunWarps * (32 / (32 * F / 8));  // a block's
+  auto kernel = scatter_runs_kernel<F>;
+  long long blocks = 0;
+  cudaError_t err = resident_grid(kernel, facts, kRunThreads, 0, 0, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long need = (M + groups * kRunTile - 1) / (groups * kRunTile);
+  if (blocks > need) blocks = need;
+  const long long span = (M + blocks * groups - 1) / (blocks * groups);
+  kernel<<<static_cast<unsigned int>(blocks), kRunThreads, 0, stream>>>(
+      g, idx, out, M, n_bricks, span);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -822,11 +1046,22 @@ int dispatch_interp(const T* tab, const int* idx, const float* w, float* out,
 extern "C" int gather_cols(const void* tab, const void* idx, void* out, int M,
                            int R, int n_bricks, void* stream) {
   if (M == 0) return 0;
-  const int blocks = (M + kWarps - 1) / kWarps;
-  gather_cols_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(tab), static_cast<const int*>(idx),
-      static_cast<__nv_bfloat16*>(out), M, R, n_bricks);
-  return static_cast<int>(cudaGetLastError());
+  const float* tb = static_cast<const float*>(tab);
+  const int* ix = static_cast<const int*>(idx);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (R) {
+    case 32: return launch_gather_cols<4>(tb, ix, o, M, n_bricks, s);
+    case 64: return launch_gather_cols<8>(tb, ix, o, M, n_bricks, s);
+    case 128: return launch_gather_cols<16>(tb, ix, o, M, n_bricks, s);
+    case 256: return launch_gather_cols<32>(tb, ix, o, M, n_bricks, s);
+    default: {
+      const int blocks = (M + kWarps - 1) / kWarps;
+      gather_cols_any_kernel<<<blocks, kThreads, 0, s>>>(tb, ix, o, M, R,
+                                                         n_bricks);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
 }
 
 // tab [n_bricks, 32F] f32, idx [M] int32, w [M, 32] f32 -> out [M, F] f32.
@@ -877,7 +1112,9 @@ extern "C" int gather_interp_mm(const void* tab, const void* idx,
 }
 
 // g [M, 32F] f32, idx [M] int32; out [n_bricks, 32F] f32, zeroed by the
-// caller. Rows [0, hot) (at most 768) accumulate in shared memory.
+// caller. At F >= 4 rows [0, hot) (at most 768) accumulate in shared
+// memory; F <= 2 sums runs of equal ids in registers and does not read
+// `hot`.
 extern "C" int scatter_cols_accum(const void* g, const void* idx, void* out,
                                   int M, int F, int n_bricks, int hot,
                                   void* stream) {
@@ -887,10 +1124,10 @@ extern "C" int scatter_cols_accum(const void* g, const void* idx, void* out,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
-    case 1: return launch_scatter<1>(gp, ix, o, M, n_bricks, hot, s);
-    case 2: return launch_scatter<2>(gp, ix, o, M, n_bricks, hot, s);
-    case 4: return launch_scatter<4>(gp, ix, o, M, n_bricks, hot, s);
-    case 8: return launch_scatter<8>(gp, ix, o, M, n_bricks, hot, s);
+    case 1: return launch_scatter_runs<1>(gp, ix, o, M, n_bricks, s);
+    case 2: return launch_scatter_runs<2>(gp, ix, o, M, n_bricks, s);
+    case 4: return launch_scatter_slabs<4>(gp, ix, o, M, n_bricks, hot, s);
+    case 8: return launch_scatter_slabs<8>(gp, ix, o, M, n_bricks, hot, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

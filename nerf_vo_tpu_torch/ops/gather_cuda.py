@@ -23,8 +23,9 @@ launches in ``<wrapper>.launches``. ``bf16`` rounds to nearest even (the
 JAX package's bf16 shadow of the table); weights, sums and outputs are f32.
 ``gather_interp_mm`` and ``scatter_cols_accum`` take ``hot_rows``, the
 number of leading table rows the kernel keeps on chip (staged, or
-accumulated, in shared memory); the hash grid passes the rows of its
-one-hot levels. It changes where rows are read or added, never the result.
+accumulated, in shared memory; the scatter at F >= 4 only); the hash grid
+passes the rows of its one-hot levels. It changes where rows are read or
+added, never the result.
 What bounds each kernel, and its design, are noted at the top of
 ``csrc/gather.cu``.
 """
@@ -220,10 +221,14 @@ def scatter_cols_accum(g, idx, n_bricks: int, hot_rows: int = 0):
     """Accumulate rows: g [M, 32F] f32, idx [M] int32 -> [n_bricks, 32F]
     f32 with ``out[b] = sum of g[t] over idx[t] == b`` (F in 1, 2, 4, 8).
 
-    On the card the first ``hot_rows`` rows (at most 768) accumulate in
-    shared memory and are added to the table once per block; every other
-    row is added with 16-byte float4 atomics. Sums are f32 in an order that
-    changes from run to run."""
+    On the card, at F >= 4, the first ``hot_rows`` rows (at most 768)
+    accumulate in shared memory and are added to the table once per block;
+    every other row is added with 16-byte float4 atomics. At F <= 2 each
+    lane group walks a contiguous range of descriptors and sums runs of
+    equal ids in registers, so that a run costs one add (the hash grid's
+    descriptors come level-major and ray-major, a ray's samples adjacent);
+    ``hot_rows`` is not used there. Sums are f32 in an order that changes
+    from run to run."""
     if g.device.type == "cpu":
         return scatter_cols_accum_plain(g, idx, n_bricks)
     dev = _cuda_device(g, "scatter_cols_accum")

@@ -114,6 +114,25 @@ def test_scatter_cols_accum_matches_pallas(data):
     np.add.at(ref, idx, g)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
 
+    # F = 2 rows with ids in runs, as the hash proposals hand them over
+    # (level-major, a ray's samples adjacent): the shapes the card's F <= 2
+    # design targets
+    rng = np.random.default_rng(2)
+    runs = np.repeat(rng.integers(0, B, 64), rng.integers(1, 24, 64))[:M]
+    assert runs.shape == (M,) and (runs[1:] == runs[:-1]).mean() > 0.5
+    runs = runs.astype(np.int32)
+    g2 = _bf16(rng.normal(0, 0.1, (M, 64)))
+    want2 = gp.scatter_cols_accum(jnp.asarray(g2, jnp.bfloat16),
+                                  jnp.asarray(runs), n_bricks=B,
+                                  interpret=True, tile=TILE)
+    got2 = gc.scatter_cols_accum(torch.tensor(g2), torch.tensor(runs), B)
+    assert got2.shape == (B, 64) and got2.dtype == torch.float32
+    err2 = np.abs(got2.numpy() - np.asarray(want2, np.float32)).max()
+    assert err2 < 0.2, err2
+    ref2 = np.zeros((B, 64), np.float32)
+    np.add.at(ref2, runs, g2)
+    np.testing.assert_allclose(got2.numpy(), ref2, rtol=0, atol=1e-5)
+
 
 @pytest.mark.parametrize("F", [8, 1])
 def test_plain_versions_compose_to_the_hash_encode_chain(data, F):

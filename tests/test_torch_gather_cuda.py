@@ -14,7 +14,9 @@ largest |output| (f32 atomics in arbitrary order against a sequential
 index_add_). ``gather_interp_mm`` and ``scatter_cols_accum`` run both with
 leading rows kept on chip (``hot_rows``) and without; ids out of
 ``[0, n_bricks)`` are held against a reference that reads zeros for them
-(gather) or drops them (scatter).
+(gather) or drops them (scatter). The scatter's id patterns (runs of equal
+ids, which the F <= 2 kernel sums in registers) are held elementwise
+within the f32 summation bound of each brick's terms.
 """
 
 import pytest
@@ -461,3 +463,143 @@ def test_hash_proposal_grid_at_f2_with_512_hot_rows(dev):
     rows = torch.randn(idx.shape[0], 64, device=dev)
     _close(gc.scatter_cols_accum(rows, idx, tab_d.shape[0], hot_rows=512),
            gc.scatter_cols_accum_plain(rows, idx, tab_d.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# the F <= 2 scatter (runs of equal ids summed in registers) and the
+# lane-group gather_cols, on the id patterns their designs meet
+# ---------------------------------------------------------------------------
+
+def _within_sum_bound(got, rows, idx, n_bricks):
+    """Elementwise |got - plain| <= 2 gamma_(k+1) * sum |term| for the k
+    rows added into each brick (ids outside [0, n_bricks) dropped): the
+    bound on the difference of two f32 sums of the same terms in any
+    order. A dropped, repeated or misplaced term fails it."""
+    ok = (idx >= 0) & (idx < n_bricks)
+    want = gc.scatter_cols_accum_plain(rows[ok], idx[ok], n_bricks)
+    abs_sum = gc.scatter_cols_accum_plain(rows[ok].abs(), idx[ok], n_bricks)
+    k = torch.zeros(n_bricks, device=rows.device).index_add_(
+        0, idx[ok].long(), torch.ones(int(ok.sum()), device=rows.device))
+    k = k[:, None] + 1
+    eps = 2.0 ** -24
+    bound = 2 * k * eps / (1 - k * eps) * abs_sum
+    diff = (got - want).abs()
+    assert bool((diff <= bound).all()), diff.max().item()
+
+
+def _runs(dev, lengths, ids):
+    """ids[i] repeated lengths[i] times, as int32 on the card."""
+    return torch.repeat_interleave(
+        torch.tensor(ids, dtype=torch.int32),
+        torch.tensor(lengths)).to(dev)
+
+
+def _scatter_case(dev, case, n_bricks=4096, hot=64):
+    g = torch.Generator().manual_seed(11)
+    if case == "run_longer_than_a_range":
+        # runs of 5000 and 20000 (far longer than one lane group's range
+        # at this M), then short ones
+        lengths = [5000, 20000, 3, 1, 7, 40000]
+        idx = _runs(dev, lengths, [900, 901, 900, 2, 3000, 17])
+    elif case == "one_id_everywhere":
+        idx = torch.full((150001,), 1234, dtype=torch.int32, device=dev)
+    elif case == "alternating":
+        idx = torch.tensor([500, 501], dtype=torch.int32).repeat(40000)
+        idx = idx.to(dev)
+    elif case == "runs_across_hot_boundary":
+        ids = torch.randint(hot - 3, hot + 3, (20000,), generator=g)
+        lengths = torch.randint(1, 40, (20000,), generator=g)
+        idx = _runs(dev, lengths.tolist(), ids.tolist())
+    elif case == "out_of_range_inside_runs":
+        ids = torch.randint(0, n_bricks, (30000,), generator=g)
+        lengths = torch.randint(1, 30, (30000,), generator=g)
+        idx = _runs(dev, lengths.tolist(), ids.tolist())
+        bad = torch.rand(idx.shape[0], generator=g) < 0.05
+        junk = torch.randint(-3, 3, (idx.shape[0],), generator=g)
+        junk = torch.where(junk < 0, junk, junk + n_bricks).to(torch.int32)
+        idx = torch.where(bad.to(dev), junk.to(dev), idx)
+        idx[:2] = torch.tensor([-1, 2**31 - 1], dtype=torch.int32)
+    elif case == "many_distinct_ids":
+        # every block meets far more distinct ids than any on-chip table
+        # holds: ray-like runs over the whole table
+        ids = torch.randint(0, n_bricks, (120000,), generator=g)
+        lengths = torch.randint(1, 6, (120000,), generator=g)
+        idx = _runs(dev, lengths.tolist(), ids.tolist())
+    elif case == "one_descriptor":
+        idx = torch.tensor([hot + 1], dtype=torch.int32, device=dev)
+    elif case == "odd_m":
+        # M not a multiple of the tile (8) nor of a block's lane groups
+        ids = torch.randint(0, n_bricks, (1500,), generator=g)
+        lengths = torch.randint(1, 9, (1500,), generator=g)
+        idx = _runs(dev, lengths.tolist(), ids.tolist())[:4099]
+    return idx.contiguous(), n_bricks, hot
+
+
+SCATTER_CASES = ["run_longer_than_a_range", "one_id_everywhere",
+                 "alternating", "runs_across_hot_boundary",
+                 "out_of_range_inside_runs", "many_distinct_ids",
+                 "one_descriptor", "odd_m"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCATTER_CASES)
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_scatter_cols_accum_id_patterns(dev, F, case):
+    """Each case with no rows on chip and with the first 64 accumulated in
+    shared memory, held within the f32 summation bound of its terms."""
+    idx, n_bricks, hot = _scatter_case(dev, case)
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    rows = torch.randn(idx.shape[0], 32 * F, generator=g, device=dev)
+    for h in (0, hot):
+        before = gc.scatter_cols_accum.launches
+        got = gc.scatter_cols_accum(rows, idx, n_bricks, hot_rows=h)
+        torch.cuda.synchronize()
+        assert gc.scatter_cols_accum.launches == before + 1
+        _within_sum_bound(got, rows, idx, n_bricks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_scatter_cols_accum_on_proposal_rays(dev, F):
+    """Level-major descriptors of rays (each ray's samples adjacent), the
+    order the hash grid hands the scatter, through a 5-level grid with
+    level 0's bricks on chip."""
+    cfg = hg.HashGridConfig(5, F, 17, 16, 128)
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    rays, samples = 1024, 96
+    o = torch.rand(rays, 1, 3, generator=g, device=dev) * 0.2 + 0.4
+    d = torch.randn(rays, 1, 3, generator=g, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.linspace(0.0, 0.5, samples, device=dev)[None, :, None]
+    x = (o + t * d).clamp(0.0, 1.0)
+    idx, _, _, W, _ = hg._descriptors(x, cfg)
+    cot = torch.randn(idx.shape[0], F, generator=g, device=dev)
+    rows = (W[:, :, None] * cot[:, None, :]).reshape(idx.shape[0], 32 * F)
+    nb = 5 * cfg.bricks_per_level
+    got = gc.scatter_cols_accum(rows, idx, nb, hot_rows=hg._hot_rows(cfg))
+    torch.cuda.synchronize()
+    _within_sum_bound(got, rows, idx, nb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 31, 4099, 100003])
+@pytest.mark.parametrize("R", [32, 64, 128, 256, 36])
+def test_gather_cols_bitwise_widths(dev, R, M):
+    """The lane-group kernel at R = 32F (R / 8 lanes a descriptor), and
+    another multiple of 4 (one warp a descriptor), at odd M; runs of ids
+    and ids out of range (zeros) included."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    n_bricks = 3000
+    tab = torch.randn(n_bricks, R, generator=g, device=dev) * 3.0
+    idx = torch.randint(-20, n_bricks + 20, (M,), generator=g, device=dev,
+                        dtype=torch.int32)
+    idx[M // 2:] = idx[M // 2:] // 7 * 7  # runs of repeats
+    got = gc.gather_cols(tab, idx)
+    torch.cuda.synchronize()
+    ok = (idx >= 0) & (idx < n_bricks)
+    safe = torch.where(ok, idx, torch.zeros_like(idx))
+    want = gc.gather_cols_plain(tab, safe) * ok[:, None]
+    assert torch.equal(got, want)
