@@ -13,7 +13,11 @@ exit:
   (a) kernels: each kernel against its plain PyTorch version on the card at
       the replica configuration's shapes, with its time, the plain
       version's time, the least time the card could take and, where one
-      PyTorch call computes the same function, that call's time;
+      PyTorch call computes the same function, that call's time; rows 2
+      and 5 (``gather_cols``, ``scatter_cols_accum``) as the TPU had them,
+      and as the paths run them, fused with their consumer and producer
+      (``gather_cols_dot``, ``scatter_cols_outer``), each of those timed
+      beside the chain it replaced;
   (b) tracking: ``TrackingStage`` at the full replica configuration
       (DPVO fdim 128 / cdim 384, 96 patches, 32768 edge slots, 32-frame
       ring) on synthetic 360x640 frames, random weights from a seed;
@@ -23,7 +27,10 @@ exit:
       keyframes of 360x640, 4096 rays per step, full field and proposal
       grids, random weights from a seed) fed the enhanced packets of (c)
       with train steps interleaved as the serial pipeline does, 64 steps in
-      all, then one full-frame render;
+      all, then one full-frame render; the last step's calls of the fused
+      adjoints held and timed, the field scatter's id runs per level
+      printed; rows 2 and 5 with their plain row sink and source launch on
+      no path (here or in any later phase);
   (e) the pipeline: ``runtime.pipeline.execute`` at the replica
       configuration's full width and its own threaded mode, fed the
       synthetic frames through ``DataStage`` (the card has no OpenCV to
@@ -159,10 +166,18 @@ SLEEP_CYCLES = 100_000_000  # ~50 ms of device clock
 L2_FLUSH_BYTES = 128 << 20  # written before each cold call: > the 50 MB L2
 # table-kernel launches of one train step without a proposal refresh: the
 # forward (one per route, the surface pass's too), the surface-normal
-# pullback (position only: one gather_cols, no scatter) and the outer
+# pullback (position only: one gather_cols_dot, no scatter) and the outer
 # backward (the field's position gradient; both passes' table gradients)
-ORDINARY_STEP_LAUNCHES = dict(gather_cols=2, gather_interp=4,
-                              gather_interp_mm=2, scatter_cols_accum=2)
+ORDINARY_STEP_LAUNCHES = dict(gather_cols_dot=2, gather_interp=4,
+                              gather_interp_mm=2, scatter_cols_outer=2)
+# rows 2-5 as the paths run them: rows 2 and 5 (gather_cols,
+# scatter_cols_accum) through their fused instantiations, the W and the
+# table adjoints of row 3
+TABLE_ROWS = ("gather_cols_dot", "gather_interp", "gather_interp_mm",
+              "scatter_cols_outer")
+# rows 2 and 5 with their plain row source and sink: held in phase (a),
+# launched on no path
+UNFUSED = ("gather_cols", "scatter_cols_accum")
 
 
 def log(*a):
@@ -427,7 +442,8 @@ def time_kernel(name, fn, plain, library, nbytes, flops, err, reps=20,
           f"({bound_ms / queued_ms:.1%} of the bound); cold L2 "
           f"{cold_ms:.4f} ms ({bound_ms / cold_ms:.1%})", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, max_abs_err=err)
+                bound_by=bound_by, library_ms=library_ms, max_abs_err=err,
+                queued_ms=queued_ms, cold_ms=cold_ms)
 
 
 def kernel_launches():
@@ -485,6 +501,101 @@ def check_sums(name, got, want, abs_sum, terms, tag):
           f"abs err {err:.3e}, {share.item():.3g} of the f32 summation "
           "bound at most", flush=True)
     return err
+
+
+def check_unfused(counts, where):
+    """Rows 2 and 5 with their plain row sink and source launch on no path:
+    the hash grid's backward takes their fused instantiations."""
+    for name in UNFUSED:
+        if counts.get(name):
+            fail(f"{where} launched {name} {counts[name]} times; the hash "
+                 "grid's backward takes gather_cols_dot / scatter_cols_outer")
+
+
+def call_shape(name, a):
+    """(M, F) of a recorded table-kernel call."""
+    if name == "scatter_cols_outer":
+        return a[0].shape[0], a[1].shape[1]
+    if name == "gather_cols_dot":
+        return a[1].shape[0], a[2].shape[1]
+    if name in UNFUSED:
+        return a[1].shape[0], a[0].shape[1] // 32
+    return a[1].shape[0], a[3]
+
+
+def chain_hot_rows(nb, F):
+    """The leading rows the hash grid asked row 5 to keep on chip before
+    the table adjoint was fused, for a scatter into nb rows: the field's
+    one-hot rows (level 0's 512 bricks) on the field's whole table and on
+    the table-sharded slab of those bricks; 0 elsewhere (the
+    table-sharded local rows had none, and row 5 at F <= 2 reads none)."""
+    from nerf_vo_tpu_torch.ops import hash_grid as hg
+
+    cfg = hg.HashGridConfig(3, 8, 19, 16, 2048)
+    hot = hg._hot_rows(cfg)
+    field = (FIELD_LEVELS * cfg.bricks_per_level, hot)
+    return hot if F == 8 and nb in field else 0
+
+
+def adjoint_timing(name, a, label, tag):
+    """One fused adjoint on its inputs: held elementwise within the f32
+    summation bound of its terms against its plain version, timed as phase
+    (a) times a kernel, and the chain it replaced on the same inputs (row 2
+    then the cast, product and sum; or the materialized W (x) cot rows then
+    row 5, given the hot rows it was given then: :func:`chain_hot_rows`)
+    timed in the same call. Returns the timing."""
+    from nerf_vo_tpu_torch.ops import gather_cuda as gc
+
+    kernel = getattr(gc, name)
+    got = kernel(*a)
+    torch.cuda.synchronize()
+    if name == "gather_cols_dot":
+        t, i, c = a
+        m, F = c.shape
+        err = check_sums(f"{name} at {label}", got,
+                         gc.gather_cols_dot_plain(t, i, c),
+                         gc.gather_cols_dot_plain(t.abs(), i, c.abs()), F,
+                         tag)
+
+        def chain():
+            g = gc.gather_cols(t, i).float().reshape(m, 32, F)
+            return torch.sum(g * c[:, None, :], dim=-1)
+
+        nbytes = table_bytes(t, i) + m * (4 + 4 * F + 32 * 4)
+        what = f"M={m} F={F} over {t.shape[0]} bricks"
+        plain = lambda: gc.gather_cols_dot_plain(t, i, c)  # noqa: E731
+    else:
+        W, c, i, nb = a[:4]
+        m, F = c.shape
+        hot = chain_hot_rows(nb, F)
+        il = i.long()
+        live = (il >= 0) & (il < nb)
+        terms = torch.zeros(nb, device=W.device).index_add_(
+            0, il[live], torch.ones(int(live.sum()), device=W.device))
+        err = check_sums(f"{name} at {label}", got,
+                         gc.scatter_cols_outer_plain(W, c, i, nb),
+                         gc.scatter_cols_outer_plain(W.abs(), c.abs(), i,
+                                                     nb),
+                         terms[:, None], tag)
+
+        def chain():
+            rows = (W[:, :, None] * c[:, None, :]).reshape(m, 32 * F)
+            return gc.scatter_cols_accum(rows, i, nb, hot_rows=hot)
+
+        nbytes = m * (32 * 4 + 4 * F + 4) + nb * 32 * F * 4
+        what = (f"M={m} F={F} into {nb} bricks"
+                f"{f' (the chain with hot rows {hot})' if hot else ''}")
+        plain = lambda: gc.scatter_cols_outer_plain(W, c, i, nb)  # noqa: E731
+    timing = time_kernel(f"{name} at {label}: {what}",
+                         lambda: kernel(*a), plain, None, nbytes,
+                         2 * m * 32 * F, err, tag=tag)
+    chain_ms = cuda_ms(chain, 20)
+    chain_queued = cuda_ms(chain, 20, queued=True)
+    print(f"{tag} the chain {name} replaces, same inputs: {chain_ms:.4f} "
+          f"ms, queued {chain_queued:.4f} ms; the kernel "
+          f"{timing['ms']:.4f} ms ({timing['ms'] / chain_ms:.1%} of the "
+          "chain's time)", flush=True)
+    return dict(timing, chain_ms=chain_ms, chain_queued_ms=chain_queued)
 
 
 def stress_checks(tab, hot):
@@ -618,7 +729,8 @@ def phase_gather(dev):
     pallas = "nerf_vo_tpu/ops/gather_pallas.py"
     out = []
 
-    # 2: gather_cols, every level (the position backward's re-gather)
+    # 2: gather_cols, every level (held here: the paths take its
+    # gather_cols_dot instantiation)
     got = gc.gather_cols(tab, idx)
     torch.cuda.synchronize()
     if not torch.equal(got, gc.gather_cols_plain(tab, idx)):
@@ -696,7 +808,8 @@ def phase_gather(dev):
               f"block), {how}: hot rows {hot} staged {staged_ms:.4f} ms, "
               f"none staged {none_ms:.4f} ms", flush=True)
 
-    # 5: scatter_cols_accum, the table gradient of every level
+    # 5: scatter_cols_accum, the table gradient of every level (held
+    # here: the paths take its scatter_cols_outer instantiation)
     rows = (W[:, :, None] * cot[:, None, :]).reshape(M, R)
     nb = tab.shape[0]
     got = gc.scatter_cols_accum(rows, idx, nb, hot_rows=hot)
@@ -728,6 +841,19 @@ def phase_gather(dev):
     scatter_entry(f"level 0 alone (hot rows {hot})", rows[:n], idx[:n], hot)
     scatter_entry("level 0 alone (no hot rows)", rows[:n], idx[:n], 0)
     scatter_entry("hashed levels alone", rows[n:], idx[n:], hot)
+
+    # rows 2 and 5 as the paths run them: the W and the table adjoints of
+    # row 3 over every level of the field, the product or the contraction
+    # in registers; each beside the chain it replaced
+    out.append(dict(name="gather_cols_dot", route="cuda", source=src,
+                    replaces=f"{pallas}:79", launches=None,
+                    **adjoint_timing("gather_cols_dot", (tab, idx, cot),
+                                     "the field shape", "(a)")))
+    out.append(dict(name="scatter_cols_outer", route="cuda", source=src,
+                    replaces=f"{pallas}:297", launches=None,
+                    **adjoint_timing("scatter_cols_outer",
+                                     (W, cot, idx, nb), "the field shape",
+                                     "(a)")))
 
     stress_checks(tab, hot)
 
@@ -899,14 +1025,25 @@ def drive_mapping(stage, enhanced, frame_of, record=()):
     return history, times, per_step, calls
 
 
+# the field grid's levels (configs/nerf_vo_replica.yaml: 3 x 8, log2 19,
+# 16 -> 2048)
+FIELD_LEVELS = 3
+ADJOINTS = ("gather_cols_dot", "scatter_cols_outer")
+
+
 def phase_mapping(dev, enhanced, frame_of):
     """``MappingStage`` at the replica config, driven by
-    :func:`drive_mapping`, then one full-frame render."""
+    :func:`drive_mapping`, then one full-frame render. The last step's
+    calls of the two fused adjoints are recorded; after the render the id
+    runs of each field scatter are printed per level and every recorded
+    call is held against its plain version and timed beside the chain it
+    replaced. Returns the steady ms a step and the held calls."""
     from nerf_vo_tpu_torch.runtime.stages import MappingStage
 
     args = SimpleNamespace(**REPLICA, **MAPPING)
     stage = MappingStage(args, device=dev)
-    history, times, per_step, _ = drive_mapping(stage, enhanced, frame_of)
+    history, times, per_step, calls = drive_mapping(stage, enhanced,
+                                                    frame_of, ADJOINTS)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -945,7 +1082,15 @@ def phase_mapping(dev, enhanced, frame_of):
                  f"train step (at most {most})")
     if not last < first:
         fail(f"rgb_loss did not fall: {first} -> {last}")
-    return ms
+    del stage
+    for name, a, _ in calls:
+        if name == "scatter_cols_outer" and a[1].shape[1] == 8:
+            print_id_runs(a[2], FIELD_LEVELS, f"(d) the field scatter at "
+                          f"M={a[2].shape[0]}")
+    print(f"(d) the last step's {len(calls)} launches of the fused "
+          "adjoints, held against their plain versions on the same "
+          "inputs:", flush=True)
+    return ms, hold_calls(calls, "the mapping step's last step", "(d)")
 
 
 # ---------------------------------------------------------------------------
@@ -960,15 +1105,13 @@ NERFSTUDIO = dict(proposal_type="hash", proposal_training="interlevel",
 # with NERF_VO_PREFETCH_BATCH=1; then MLP proposals
 BF16_PHASED = dict(proposal_table_dtype="bfloat16", table_grad_phase=True)
 MLP_PROPOSALS = dict(proposal_type="mlp")
-TABLE_ROWS = ("gather_cols", "gather_interp", "gather_interp_mm",
-              "scatter_cols_accum")  # rows 2-5
 # table-kernel launches of one (h1) step: the forward (the field and each
 # hash proposal: level 0 on the one-hot route, the rest gathered), the
-# per-sample normal pullback (one gather_cols, no scatter: it takes the
+# per-sample normal pullback (one gather_cols_dot, no scatter: it takes the
 # position gradient only) and the backward (the field and both proposals:
-# one scatter_cols_accum and one gather_cols each)
-H1_STEP_LAUNCHES = dict(gather_cols=4, gather_interp=3, gather_interp_mm=3,
-                        scatter_cols_accum=3)
+# one scatter_cols_outer and one gather_cols_dot each)
+H1_STEP_LAUNCHES = dict(gather_cols_dot=4, gather_interp=3,
+                        gather_interp_mm=3, scatter_cols_outer=3)
 # the kernel only a bf16 proposal table launches: no other phase's path has
 # one
 BF16_KERNELS = ("gather_interp_bf16",)
@@ -1026,11 +1169,6 @@ def phase_variants(dev, smi, enhanced, frame_of):
     F = 2 proposal inputs and the bf16 ``gather_interp`` at (h2)'s, against
     their plain versions, and timed. Returns each kernel's (h1) / (h2)
     launches and (h)'s timings by kernel name."""
-    def features(name, a):
-        if name in ("gather_cols", "scatter_cols_accum"):
-            return a[0].shape[1] // 32
-        return a[3]
-
     # (h1)
     stage, history, counts, per_step, calls = run_variant(
         dev, smi, "h1", NERFSTUDIO, enhanced, frame_of, record=TABLE_ROWS)
@@ -1048,11 +1186,12 @@ def phase_variants(dev, smi, enhanced, frame_of):
                  "gradient)")
     if counts["gather_interp_bf16"]:
         fail("(h1) f32 tables launched the bf16-table kernel")
-    f2 = [c for c in calls if features(c[0], c[1]) == 2]
+    check_unfused(counts, "(h1)")
+    f2 = [c for c in calls if call_shape(c[0], c[1])[1] == 2]
     for name, a, _ in f2:
-        if name == "scatter_cols_accum":
-            print_id_runs(a[1], PROPOSAL_LEVELS,
-                          f"(h1) the scatter at M={a[1].shape[0]}")
+        if name == "scatter_cols_outer":
+            print_id_runs(a[2], PROPOSAL_LEVELS,
+                          f"(h1) the scatter at M={a[2].shape[0]}")
     print(f"(h1) the last step's {len(f2)} table-kernel launches at the "
           "hash proposals' F = 2 (of its "
           f"{len(calls)}), held against their plain versions on the same "
@@ -1064,7 +1203,7 @@ def phase_variants(dev, smi, enhanced, frame_of):
     # (h2) bf16 proposal tables, phased table gradients, prefetch
     stage, history, counts, per_step, calls = run_variant(
         dev, smi, "h2", BF16_PHASED, enhanced, frame_of,
-        record=BF16_KERNELS + ("scatter_cols_accum",),
+        record=BF16_KERNELS + ("scatter_cols_outer",),
         env={"NERF_VO_PREFETCH_BATCH": "1"})
     if not stage.trainer.config.prefetch_batch or stage.state.prefetch is None:
         fail("(h2) NERF_VO_PREFETCH_BATCH=1 did not prefetch")
@@ -1075,8 +1214,9 @@ def phase_variants(dev, smi, enhanced, frame_of):
         fail("(h2) the bf16 proposal tables never launched "
              "gather_interp_bf16")
     n = RAYS * FIELD_SAMPLES
+    check_unfused(counts, "(h2)")
     field_m = [c[1][0].shape[0] for c in calls
-               if c[0] == "scatter_cols_accum" and c[1][0].shape[1] == 256]
+               if c[0] == "scatter_cols_outer" and c[1][1].shape[1] == 8]
     print(f"(h2) the field's table-gradient scatters in the last step "
           f"(step {stage.state.step - 1}, phase "
           f"{(stage.state.step - 1) % 2}): M = {field_m} rows, against "
@@ -1096,6 +1236,7 @@ def phase_variants(dev, smi, enhanced, frame_of):
 
     stage, history, counts, _, _ = run_variant(
         dev, smi, "h2", MLP_PROPOSALS, enhanced, frame_of)
+    check_unfused(counts, "(h2) MLP proposals")
     if "proposal_distill_loss" not in history[-1]:
         fail("(h2) MLP proposals without their distillation loss")
     if any(not np.isfinite(v) for h in history for v in h.values()):
@@ -1274,8 +1415,9 @@ def phase_pipeline(dev, smi, tracking_fps, tmp):
           f"corr_level: {correlation_cuda.corr_level.launches}",
           flush=True)
     for name, n in counts.items():
-        if n == 0 and name not in BF16_KERNELS:
+        if n == 0 and name not in BF16_KERNELS + UNFUSED:
             fail(f"the pipeline never launched {name}")
+    check_unfused(counts, "the pipeline")
     if correlation_cuda.corr_level.launches:
         fail("the pipeline launched the one-level corr kernel")
 
@@ -1498,8 +1640,9 @@ PROPOSAL_LEVELS = 5
 def id_runs(idx, levels):
     """Per level of level-major ids: descriptors, id runs
     (``(idx[1:] != idx[:-1]).sum() + 1``), distinct ids and the most
-    descriptors on one id. ``scatter_cols_accum`` at F <= 2 adds once a
-    run; the most on one id is what one table row took before."""
+    descriptors on one id. The scatters' runs design adds once a run; the
+    most on one id is what one table row takes with one add a
+    descriptor."""
     n = idx.shape[0] // levels
     rows = []
     for lv in range(levels):
@@ -1528,8 +1671,12 @@ def hold_calls(calls, label, tag):
     own size, which for a gradient lies far below 1); a
     bf16-table ``gather_interp_bf16`` also bitwise against the f32 kernel
     on the table's values in f32 (its library call, ``embedding_bag``,
-    runs on that f32 copy: it takes no bf16 table with f32 weights).
-    Returns (name, timing with the call's M) for each call."""
+    runs on that f32 copy: it takes no bf16 table with f32 weights); the
+    fused adjoints ``gather_cols_dot`` and ``scatter_cols_outer`` within
+    the f32 summation bound, with the chain each replaced timed beside
+    them (:func:`adjoint_timing`). The launches made here are not counted:
+    every kernel's count is as it was before the call. Returns (name,
+    timing with the call's M) for each call."""
     import torch.nn.functional as Fn
 
     from nerf_vo_tpu_torch.ops import gather_cuda as gc
@@ -1538,8 +1685,13 @@ def hold_calls(calls, label, tag):
                     "gather_interp_bf16": gc.gather_interp_plain,
                     "gather_interp_mm": gc.gather_interp_mm_plain}
     torch.cuda.synchronize()
+    counted = read_launches()
     held = []
     for name, a, kw in calls:
+        if name in ("gather_cols_dot", "scatter_cols_outer"):
+            timing = adjoint_timing(name, a, label, tag)
+            held.append((name, dict(timing, M=call_shape(name, a)[0])))
+            continue
         kernel = getattr(gc, name)
         got = kernel(*a, **kw)
         torch.cuda.synchronize()
@@ -1605,6 +1757,8 @@ def hold_calls(calls, label, tag):
                                          mode="sum"),
                 nbytes, 2 * m * 32 * F, err, tag=tag)
         held.append((name, dict(timing, M=int(a[1].shape[0]))))
+    for name, k in kernel_launches().items():
+        k.launches = counted[name]
     return held
 
 
@@ -1773,8 +1927,7 @@ def phase_evaluation(dev, smi, mapping, args, tmp):
           flush=True)
     print(f"(f) the NeRF mesh, apart: {steps[-1][1]:.2f} s, launches "
           f"{nerf_counts}", flush=True)
-    for name in ("gather_cols", "scatter_cols_accum", "corr_two_level",
-                 "corr_level"):
+    for name in UNFUSED + ADJOINTS + CORR_KERNELS:
         if nerf_counts[name]:
             fail(f"the density grid launched {name} {nerf_counts[name]} "
                  "times: a gradient or tracking")
@@ -2024,10 +2177,10 @@ def phase_slam_pipeline(dev, smi, tmp):
           f"{cov.min().item():.4g}..{cov.max().item():.4g}; launches "
           f"{counts}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    for name in ("gather_cols", "gather_interp", "gather_interp_mm",
-                 "scatter_cols_accum"):
+    for name in TABLE_ROWS:
         if not counts[name]:
             fail(f"the nerf_slam pipeline never launched {name}")
+    check_unfused(counts, "the nerf_slam pipeline")
     for name in ("corr_two_level", "corr_level"):
         if counts[name]:
             fail(f"the nerf_slam pipeline launched {name}: the DPVO kernel")
@@ -2104,7 +2257,7 @@ def phase_slam_render(dev, smi, mapping):
         fail("the renders did not go through the occupancy grid")
     if not counts["gather_interp"] or not counts["gather_interp_mm"]:
         fail("the renders launched no field kernel")
-    if counts["gather_cols"] or counts["scatter_cols_accum"]:
+    if any(counts[name] for name in UNFUSED + ADJOINTS):
         fail("a render launched a gradient kernel")
     if color.shape != (H, W, 3) or not np.isfinite(depth).all():
         fail("the render is not a finite full frame")
@@ -2135,8 +2288,7 @@ def phase_slam(dev, smi):
 PARALLEL = dict(keyframes=16, steps=8, i1_steps=2, ngp_steps=2,
                 droid_frames=12, render=(360, 640), ba_frames=192,
                 ba_edges=48, ba_hw=(45, 80), ba_window=25)
-TP_ROWS = ("gather_cols", "gather_interp", "gather_interp_mm",
-           "scatter_cols_accum")
+TP_ROWS = TABLE_ROWS
 LR, CAM_LR = 1e-2, 1e-4
 
 
@@ -2586,24 +2738,23 @@ def rank_i2(rank, world, dev, spec):
 
 
 def pick_tp_calls(calls):
-    """Of a step's recorded calls, the field's (R = 256) table-sharded
+    """Of a step's recorded calls, the field's (F = 8) table-sharded
     ones: the largest masked ``gather_interp`` (local rows, zero weights on
     the descriptors owned elsewhere), the slab's ``gather_interp_mm``, the
-    largest compacted ``scatter_cols_accum`` into the local rows (not the
-    slab's) and the largest ``gather_cols`` of owned descriptors."""
+    largest compacted ``scatter_cols_outer`` into the local rows (not the
+    slab's) and the largest ``gather_cols_dot`` of owned descriptors."""
     best = {}
     local = max(a[0].shape[0] for name, a, kw in calls
-                if name != "scatter_cols_accum" and a[0].shape[1] == 256)
+                if name != "scatter_cols_outer" and a[0].shape[1] == 256)
     for name, a, kw in calls:
-        t = a[0]
-        if t.shape[1] != 256:
+        m, F = call_shape(name, a)
+        if F != 8:
             continue
-        if name == "scatter_cols_accum" and kw.get("hot_rows"):
+        if name == "scatter_cols_outer" and a[3] != local:
             continue  # the slab's
-        if name == "gather_cols" and t.shape[0] != local:
+        if name == "gather_cols_dot" and a[0].shape[0] != local:
             continue  # the slab's
-        m = a[1].shape[0]
-        if name not in best or m > best[name][1][1].shape[0]:
+        if name not in best or m > call_shape(name, best[name][1])[0]:
             best[name] = (name, a, kw)
     missing = [n for n in TP_ROWS if n not in best]
     if missing:
@@ -2799,6 +2950,8 @@ def phase_parallel(dev, smi):
         for r in recs:
             check(all(r["launches"][n] for n in TP_ROWS),
                   f"(i2) {mode}: a rank launched no {TP_ROWS} kernel")
+            check(not any(r["launches"][n] for n in UNFUSED),
+                  f"(i2) {mode}: a rank launched {UNFUSED}")
     rr = res[0]["dp"]["render"]
     print(f"(i2) MapRenderer(mesh=) {PARALLEL['render'][0]}x"
           f"{PARALLEL['render'][1]} of the DP(4) map: {rr['ms']:.1f} ms over "
@@ -3106,13 +3259,14 @@ def pixel_f32_child(tmp):
     for name in TABLE_ROWS:
         if not counts[name]:
             fail(f"(j2) the f32-target mapping path never launched {name}")
+    check_unfused(counts, "(j2) the f32-target mapping path")
     for name in CORR_KERNELS:
         if counts[name]:
             fail(f"(j2) the mapping path launched {name}")
     largest = {}  # each row's call with the most descriptors
     for c in calls:
-        if c[0] not in largest or (c[1][1].shape[0]
-                                   > largest[c[0]][1][1].shape[0]):
+        if c[0] not in largest or (call_shape(*c[:2])[0]
+                                   > call_shape(*largest[c[0]][:2])[0]):
             largest[c[0]] = c
     held = hold_calls(list(largest.values()), "the f32-target step", "(j2)")
     steady = times[8:]
@@ -3286,13 +3440,14 @@ def run_phases(jtmp):
     torch.cuda.reset_peak_memory_stats()
     for k in gather_cuda.KERNELS:
         k.launches = 0
-    map_ms = phase_mapping(dev, enhanced, frame_of)
+    map_ms, held_d = phase_mapping(dev, enhanced, frame_of)
     counts = {k.__name__: k.launches for k in gather_cuda.KERNELS}
     print(f"(d) launches on the mapping path: {counts}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     for name, n in counts.items():
-        if n == 0 and name not in BF16_KERNELS:
+        if n == 0 and name not in BF16_KERNELS + UNFUSED:
             fail(f"the mapping path never launched {name}")
+    check_unfused(counts, "the mapping path")
 
     variant_launches, held = phase_variants(dev, smi, enhanced, frame_of)
     phase_pyramid(dev, smi)
@@ -3319,8 +3474,7 @@ def run_phases(jtmp):
     for name in ("gather_interp", "gather_interp_mm"):
         if not eval_counts[name]:
             fail(f"the evaluation path never launched {name}")
-    for name in ("gather_cols", "scatter_cols_accum", "corr_two_level",
-                 "corr_level"):
+    for name in UNFUSED + ADJOINTS + CORR_KERNELS:
         if eval_counts[name]:
             fail(f"the evaluation path launched {name} "
                  f"{eval_counts[name]} times: a gradient or tracking")
@@ -3351,6 +3505,8 @@ def run_phases(jtmp):
             entry[f"{tag}_launches"] = c[name]
         if name in TABLE_ROWS:
             entry["h1_proposal_f2"] = [t for n, t in held["h1"] if n == name]
+        if name in ADJOINTS:
+            entry["d_last_step"] = [t for n, t in held_d if n == name]
         if name in TP_ROWS:  # (i): by case, per rank
             entry["i_launches"] = parallel_launches[name]
             entry["i_tp_route"] = [t for n, t in parallel_held if n == name]

@@ -4,7 +4,7 @@
 // The hash grid stores one brick (the 3x3x3 corner lattice of a 2x2x2-cell
 // region, 27 entries padded to 32) as one contiguous row of 32*F floats of a
 // brick-major f32 table [n_bricks, 32F] (entry-major, feature-minor). Every
-// (sample, level) reads exactly one row. These four kernels replace the four
+// (sample, level) reads exactly one row. These kernels replace the four
 // TPU kernels of nerf_vo_tpu/ops/gather_pallas.py:
 //
 //   gather_cols        <- gather_cols (:79, kernel _gather_kernel :63)
@@ -18,6 +18,20 @@
 //       pinned the whole level in VMEM and contracted with one-hot matmuls)
 //   scatter_cols_accum <- scatter_cols_accum (:297, kernel :252)
 //       out[b, :] += g[t, :] for every t with idx[t] == b     f32
+//
+// and the hash grid's backward runs rows 2 and 5 fused with what consumed
+// or fed them, the two adjoints of gather_interp:
+//
+//   gather_cols_dot    <- gather_cols (:79): gather_cols_kernel with the
+//       DotCot sink,  dW[t, e] = sum_f bf16(tab[idx[t], e*F + f]) * cot[t, f]
+//       [M, 32] f32 (the position pullback's brick contraction)
+//   scatter_cols_outer <- scatter_cols_accum (:297): the runs kernel
+//       with the Outer row source and the OwnRuns sink, on the ids sorted,
+//       out[b, e*F + f] += W[t, e] * cot[t, f] (the table gradient), each
+//       product one f32 multiply in registers, the same bits every call
+//
+// so no [M, 32F] tensor is written on a path (at the field's shape the
+// bf16 rows were 302 MB and the W x cot rows 604 MB a pass).
 //
 // bf16(.) is round-to-nearest-even, done in registers on the f32 parameter
 // table: no bf16 copy of the table is made. gather_interp_bf16 reads a bf16
@@ -45,6 +59,12 @@
 //   gather_interp_mm   M 196,608, F 8 (level 0, 512 bricks): ~33 MB ~0.010 ms
 //   scatter_cols_accum M 589,824 x 256 into 49,152 bricks: 657 MB ~0.20 ms
 //                      M 1,966,080 x 64 into 20,480 bricks: 516 MB ~0.154 ms
+//   gather_cols_dot    M 589,824, F 8: touched rows + 18.9 MB cot + 75.5 MB
+//                      dW + ids                                ~0.039 ms
+//   scatter_cols_outer M 589,824, F 8: 75.5 MB W + 18.9 MB cot + 50.3 MB
+//                      table + ids                             ~0.044 ms
+//                      M 1,966,080, F 2: W 252 MB + cot 15.7 + table 5.2
+//                      + ids                                   ~0.084 ms
 //
 // Designs.
 //
@@ -100,9 +120,65 @@
 // global memory where their weight is non-zero (the hash grid's descriptors
 // give them weight 0), so any input is computed right.
 //
-// scatter_cols_accum: two designs, picked by the template F.
+// gather_cols_dot: gather_cols' warps, lanes and batches, with a sink
+// that contracts each lane's 8 gathered floats (8 / F entries) with the
+// descriptor's cotangent in registers and writes 4 * 8 / F bytes a lane
+// (128 B a descriptor) in place of 16 bytes of bf16. The batch's cotangent
+// rows are contiguous and are loaded once, coalesced, and handed out by
+// shuffle (DotCot). It still reads whole brick rows through L2, as row 2
+// does, since dW has all 32 entries.
 //
-// F <= 2 (the hash proposals' F = 2 grids; F = 1): what held the scatter
+// The scatters (scatter_cols_accum, scatter_cols_outer). One runs kernel
+// (scatter_runs_kernel) takes the row from a template source (Rows loads
+// g[t]; Outer<F> forms W[r] x cot[r] from W's 128 B and cot's 4F bytes,
+// at F = 8 160 B a descriptor for the row's 1 KB) and hands each run's sum
+// to a template sink (AddRuns adds it with float4 atomics; OwnRuns stores
+// it). scatter_cols_accum takes runs with AddRuns at F <= 2 and the slabs
+// (scatter_cols_accum_kernel) at F >= 4; both leave out a zero 16-byte
+// piece (+0 changes no sum; a point's zero trilinear weights and the
+// padding entries 27..31 make 24 of a brick's 32 entries zero), and both
+// sum in an order that changes from call to call.
+//
+// scatter_cols_outer, which the paths run, is deterministic: the wrapper
+// sorts the ids (torch.sort, stable) and the runs kernel walks them in
+// sorted order through the permutation (Outer reads W[perm[t]],
+// cot[perm[t]]), so each id's descriptors are contiguous. A run that
+// neither continues from the previous lane group's range nor into the next
+// is the id's whole sum and is stored with plain stores; a run that does
+// is written to a partial row of its range, and scatter_combine_kernel,
+// one block an id that spans ranges, sums its partials in range order (a
+// fixed strided split over the block's threads, then a fixed tree). No
+// atomics: the same inputs give the same bits on every call. Why: with
+// atomics (runs or slabs) the order of a brick's adds changed from call
+// to call, and over 8 Adam steps the normal MLP's near-zero gradients
+// turned that into differences above 2.5 lr: chip_smoke.py (i2)'s
+// descriptor-sharded step failed its check against DP(4) in two runs of
+// the script, and in 1 of 6 of scripts/exp_torch_ds_repeats.py --scatter
+// atomic, with DP(4) itself never repeating; sorted, 0 of 6, every DP(4)
+// run the same bits (NVIDIA H100 80GB HBM3, 700 W). The cost,
+// in one call of scripts/exp_torch_table_adjoints.py: at (d)'s field
+// scatter (M 589,824, F 8) 0.231-0.233 ms against 0.159-0.161 by atomic
+// runs and 0.231-0.234 by slabs; at (h1)'s proposal 0 (M 1,966,080, F 2)
+// 0.328 against 0.111. The sort alone takes 0.075 / 0.146 ms of that.
+//
+// Which atomic design would serve F = 8, from the field scatter of
+// chip_smoke.py phase (d)'s last step (replica mapper, M 589,824, 3 levels
+// ray-major; NVIDIA H100 80GB HBM3, 700 W): per level id runs 26,332 /
+// 163,179 / 196,595 (mean length 7.47 / 1.20 / 1.00), distinct ids 154 /
+// 15,262 / 16,384, most descriptors on one id 22,291 / 2,160 / 35. Level
+// 0's runs cut its adds 7.5x: on the same ids recorded again, that level
+// alone took 0.050 ms by atomic runs against 0.143 by slabs (its 512 rows
+// on chip, shared-memory adds as CAS loops). At levels 1-2, where runs
+// have length ~1, slabs were 10-20% faster (0.064 / 0.063 against 0.078 /
+// 0.069 ms). The whole call: atomic runs 0.162 ms, slabs 0.233; at phase
+// (a)'s uniform points (no runs) 0.166 against 0.197
+// (scripts/exp_torch_table_adjoints.py, one call, both designs built from
+// scripts/exp_torch_table_adjoints_variants.cu). scatter_cols_accum at
+// F = 8 keeps slabs: phase (a) holds it on uniform points, and no path
+// runs it.
+//
+// Atomic runs (row 5 at F <= 2: the hash proposals' F = 2 grids, F = 1):
+// what held the F = 2 scatter
 // back was same-address atomics, which serialize in L2 (~4.8 ns each on an
 // H100). The descriptors come level-major, and within a level ray-major
 // with a ray's samples adjacent (hash_grid._descriptors over positions
@@ -124,15 +200,14 @@
 // shared memory keyed by brick id, was built and measured slower than runs
 // alone at both proposals' shapes (its shared-memory f32 adds are CAS
 // loops, and after the runs the global atomics no longer set the pace), so
-// there is none; nor are the `hot` rows kept on chip: `hot` is not read at
-// F <= 2.
+// there is none; nor are the `hot` rows kept on chip: runs do not read
+// `hot`.
 //
-// F >= 4 (the field's F = 8): phase (a)'s F = 8 calls, uniform random
-// points, have no runs, and there level 0's 512 bricks take ~384 adds
-// each, which a block keeps on chip only as 32-column slabs (768 whole
-// rows of 1 KB do not fit in shared memory). So F >= 4 keeps the slab
-// design: a block owns one 32-column slab of the table and a strided
-// share of the descriptors: 8 lanes take one descriptor's 128 B of the
+// Slabs (row 5 at F >= 4): level 0's 512
+// bricks take ~384 adds each at phase (a)'s uniform points, which a block
+// keeps on chip only as 32-column slabs (768 whole rows of 1 KB do not fit
+// in shared memory): a block owns one 32-column slab of the table and a
+// strided share of the descriptors: 8 lanes take one descriptor's 128 B of the
 // slab as one 16-byte load each (4 loads in flight per lane); the id is
 // loaded once per descriptor batch and broadcast by shuffle. Ids
 // below `hot` (level 0's 512 bricks, where ~384 descriptors hit each
@@ -234,6 +309,69 @@ __device__ __forceinline__ uint32_t ldg_u1_if(const void* p, bool pred) {
   return v;
 }
 
+// 16 / 8 / 4 bytes at p where pred holds, else zeros; streaming (read
+// once).
+__device__ __forceinline__ float4 ldcs_f4_if(const float* p, bool pred) {
+  float4 v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %5, 0;\n\t"
+      "mov.f32 %0, 0f00000000;\n\tmov.f32 %1, 0f00000000;\n\t"
+      "mov.f32 %2, 0f00000000;\n\tmov.f32 %3, 0f00000000;\n\t"
+      "@q ld.global.cs.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+__device__ __forceinline__ float2 ldcs_f2_if(const float* p, bool pred) {
+  float2 v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %3, 0;\n\t"
+      "mov.f32 %0, 0f00000000;\n\tmov.f32 %1, 0f00000000;\n\t"
+      "@q ld.global.cs.v2.f32 {%0, %1}, [%2];\n\t}"
+      : "=f"(v.x), "=f"(v.y)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+__device__ __forceinline__ float ldcs_f1_if(const float* p, bool pred) {
+  float v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %2, 0;\n\t"
+      "mov.f32 %0, 0f00000000;\n\t"
+      "@q ld.global.cs.f32 %0, [%1];\n\t}"
+      : "=f"(v)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+// K consecutive floats at p into v (K = 1, 2, 4 or 8; p aligned to
+// min(4K, 16) bytes), zeros where pred fails: streaming loads (kStream,
+// data read once) or the read-only path (data other lanes or blocks read
+// again).
+template <int K, bool kStream>
+__device__ __forceinline__ void ld_floats_if(const float* p, bool pred,
+                                             float* v) {
+  if constexpr (K >= 4) {
+#pragma unroll
+    for (int h = 0; h < K / 4; ++h) {
+      const float4 x = kStream ? ldcs_f4_if(p + 4 * h, pred)
+                               : ldg_f4_if(p + 4 * h, pred);
+      v[4 * h + 0] = x.x;
+      v[4 * h + 1] = x.y;
+      v[4 * h + 2] = x.z;
+      v[4 * h + 3] = x.w;
+    }
+  } else if constexpr (K == 2) {
+    const float2 x = kStream ? ldcs_f2_if(p, pred) : ldg_f2_if(p, pred);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    v[0] = kStream ? ldcs_f1_if(p, pred)
+                   : __uint_as_float(ldg_u1_if(p, pred));
+  }
+}
+
 constexpr int kMaxDevices = 64;
 
 // What a launch site knows of its kernel on one device: whether the dynamic
@@ -312,16 +450,108 @@ __global__ void __launch_bounds__(kThreads) gather_cols_any_kernel(
   }
 }
 
+// What gather_cols_kernel does with lane j's piece of a gathered row,
+// floats 8j..8j+7 of tab[idx[t]] in a and b (f32 as stored). A warp serves
+// a batch of B descriptors t0..t0+B-1 in rounds u of DPW = 32 / L
+// (descriptor t = t0 + u DPW + q); fetch() issues the batch's other loads
+// beside its row loads, and every lane of the warp calls put() for every
+// round (shuffles need all 32), which writes only where `in` (t < M).
+//
+// Bf16Rows (gather_cols, row 2): store the piece as one 16-byte streaming
+// bf16 store into out[t] [M, R].
+struct Bf16Rows {
+  __nv_bfloat16* out;
+  struct Batch {};
+  template <int B>
+  __device__ __forceinline__ Batch fetch(long long, int, int) const {
+    return {};
+  }
+  template <int R>
+  __device__ __forceinline__ void put(int, int, int j, long long t, bool in,
+                                      float4 a, float4 b,
+                                      const Batch&) const {
+    if (in)
+      __stcs(reinterpret_cast<uint4*>(out + t * R) + j,
+             make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w),
+                        pack_bf16x2(b.x, b.y), pack_bf16x2(b.z, b.w)));
+  }
+};
+
+// DotCot<F> (gather_cols_dot, the W adjoint of row 3): the piece holds
+// entries 8j / F .. 8j / F + 8 / F - 1 of the brick, all F features each;
+// contract each entry's bf16-rounded features with cot[t] [M, F] and store
+// the 8 / F sums into dW[t] [M, 32] (the lanes of a descriptor write its
+// 128 B row together). The batch's cot rows are contiguous (B F <= 64
+// floats): the warp loads them with one or two coalesced 4-byte loads a
+// lane, and each round takes its descriptor's F values by shuffle (in
+// round u, feature f of the warp's descriptor q sits at float 8u + qF + f
+// of the block, since DPW F = 8). Prefetching each descriptor's F floats
+// a lane instead held 160 registers at F = 8 (one block an SM) and took
+// 0.18 ms at the field's shape against row 2's 0.15.
+template <int F>
+struct DotCot {
+  const float* cot;
+  float* dW;
+  struct Batch {
+    float c[2];
+  };
+  template <int B>
+  __device__ __forceinline__ Batch fetch(long long t0, int lane,
+                                         int M) const {
+    static_assert(B * F <= 64, "a batch's cot block is two words a lane");
+    Batch x;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const long long i = t0 * F + k * 32 + lane;
+      const bool live = k * 32 < B * F && i < static_cast<long long>(M) * F;
+      x.c[k] = ldcs_f1_if(cot + i, live);
+    }
+    return x;
+  }
+  template <int R>
+  __device__ __forceinline__ void put(int u, int q, int j, long long t,
+                                      bool in, float4 a, float4 b,
+                                      const Batch& x) const {
+    constexpr int E = 8 / F;  // entries of the lane's 8 floats
+    float c[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      c[f] = __shfl_sync(0xffffffffu, x.c[u / 4], 8 * (u % 4) + q * F + f);
+    if (!in) return;
+    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    float d[E];
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      float acc = bf16_round(v[k * F]) * c[0];
+#pragma unroll
+      for (int f = 1; f < F; ++f)
+        acc = fmaf(bf16_round(v[k * F + f]), c[f], acc);
+      d[k] = acc;
+    }
+    float* o = dW + t * 32 + j * E;
+    if constexpr (E == 1) {
+      *o = d[0];
+    } else if constexpr (E == 2) {
+      *reinterpret_cast<float2*>(o) = make_float2(d[0], d[1]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < E / 4; ++h)
+        reinterpret_cast<float4*>(o)[h] =
+            make_float4(d[4 * h], d[4 * h + 1], d[4 * h + 2], d[4 * h + 3]);
+    }
+  }
+};
+
 // R = 8L: lane j of a descriptor's L reads floats 8j..8j+7 of its row (two
-// 16-byte loads) and writes them as one 16-byte bf16 store. A warp serves
-// batches of 32 / L x U descriptors (U = kGcUnroll, at most L): it loads
-// their ids at once (one a lane) and serves them in U rounds of 32 / L
-// descriptors, the ids broadcast by shuffle, with the row loads of all U
-// rounds issued (predicated) before any convert or store.
-template <int L>
+// 16-byte loads) and hands them to the sink. A warp serves batches of 32 /
+// L x U descriptors (U = kGcUnroll, at most L): it loads their ids at once
+// (one a lane) and serves them in U rounds of 32 / L descriptors, the ids
+// broadcast by shuffle, with the row loads of all U rounds (and the sink's
+// batch loads) issued (predicated) before any is consumed.
+template <int L, typename Sink>
 __global__ void __launch_bounds__(kThreads) gather_cols_kernel(
-    const float* __restrict__ tab, const int* __restrict__ idx,
-    __nv_bfloat16* __restrict__ out, int M, int n_bricks) {
+    const float* __restrict__ tab, const int* __restrict__ idx, Sink sink,
+    int M, int n_bricks) {
   constexpr int R = 8 * L;
   constexpr int DPW = 32 / L;  // descriptors a round
   constexpr int U = L < kGcUnroll ? L : kGcUnroll;
@@ -345,24 +575,20 @@ __global__ void __launch_bounds__(kThreads) gather_cols_kernel(
       a[u] = ldg_f4_if(src, ok);
       b[u] = ldg_f4_if(src + 4, ok);
     }
+    const typename Sink::Batch x = sink.template fetch<B>(t0, lane, M);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long long t = t0 + u * DPW + q;
-      if (t < M)
-        __stcs(reinterpret_cast<uint4*>(out + t * R) + j,
-               make_uint4(pack_bf16x2(a[u].x, a[u].y),
-                          pack_bf16x2(a[u].z, a[u].w),
-                          pack_bf16x2(b[u].x, b[u].y),
-                          pack_bf16x2(b[u].z, b[u].w)));
+      sink.template put<R>(u, q, j, t, t < M, a[u], b[u], x);
     }
   }
 }
 
-template <int L>
-int launch_gather_cols(const float* tab, const int* idx, __nv_bfloat16* out,
-                       int M, int n_bricks, cudaStream_t stream) {
+template <int L, typename Sink>
+int launch_gather_cols(const float* tab, const int* idx, Sink sink, int M,
+                       int n_bricks, cudaStream_t stream) {
   static KernelFacts facts[kMaxDevices];
-  auto kernel = gather_cols_kernel<L>;
+  auto kernel = gather_cols_kernel<L, Sink>;
   long long blocks = 0;
   cudaError_t err = resident_grid(kernel, facts, kThreads, 0, 0, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -371,7 +597,7 @@ int launch_gather_cols(const float* tab, const int* idx, __nv_bfloat16* out,
   const long long need = (M + per_block - 1) / per_block;
   if (blocks > need) blocks = need;
   kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
-      tab, idx, out, M, n_bricks);
+      tab, idx, sink, M, n_bricks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -804,8 +1030,54 @@ int launch_interp(const T* tab, const int* idx, const float* w,
 }
 
 // ---------------------------------------------------------------------------
-// scatter_cols_accum: 32-column slabs, hot rows in shared memory, vector
-// atomics
+// the scatters' row sources: a row loaded from memory, or formed in
+// registers as W (x) cot
+// ---------------------------------------------------------------------------
+
+// Rows (scatter_cols_accum, row 5): row t is g[t] [M, R], loaded with
+// streaming loads (each row is read once).
+struct Rows {
+  const float* g;
+  // floats col..col+7 of row t, zeros where !ok
+  template <int R>
+  __device__ __forceinline__ void load(long long t, int col, bool ok,
+                                       float (&v)[8]) const {
+    ld_floats_if<8, true>(g + t * R + col, ok, v);
+  }
+};
+
+// Outer<F> (scatter_cols_outer, the table adjoint of row 3): row t of the
+// id-sorted order is W[r] (x) cot[r] with r = perm[t], column e F + f =
+// W[r, e] * cot[r, f] (W [M, 32], cot [M, F]): one f32 multiply each, the
+// value the materialized row held. The 8 columns from col (col a multiple
+// of 8) span one entry's 8 features (F = 8) or 8 / F whole entries (F <
+// 8): the lane loads those W values (streaming: each is read by one lane)
+// and cot[r]'s features (read-only path: the other lanes of the
+// descriptor read them too).
+template <int F>
+struct Outer {
+  const float* W;
+  const float* cot;
+  const long long* perm;
+  template <int R>
+  __device__ __forceinline__ void load(long long t, int col, bool ok,
+                                       float (&v)[8]) const {
+    constexpr int E = F >= 8 ? 1 : 8 / F;  // entries the 8 columns span
+    const long long r = ok ? __ldg(perm + t) : 0;
+    float w[E], c[F < 8 ? F : 8];
+    ld_floats_if<E, true>(W + r * 32 + col / F, ok, w);
+    ld_floats_if<(F < 8 ? F : 8), false>(cot + r * F + col % F, ok, c);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = w[i / F] * c[i % F];
+  }
+};
+
+__device__ __forceinline__ bool nonzero(float4 v) {
+  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// scatter slabs: 32-column slabs, hot rows in shared memory, vector atomics
 // ---------------------------------------------------------------------------
 
 constexpr int kScThreads = 512;
@@ -856,7 +1128,9 @@ __global__ void __launch_bounds__(kScThreads) scatter_cols_accum_kernel(
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int bk = b[k];
-        if (bk < 0 || bk >= n_bricks) continue;
+        // +0 changes no sum: a point's zero trilinear weights and the
+        // padding entries 27..31 give many zero pieces
+        if (bk < 0 || bk >= n_bricks || !nonzero(v[k])) continue;
         if (bk < hot) {
           atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 0), v[k].x);
           atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 1), v[k].y);
@@ -878,7 +1152,7 @@ __global__ void __launch_bounds__(kScThreads) scatter_cols_accum_kernel(
     const float4 v = make_float4(
         sc_smem[slab_pos(r, c + 0)], sc_smem[slab_pos(r, c + 1)],
         sc_smem[slab_pos(r, c + 2)], sc_smem[slab_pos(r, c + 3)]);
-    if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
+    if (nonzero(v))
       atomicAdd(reinterpret_cast<float4*>(
                     out + static_cast<long long>(r) * R + s * kSlab + c), v);
   }
@@ -886,7 +1160,7 @@ __global__ void __launch_bounds__(kScThreads) scatter_cols_accum_kernel(
 
 template <int F>
 int launch_scatter_slabs(const float* g, const int* idx, float* out, int M,
-                   int n_bricks, int hot, cudaStream_t stream) {
+                         int n_bricks, int hot, cudaStream_t stream) {
   static KernelFacts facts[kMaxDevices];
   hot = hot < 0 ? 0 : hot;
   if (hot > n_bricks) hot = n_bricks;
@@ -907,53 +1181,102 @@ int launch_scatter_slabs(const float* g, const int* idx, float* out, int M,
 }
 
 // ---------------------------------------------------------------------------
-// scatter_cols_accum at F <= 2: contiguous ranges, runs of equal ids summed
-// in registers
+// scatter runs: contiguous ranges, runs of equal ids summed in registers
 // ---------------------------------------------------------------------------
 
 constexpr int kRunThreads = 512;
 constexpr int kRunWarps = kRunThreads / 32;
 constexpr int kRunTile = 8;  // descriptors whose rows load at once
 
-// 16 bytes at p where pred holds, else zeros; streaming (read once).
-__device__ __forceinline__ float4 ldcs_f4_if(const float* p, bool pred) {
-  float4 v;
-  asm("{\n\t.reg .pred q;\n\t"
-      "setp.ne.b32 q, %5, 0;\n\t"
-      "mov.f32 %0, 0f00000000;\n\tmov.f32 %1, 0f00000000;\n\t"
-      "mov.f32 %2, 0f00000000;\n\tmov.f32 %3, 0f00000000;\n\t"
-      "@q ld.global.cs.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
-      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-      : "l"(p), "r"(static_cast<int>(pred)));
-  return v;
-}
-
-__device__ __forceinline__ bool nonzero(float4 v) {
-  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
-}
-
 // One lane's share of a run's sum, floats 8j..8j+7 of row b: two vector
 // atomics, each left out where its 16 bytes are zero (+0 changes no sum).
 template <int R>
-__device__ __forceinline__ void add_run(float* out, int b, int j, float4 a,
-                                        float4 c) {
+__device__ __forceinline__ void add_run(float* out, int b, int j,
+                                        const float (&acc)[8]) {
   float4* o =
       reinterpret_cast<float4*>(out + static_cast<long long>(b) * R + 8 * j);
+  const float4 a = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  const float4 c = make_float4(acc[4], acc[5], acc[6], acc[7]);
   if (nonzero(a)) atomicAdd(o, a);
   if (nonzero(c)) atomicAdd(o + 1, c);
 }
 
-// R = 8L: L lanes serve one descriptor (lane j: floats 8j..8j+7, two
-// 16-byte streaming loads), 32 / L lane groups a warp, and each group owns
-// a contiguous range of `span` descriptors (a block's groups consecutive
+// Where a run's sum goes: the sink. AddRuns (scatter_cols_accum, row 5)
+// adds it into the table (add_run): runs of one id in other ranges add to
+// the same row, in an order that changes from run to run. OwnRuns
+// (scatter_cols_outer) takes the ids sorted, so that each id's descriptors
+// are contiguous: a run that neither continues from the previous range nor
+// into the next is the id's whole sum and is stored; a run that does is
+// written to a partial row of its range (slot 2g for the range's first
+// run, 2g + 1 for its last), which scatter_combine_kernel sums in range
+// order. No atomics: the result is the same on every call.
+struct AddRuns {
+  float* out;
+  struct Range {};
+  __device__ __forceinline__ Range range(long long, long long, long long,
+                                         const int*, int) const {
+    return {};
+  }
+  template <int R>
+  __device__ __forceinline__ void put(const Range&, int b, int j,
+                                      const float (&acc)[8]) const {
+    add_run<R>(out, b, j, acc);
+  }
+};
+
+// A partial's code: 2 b + 1 for the first part of id b's sum (the run
+// that starts it), 2 b for a later part; -1 for an empty slot. The slots
+// of first parts are also listed in `heads` (in no fixed order: each is
+// combined on its own).
+struct OwnRuns {
+  float* out;
+  float* part;   // [2 * groups, R]
+  int* part_id;  // [2 * groups]
+  int* n_heads;  // [1]
+  int* heads;    // [groups]
+  struct Range {
+    long long g;
+    int prev, next;  // the ids just before and just after the range
+  };
+  __device__ __forceinline__ Range range(long long g, long long lo,
+                                         long long hi, const int* idx,
+                                         int M) const {
+    const Range r{g, lo > 0 && lo <= M ? __ldg(idx + lo - 1) : -1,
+                  hi < M ? __ldg(idx + hi) : -1};
+    return r;
+  }
+  template <int R>
+  __device__ __forceinline__ void put(const Range& r, int b, int j,
+                                      const float (&acc)[8]) const {
+    const bool from_prev = b == r.prev;
+    float* o;
+    if (!from_prev && b != r.next) {
+      o = out + static_cast<long long>(b) * R;
+    } else {
+      const long long slot = 2 * r.g + (from_prev ? 0 : 1);
+      o = part + slot * R;
+      if (j == 0) {
+        part_id[slot] = 2 * b + (from_prev ? 0 : 1);
+        if (!from_prev) heads[atomicAdd(n_heads, 1)] = static_cast<int>(slot);
+      }
+    }
+    float4* o4 = reinterpret_cast<float4*>(o + 8 * j);
+    o4[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    o4[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+};
+
+// R = 8L: L lanes serve one descriptor (lane j: floats 8j..8j+7 of its
+// row from the source), 32 / L lane groups a warp, and each group owns a
+// contiguous range of `span` descriptors (a block's groups consecutive
 // ranges). A group loads kRunTile ids at once (broadcast by shuffle) and
 // their rows, then walks them in order, summing in registers while the id
-// repeats and adding the sum where it changes. An id outside [0,
-// n_bricks) is skipped (it neither adds nor ends a run).
-template <int F>
+// repeats and handing the sum to the sink where it changes. An id outside
+// [0, n_bricks) is skipped (it neither adds nor ends a run).
+template <int F, typename Src, typename Sink>
 __global__ void __launch_bounds__(kRunThreads, 1) scatter_runs_kernel(
-    const float* __restrict__ g, const int* __restrict__ idx,
-    float* __restrict__ out, int M, int n_bricks, long long span) {
+    Src src, const int* __restrict__ idx, Sink sink, int M, int n_bricks,
+    long long span) {
   constexpr int R = 32 * F;
   constexpr int L = R / 8;
   constexpr int G = 32 / L;
@@ -961,13 +1284,13 @@ __global__ void __launch_bounds__(kRunThreads, 1) scatter_runs_kernel(
   const int lane = threadIdx.x & 31;
   const int q = lane / L;
   const int j = lane % L;
-  const long long lo =
-      ((static_cast<long long>(blockIdx.x) * kRunWarps + (threadIdx.x >> 5)) *
-           G + q) * span;
+  const long long g =
+      (static_cast<long long>(blockIdx.x) * kRunWarps + (threadIdx.x >> 5)) *
+          G + q;
+  const long long lo = g * span;
   const long long hi = lo + span < M ? lo + span : M;
-  const float* gj = g + 8 * j;
-  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 c = a;
+  const typename Sink::Range rg = sink.range(g, lo, hi, idx, M);
+  float acc[8] = {};
   int cur = -1;
   // every group of the warp takes the same number of tiles, so that the
   // shuffles see all 32 lanes
@@ -979,47 +1302,181 @@ __global__ void __launch_bounds__(kRunThreads, 1) scatter_runs_kernel(
       my[k] = k * L + j < kRunTile && t < hi ? __ldcs(idx + t) : -1;
     }
     int b[kRunTile];
-    float4 va[kRunTile], vc[kRunTile];
+    float v[kRunTile][8];
 #pragma unroll
     for (int u = 0; u < kRunTile; ++u) {
       b[u] = __shfl_sync(0xffffffffu, my[u / L], q * L + u % L);
       const bool ok = b[u] >= 0 && b[u] < n_bricks;
       if (!ok) b[u] = -1;
-      const float* src = gj + (t0 + u) * R;
-      va[u] = ldcs_f4_if(src, ok);
-      vc[u] = ldcs_f4_if(src + 4, ok);
+      src.template load<R>(t0 + u, 8 * j, ok, v[u]);
     }
 #pragma unroll
     for (int u = 0; u < kRunTile; ++u) {
       if (b[u] < 0) continue;
       if (b[u] != cur) {
-        if (cur >= 0) add_run<R>(out, cur, j, a, c);
+        if (cur >= 0) sink.template put<R>(rg, cur, j, acc);
         cur = b[u];
-        a = va[u];
-        c = vc[u];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] = v[u][i];
       } else {
-        a.x += va[u].x; a.y += va[u].y; a.z += va[u].z; a.w += va[u].w;
-        c.x += vc[u].x; c.y += vc[u].y; c.z += vc[u].z; c.w += vc[u].w;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] += v[u][i];
       }
     }
   }
-  if (cur >= 0) add_run<R>(out, cur, j, a, c);
+  if (cur >= 0) sink.template put<R>(rg, cur, j, acc);
 }
 
-template <int F>
-int launch_scatter_runs(const float* g, const int* idx, float* out, int M,
-                        int n_bricks, cudaStream_t stream) {
+// The runs kernel's grid for M descriptors: blocks, and descriptors a lane
+// group (span).
+template <int F, typename Src, typename Sink>
+cudaError_t runs_grid(int M, long long* blocks, long long* span) {
   static KernelFacts facts[kMaxDevices];
   constexpr int groups = kRunWarps * (32 / (32 * F / 8));  // a block's
-  auto kernel = scatter_runs_kernel<F>;
-  long long blocks = 0;
-  cudaError_t err = resident_grid(kernel, facts, kRunThreads, 0, 0, &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = resident_grid(scatter_runs_kernel<F, Src, Sink>, facts,
+                                  kRunThreads, 0, 0, blocks);
+  if (err != cudaSuccess) return err;
   const long long need = (M + groups * kRunTile - 1) / (groups * kRunTile);
-  if (blocks > need) blocks = need;
-  const long long span = (M + blocks * groups - 1) / (blocks * groups);
-  kernel<<<static_cast<unsigned int>(blocks), kRunThreads, 0, stream>>>(
-      g, idx, out, M, n_bricks, span);
+  if (*blocks > need) *blocks = need;
+  if (*blocks < 1) *blocks = 1;
+  *span = (M + *blocks * groups - 1) / (*blocks * groups);
+  return cudaSuccess;
+}
+
+template <int F, typename Src, typename Sink>
+int launch_scatter_runs(Src src, Sink sink, const int* idx, int M,
+                        int n_bricks, cudaStream_t stream) {
+  long long blocks = 0, span = 0;
+  cudaError_t err = runs_grid<F, Src, Sink>(M, &blocks, &span);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scatter_runs_kernel<F, Src, Sink>
+      <<<static_cast<unsigned int>(blocks), kRunThreads, 0, stream>>>(
+          src, idx, sink, M, n_bricks, span);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// OwnRuns' partial slots for M descriptors: 2 a lane group of the grid.
+template <int F>
+long long own_slots(int M) {
+  long long blocks = 0, span = 0;
+  if (runs_grid<F, Outer<F>, OwnRuns>(M, &blocks, &span) != cudaSuccess)
+    return -1;
+  return 2 * blocks * kRunWarps * (32 / (32 * F / 8));
+}
+
+constexpr int kCombThreads = 512;
+constexpr int kCombUnroll = 4;  // slots a thread loads at once
+
+// The sums of ids whose descriptors span ranges, one block a listed head
+// slot s (code 2 b + 1) at a time: the block finds where b's parts end
+// (the first later slot holding another code; the empty slots between
+// parts hold zeros), sums slots [s, end) in a fixed order (thread r of P
+// takes slots s + r, s + r + P, ..., kCombUnroll loads in flight; then a
+// tree over r in shared memory) and stores the total. The result does not
+// depend on which block takes which head.
+template <int F>
+__global__ void __launch_bounds__(kCombThreads) scatter_combine_kernel(
+    const float* __restrict__ part, const int* __restrict__ part_id,
+    const int* __restrict__ n_heads, const int* __restrict__ heads,
+    float* __restrict__ out, int n_slots) {
+  constexpr int R = 32 * F;
+  constexpr int C = R / 4;             // float4 columns of a row
+  constexpr int P = kCombThreads / C;  // slots summed at once
+  __shared__ float4 red[kCombThreads];
+  __shared__ int end;
+  const int c4 = threadIdx.x % C;
+  const int r = threadIdx.x / C;
+  const int n = *n_heads;
+  for (int i = blockIdx.x; i < n; i += gridDim.x) {
+    const int s = heads[i];
+    const int b = part_id[s] >> 1;
+    if (threadIdx.x == 0) end = n_slots;
+    __syncthreads();
+    for (int k0 = s + 1; k0 < n_slots; k0 += kCombThreads) {
+      const int k = k0 + threadIdx.x;
+      const int c = k < n_slots ? part_id[k] : -1;
+      if (c >= 0 && c != 2 * b) atomicMin(&end, k);
+      __syncthreads();
+      const bool found = end < n_slots;
+      __syncthreads();
+      if (found) break;
+    }
+    const float4* col = reinterpret_cast<const float4*>(part) + c4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    int k = s + r;
+    for (; k + (kCombUnroll - 1) * P < end; k += kCombUnroll * P) {
+      float4 v[kCombUnroll];
+#pragma unroll
+      for (int u = 0; u < kCombUnroll; ++u)
+        v[u] = col[static_cast<long long>(k + u * P) * C];
+#pragma unroll
+      for (int u = 0; u < kCombUnroll; ++u) {
+        acc.x += v[u].x;
+        acc.y += v[u].y;
+        acc.z += v[u].z;
+        acc.w += v[u].w;
+      }
+    }
+    for (; k < end; k += P) {
+      const float4 v = col[static_cast<long long>(k) * C];
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    red[threadIdx.x] = acc;
+    __syncthreads();
+#pragma unroll
+    for (int h = P / 2; h > 0; h >>= 1) {
+      if (r < h) {
+        const float4 v = red[threadIdx.x + h * C];
+        red[threadIdx.x].x += v.x;
+        red[threadIdx.x].y += v.y;
+        red[threadIdx.x].z += v.z;
+        red[threadIdx.x].w += v.w;
+      }
+      __syncthreads();
+    }
+    if (r == 0)
+      reinterpret_cast<float4*>(out + static_cast<long long>(b) * R)[c4] =
+          red[c4];
+    __syncthreads();
+  }
+}
+
+// meta: [2 * slots + 1] int32 scratch: the slots' codes, the number of
+// heads, the head slots.
+template <int F>
+int launch_scatter_owned(const float* W, const float* cot, const int* sidx,
+                         const long long* perm, float* out, float* part,
+                         int* meta, int M, int n_bricks,
+                         cudaStream_t stream) {
+  long long blocks = 0, span = 0;
+  cudaError_t err = runs_grid<F, Outer<F>, OwnRuns>(M, &blocks, &span);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int G = 32 / (32 * F / 8);
+  const int n_slots = static_cast<int>(2 * blocks * kRunWarps * G);
+  int* part_id = meta;
+  int* n_heads = meta + n_slots;
+  err = cudaMemsetAsync(part_id, 0xff, n_slots * sizeof(int), stream);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(n_heads, 0, sizeof(int), stream);
+  if (err == cudaSuccess)  // empty slots add zeros in the combine
+    err = cudaMemsetAsync(part, 0, n_slots * sizeof(float) * 32 * F, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scatter_runs_kernel<F, Outer<F>, OwnRuns>
+      <<<static_cast<unsigned int>(blocks), kRunThreads, 0, stream>>>(
+          Outer<F>{W, cot, perm}, sidx,
+          OwnRuns{out, part, part_id, n_heads, n_heads + 1}, M, n_bricks,
+          span);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = 4 * sm_count(dev);
+  scatter_combine_kernel<F><<<grid, kCombThreads, 0, stream>>>(
+      part, part_id, n_heads, n_heads + 1, out, n_slots);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1050,17 +1507,44 @@ extern "C" int gather_cols(const void* tab, const void* idx, void* out, int M,
   const int* ix = static_cast<const int*>(idx);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Bf16Rows sink{o};
   switch (R) {
-    case 32: return launch_gather_cols<4>(tb, ix, o, M, n_bricks, s);
-    case 64: return launch_gather_cols<8>(tb, ix, o, M, n_bricks, s);
-    case 128: return launch_gather_cols<16>(tb, ix, o, M, n_bricks, s);
-    case 256: return launch_gather_cols<32>(tb, ix, o, M, n_bricks, s);
+    case 32: return launch_gather_cols<4>(tb, ix, sink, M, n_bricks, s);
+    case 64: return launch_gather_cols<8>(tb, ix, sink, M, n_bricks, s);
+    case 128: return launch_gather_cols<16>(tb, ix, sink, M, n_bricks, s);
+    case 256: return launch_gather_cols<32>(tb, ix, sink, M, n_bricks, s);
     default: {
       const int blocks = (M + kWarps - 1) / kWarps;
       gather_cols_any_kernel<<<blocks, kThreads, 0, s>>>(tb, ix, o, M, R,
                                                          n_bricks);
       return static_cast<int>(cudaGetLastError());
     }
+  }
+}
+
+// tab [n_bricks, 32F] f32, idx [M] int32, cot [M, F] f32 -> dW [M, 32]
+// f32, dW[t, e] = sum_f bf16(tab[idx[t], e F + f]) cot[t, f]; an id out of
+// range gives a row of zeros. F in {1, 2, 4, 8}; cot aligned to 4F bytes
+// (16 at F = 8).
+extern "C" int gather_cols_dot(const void* tab, const void* idx,
+                               const void* cot, void* dW, int M, int F,
+                               int n_bricks, void* stream) {
+  if (M == 0) return 0;
+  const float* tb = static_cast<const float*>(tab);
+  const int* ix = static_cast<const int*>(idx);
+  const float* c = static_cast<const float*>(cot);
+  float* o = static_cast<float*>(dW);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (F) {
+    case 1: return launch_gather_cols<4>(tb, ix, DotCot<1>{c, o}, M,
+                                         n_bricks, s);
+    case 2: return launch_gather_cols<8>(tb, ix, DotCot<2>{c, o}, M,
+                                         n_bricks, s);
+    case 4: return launch_gather_cols<16>(tb, ix, DotCot<4>{c, o}, M,
+                                          n_bricks, s);
+    case 8: return launch_gather_cols<32>(tb, ix, DotCot<8>{c, o}, M,
+                                          n_bricks, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -1124,10 +1608,57 @@ extern "C" int scatter_cols_accum(const void* g, const void* idx, void* out,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
-    case 1: return launch_scatter_runs<1>(gp, ix, o, M, n_bricks, s);
-    case 2: return launch_scatter_runs<2>(gp, ix, o, M, n_bricks, s);
+    case 1: return launch_scatter_runs<1>(Rows{gp}, AddRuns{o}, ix, M,
+                                          n_bricks, s);
+    case 2: return launch_scatter_runs<2>(Rows{gp}, AddRuns{o}, ix, M,
+                                          n_bricks, s);
     case 4: return launch_scatter_slabs<4>(gp, ix, o, M, n_bricks, hot, s);
     case 8: return launch_scatter_slabs<8>(gp, ix, o, M, n_bricks, hot, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// W [M, 32] f32, cot [M, F] f32 (aligned to 4F bytes, 16 at F = 8); sidx
+// [M] int32 the ids sorted, stably, and perm [M] int64 their positions
+// (sidx[t] = idx[perm[t]]); out [n_bricks, 32F] f32, zeroed by the caller:
+// out[b, e F + f] = sum of W[t, e] cot[t, f] over idx[t] == b, the product
+// formed in registers, each id's terms summed in sorted order, the same on
+// every call. part [slots, 32F] f32 and meta [2 slots + 1] int32 are
+// scratch, slots = scatter_cols_outer_slots(M, F).
+extern "C" int scatter_cols_outer(const void* W, const void* cot,
+                                  const void* sidx, const void* perm,
+                                  void* out, void* part, void* meta, int M,
+                                  int F, int n_bricks, void* stream) {
+  if (M == 0) return 0;
+  const float* w = static_cast<const float*>(W);
+  const float* c = static_cast<const float*>(cot);
+  const int* ix = static_cast<const int*>(sidx);
+  const long long* pm = static_cast<const long long*>(perm);
+  float* o = static_cast<float*>(out);
+  float* pt = static_cast<float*>(part);
+  int* pi = static_cast<int*>(meta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (F) {
+    case 1: return launch_scatter_owned<1>(w, c, ix, pm, o, pt, pi, M,
+                                           n_bricks, s);
+    case 2: return launch_scatter_owned<2>(w, c, ix, pm, o, pt, pi, M,
+                                           n_bricks, s);
+    case 4: return launch_scatter_owned<4>(w, c, ix, pm, o, pt, pi, M,
+                                           n_bricks, s);
+    case 8: return launch_scatter_owned<8>(w, c, ix, pm, o, pt, pi, M,
+                                           n_bricks, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// scatter_cols_outer's scratch rows for M descriptors on the current
+// device, or a negative value if the grid cannot be sized.
+extern "C" long long scatter_cols_outer_slots(int M, int F) {
+  switch (F) {
+    case 1: return own_slots<1>(M);
+    case 2: return own_slots<2>(M);
+    case 4: return own_slots<4>(M);
+    case 8: return own_slots<8>(M);
+    default: return -1;
   }
 }

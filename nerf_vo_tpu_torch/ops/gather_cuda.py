@@ -1,7 +1,10 @@
 """Brick-row gather / interpolate / scatter through ``csrc/gather.cu``.
 
 Counterparts of the four TPU kernels of ``nerf_vo_tpu/ops/gather_pallas.py``,
-the table operations of the hash grid (``ops/hash_grid.py``). A table is
+the table operations of the hash grid (``ops/hash_grid.py``), and the two
+adjoints of ``gather_interp`` that the hash grid's backward takes: the
+kernels of rows 2 and 5 with the product that feeds them, or the
+contraction that consumes them, done in registers. A table is
 brick-major f32 ``[n_bricks, 32F]``: one brick (27 corner entries padded to
 32, entry-major, feature-minor) per contiguous row; ``gather_interp`` also
 takes a bf16 table (the dense proposal grids' ``proposal_table_dtype:
@@ -15,6 +18,10 @@ wrapper                function
 :func:`gather_interp_bf16`  the same function on a bf16 table
 :func:`gather_interp_mm`  the same function, for small dense tables
 :func:`scatter_cols_accum`  ``out[b, :] = sum_{t: idx[t] = b} g[t, :]``, f32
+:func:`gather_cols_dot`  ``dW[t, e] = sum_f bf16(tab[idx[t], eF+f])
+                       cot[t, f]``, [M, 32] f32
+:func:`scatter_cols_outer`  ``out[b, eF+f] = sum_{t: idx[t] = b} W[t, e]
+                       cot[t, f]``, f32
 =====================  ===================================================
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor
@@ -23,9 +30,9 @@ launches in ``<wrapper>.launches``. ``bf16`` rounds to nearest even (the
 JAX package's bf16 shadow of the table); weights, sums and outputs are f32.
 ``gather_interp_mm`` and ``scatter_cols_accum`` take ``hot_rows``, the
 number of leading table rows the kernel keeps on chip (staged, or
-accumulated, in shared memory; the scatter at F >= 4 only); the hash grid
-passes the rows of its one-hot levels. It changes where rows are read or
-added, never the result.
+accumulated, in shared memory; the scatter's slab design only); the hash
+grid passes the rows of its one-hot levels. It changes where rows are read
+or added, never the result.
 What bounds each kernel, and its design, are noted at the top of
 ``csrc/gather.cu``.
 """
@@ -77,6 +84,18 @@ def scatter_cols_accum_plain(g, idx, n_bricks: int):
     return out.index_add_(0, idx.long(), g.float())
 
 
+def gather_cols_dot_plain(tab, idx, cot):
+    M, F = cot.shape
+    g = gather_cols_plain(tab, idx).float().reshape(M, 32, F)
+    return torch.sum(g * cot[:, None, :], dim=-1)
+
+
+def scatter_cols_outer_plain(W, cot, idx, n_bricks: int):
+    M, F = cot.shape
+    rows = (W[:, :, None] * cot[:, None, :]).reshape(M, 32 * F)
+    return scatter_cols_accum_plain(rows, idx, n_bricks)
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -90,8 +109,13 @@ def _lib():
     lib.gather_interp_bf16.argtypes = [p, p, p, p, i, i, i, p]
     lib.gather_interp_mm.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.scatter_cols_accum.argtypes = [p, p, p, i, i, i, i, p]
+    lib.gather_cols_dot.argtypes = [p, p, p, p, i, i, i, p]
+    lib.scatter_cols_outer.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.scatter_cols_outer_slots.argtypes = [i, i]
+    lib.scatter_cols_outer_slots.restype = ctypes.c_longlong
     for fn in (lib.gather_cols, lib.gather_interp, lib.gather_interp_bf16,
-               lib.gather_interp_mm, lib.scatter_cols_accum):
+               lib.gather_interp_mm, lib.scatter_cols_accum,
+               lib.gather_cols_dot, lib.scatter_cols_outer):
         fn.restype = ctypes.c_int
     return lib
 
@@ -249,7 +273,89 @@ def scatter_cols_accum(g, idx, n_bricks: int, hot_rows: int = 0):
     return out
 
 
+def _features(name, cot, M, dev):
+    """F of a [M, F] f32 cotangent, checked (aligned to 4F bytes, 16 at
+    F = 8: the scatter's row source loads cot[t] as F / 4 16-byte pieces or
+    one 4F-byte piece)."""
+    if cot.dim() != 2 or cot.shape[1] not in FEATURES:
+        raise ValueError(f"{name}: cot has shape {tuple(cot.shape)}, "
+                         f"expected [M, F] with F in {FEATURES}")
+    F = cot.shape[1]
+    _check("cot", cot, torch.float32, 2, dev, align=min(4 * F, 16))
+    if cot.shape[0] != M:
+        raise ValueError(f"{name}: {cot.shape[0]} cotangent rows for {M} "
+                         "descriptors")
+    return F
+
+
+def gather_cols_dot(tab, idx, cot):
+    """The W adjoint of :func:`gather_interp`: tab [n_bricks, 32F] f32, idx
+    [M] int32, cot [M, F] f32 -> dW [M, 32] f32 with ``dW[t, e] = sum_f
+    bf16(tab[idx[t], eF+f]) cot[t, f]`` (the hash grid's position
+    pullback, before the weights' derivatives).
+
+    On the card it is :func:`gather_cols` with its consumer fused: each
+    brick row is read and rounded to bf16 in registers and contracted with
+    ``cot`` there, so 128 B a descriptor are written and no [M, 32F] row.
+    An id out of range gives a row of zeros (for a finite ``cot``)."""
+    if tab.device.type == "cpu":
+        return gather_cols_dot_plain(tab, idx, cot)
+    dev = _cuda_device(tab, "gather_cols_dot")
+    _check("tab", tab, torch.float32, 2, dev, align=16)
+    _check("idx", idx, torch.int32, 1, dev)
+    M = idx.shape[0]
+    F = _features("gather_cols_dot", cot, M, dev)
+    n_bricks, R = tab.shape
+    if R != 32 * F:
+        raise ValueError(f"gather_cols_dot: rows of {R} floats with F={F}; "
+                         "the kernel takes R = 32F")
+    out = torch.empty(M, 32, dtype=torch.float32, device=dev)
+    if M:
+        _launched(gather_cols_dot, _lib().gather_cols_dot(
+            tab.data_ptr(), idx.data_ptr(), cot.data_ptr(), out.data_ptr(),
+            M, F, n_bricks, _stream(dev)))
+    return out
+
+
+def scatter_cols_outer(W, cot, idx, n_bricks: int):
+    """The table adjoint of :func:`gather_interp`: W [M, 32] f32, cot [M, F]
+    f32, idx [M] int32 -> [n_bricks, 32F] f32 with ``out[b, eF+f] = sum of
+    W[t, e] cot[t, f] over idx[t] == b`` (F in 1, 2, 4, 8).
+
+    On the card it is :func:`scatter_cols_accum` with its producer fused:
+    each product ``W[t, e] * cot[t, f]`` is one f32 multiply in registers,
+    the value the materialized row ``W (x) cot`` held, so no [M, 32F] row
+    is written or read. The ids are sorted first (``torch.sort``, stable),
+    and each id's terms are summed in registers in sorted order with no
+    atomics (the design noted at the top of ``csrc/gather.cu``): the
+    result is the same on every call. An id out of range is dropped."""
+    if W.device.type == "cpu":
+        return scatter_cols_outer_plain(W, cot, idx, n_bricks)
+    dev = _cuda_device(W, "scatter_cols_outer")
+    _check("W", W, torch.float32, 2, dev, align=16)
+    _check("idx", idx, torch.int32, 1, dev)
+    M = idx.shape[0]
+    if tuple(W.shape) != (M, 32):
+        raise ValueError(f"scatter_cols_outer: W has shape "
+                         f"{tuple(W.shape)}, expected {(M, 32)}")
+    F = _features("scatter_cols_outer", cot, M, dev)
+    out = torch.zeros(n_bricks, 32 * F, dtype=torch.float32, device=dev)
+    if M:
+        sidx, perm = torch.sort(idx, stable=True)
+        slots = int(_lib().scatter_cols_outer_slots(M, F))
+        if slots <= 0:
+            raise RuntimeError("scatter_cols_outer: the kernel's grid could "
+                               "not be sized")
+        part = torch.empty(slots, 32 * F, dtype=torch.float32, device=dev)
+        meta = torch.empty(2 * slots + 1, dtype=torch.int32, device=dev)
+        _launched(scatter_cols_outer, _lib().scatter_cols_outer(
+            W.data_ptr(), cot.data_ptr(), sidx.data_ptr(), perm.data_ptr(),
+            out.data_ptr(), part.data_ptr(), meta.data_ptr(), M, F, n_bricks,
+            _stream(dev)))
+    return out
+
+
 KERNELS = (gather_cols, gather_interp, gather_interp_bf16, gather_interp_mm,
-           scatter_cols_accum)
+           scatter_cols_accum, gather_cols_dot, scatter_cols_outer)
 for _fn in KERNELS:
     _fn.launches = 0

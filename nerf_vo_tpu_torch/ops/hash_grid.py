@@ -19,15 +19,17 @@ table and the positions. Its table operations are the kernels of
   bricks (the JAX package's one-hot matmul levels), ``gather_interp`` on the
   rest, all those levels stacked level-major into one launch (a bf16 table:
   ``gather_interp`` on every level, its bf16-table kernel);
-- backward, table: the per-descriptor rows ``W[t, e] * cot[t, f]`` go
-  through ``scatter_cols_accum`` into an f32 gradient of the table's shape
-  (with ``grad_phase``, only the rows of the levels that count);
-- on the card, ``gather_interp_mm`` and ``scatter_cols_accum`` keep the
-  one-hot levels' table rows (:func:`_hot_rows`; level 0's 512 bricks in
-  the field) in shared memory;
-- backward, positions: ``gather_cols`` re-gathers the bf16 brick rows (they
-  are not kept from the forward) and the ``dW / dfrac * res`` contraction is
-  plain torch. :func:`hash_encode_vjp` gives that position pullback on its
+- backward, table: ``scatter_cols_outer`` adds the per-descriptor rows
+  ``W[t, e] * cot[t, f]``, formed in registers, into an f32 gradient of
+  the table's shape (with ``grad_phase``, only the rows of the levels that
+  count);
+- on the card, ``gather_interp_mm`` keeps the one-hot levels' table rows
+  (:func:`_hot_rows`; level 0's 512 bricks in the field) in shared memory;
+- backward, positions: ``gather_cols_dot`` re-gathers the bf16 brick rows
+  (they are not kept from the forward) and contracts them with the
+  cotangent into ``dW`` [M, 32]; the ``dfrac * res`` contraction through
+  the separable weights is plain torch (broadcast products, no [M, 32F]
+  tensor). :func:`hash_encode_vjp` gives that position pullback on its
   own, as ``jax.vjp`` does for the density's normals: a custom backward
   cannot see that ``torch.autograd.grad(density, positions)`` will drop
   its table gradient, so it would make one.
@@ -150,8 +152,7 @@ def _n_onehot(config: HashGridConfig) -> int:
 def _hot_rows(config: HashGridConfig) -> int:
     """Leading table rows read by the one-hot levels (level l's first
     ``bpa**3`` bricks at row ``l * NB``): what ``gather_interp_mm`` stages
-    and ``scatter_cols_accum`` accumulates on chip. 0 without such a
-    level."""
+    on chip. 0 without such a level."""
     n = _n_onehot(config)
     if n == 0:
         return 0
@@ -208,34 +209,38 @@ def _descriptors(x, config: HashGridConfig):
 
 
 def _brick_dW(tables, idx, cot):
-    """d<features, cot>/dW [M, 32] of M descriptors: ``gather_cols``
-    re-gathers their bf16 brick rows. cot: [M, F] f32."""
-    M, F = cot.shape
+    """d<features, cot>/dW [M, 32] of M descriptors: ``gather_cols_dot``
+    re-gathers their bf16 brick rows and contracts them with cot [M, F]
+    f32."""
     if tables.dtype != torch.float32:
-        tables = tables.float()  # exact: gather_cols rounds to bf16 again
-    g = gc.gather_cols(tables, idx).float().reshape(M, _BRICK_PAD, F)
-    return torch.sum(g * cot[:, None, :], dim=-1)
+        tables = tables.float()  # exact: the gather rounds to bf16 again
+    return gc.gather_cols_dot(tables, idx, cot)
 
 
 def _dfrac(dW, local, frac):
     """[M, 3] d<features, cot>/dfrac from dW [M, 32] through the separable
-    trilinear weights."""
+    trilinear weights: sum_ijk dW[ijk] w0'[i] w1[j] w2[k] and its two
+    siblings, as broadcast products summed one axis at a time (an
+    ``einsum`` over M runs as a batched matrix-vector product)."""
     M = dW.shape[0]
     dW = dW[:, :_BRICK].reshape(M, 3, 3, 3)
     w = [_axis_weights(local[:, a], frac[:, a]) for a in range(3)]
     dw = [_axis_dweights(local[:, a]) for a in range(3)]
+    ij = torch.sum(dW * w[2][:, None, None, :], dim=3)  # [M, i, j]
+    k = torch.sum(dW * (w[0][:, :, None, None] * w[1][:, None, :, None]),
+                  dim=(1, 2))  # [M, k]
     return torch.stack([
-        torch.einsum("mijk,mi,mj,mk->m", dW, dw[0], w[1], w[2]),
-        torch.einsum("mijk,mi,mj,mk->m", dW, w[0], dw[1], w[2]),
-        torch.einsum("mijk,mi,mj,mk->m", dW, w[0], w[1], dw[2]),
+        torch.sum(torch.sum(ij * w[1][:, None, :], dim=2) * dw[0], dim=1),
+        torch.sum(torch.sum(ij * w[0][:, :, None], dim=1) * dw[1], dim=1),
+        torch.sum(k * dw[2], dim=1),
     ], dim=-1)
 
 
 def _position_grad(tables, desc, cot, config: HashGridConfig, x_shape,
                    x_dtype):
-    """d<features, cot>/dx from one encode's descriptors: ``gather_cols``
-    re-gathers the bf16 brick rows, then the ``dW / dfrac * res``
-    contraction. cot: [L*n, F] level-major f32."""
+    """d<features, cot>/dx from one encode's descriptors: ``dW`` from
+    ``gather_cols_dot``, then the ``dfrac * res`` contraction. cot: [L*n,
+    F] level-major f32."""
     idx, local, frac, _, inside = desc
     L = config.n_levels
     n = idx.shape[0] // L
@@ -311,10 +316,8 @@ class _HashEncode(torch.autograd.Function):
                 idx_g, W_g, cot_g = keep(idx), keep(W), keep(cot)
             else:
                 idx_g, W_g, cot_g = idx, W, cot
-            rows = (W_g[:, :, None] * cot_g[:, None, :]).reshape(
-                idx_g.shape[0], tables.shape[1])
-            grad_tables = gc.scatter_cols_accum(rows, idx_g, tables.shape[0],
-                                                hot_rows=_hot_rows(config))
+            grad_tables = gc.scatter_cols_outer(W_g, cot_g, idx_g,
+                                                tables.shape[0])
         if ctx.needs_input_grad[1]:
             grad_x = _position_grad(tables, ctx.desc, cot, config,
                                     ctx.x_shape, ctx.x_dtype)
@@ -337,7 +340,7 @@ class _TPRoute:
 
     The one-hot prefix levels read a replicated slab of their bricks, made
     by one SUM all-reduce of each rank's owned rows (``gather_interp_mm``
-    on it; its table gradient comes back through ``scatter_cols_accum`` on
+    on it; its table gradient comes back through ``scatter_cols_outer`` on
     the slab, and each rank keeps its own rows). The other levels:
 
     - replicated samples (every rank of the axis encodes the same points):
@@ -345,7 +348,7 @@ class _TPRoute:
       owned elsewhere zeroed and their ids clamped, then one SUM
       all-reduce of the [M, F] features (only the owner's term is
       non-zero, so the sum is the owner's value); the table gradient is
-      the owned descriptors' ``scatter_cols_accum`` on the local rows, with
+      the owned descriptors' ``scatter_cols_outer`` on the local rows, with
       no collective (the cotangent is the same on every rank); the
       position gradient sums the owned descriptors' terms and all-reduces
       [n, 3];
@@ -458,7 +461,6 @@ class _TPRoute:
         """[R, 32F] f32 gradient of this rank's rows. cot: [L*n, F];
         routed: :meth:`routed_cot`'s."""
         idx, _, _, W, _ = self.desc
-        F = cot.shape[1]
         grad = None
         if self.split < idx.shape[0]:
             if not self.ds:
@@ -467,16 +469,12 @@ class _TPRoute:
                     self.own_li
             else:
                 w_g, c_g, li = self.recv_w, routed, self.recv_li
-            rows = (w_g[:, :, None] * c_g[:, None, :]).reshape(
-                li.shape[0], shape[1])
-            grad = gc.scatter_cols_accum(rows, li, shape[0])
+            grad = gc.scatter_cols_outer(w_g, c_g, li, shape[0])
         if grad is None:
             grad = torch.zeros(shape, dtype=torch.float32, device=cot.device)
         if self.split:
-            rows = (W[:self.split, :, None] * cot[:self.split, None, :]
-                    ).reshape(self.split, 32 * F)
-            g_slab = gc.scatter_cols_accum(rows, self.sid, self.slab_rows,
-                                           hot_rows=self.slab_rows)
+            g_slab = gc.scatter_cols_outer(W[:self.split], cot[:self.split],
+                                           self.sid, self.slab_rows)
             if self.ds:  # each rank's samples differ
                 pdist.all_reduce_sum(g_slab, self.axis)
             for g0, B, off in self.spans:
@@ -600,7 +598,7 @@ def hash_encode_vjp(tables, x, config: HashGridConfig, grad_phase=None,
     """:func:`hash_encode`'s features, and the pullback of the positions
     alone: ``pullback(cot)`` gives d<features, cot>/dx (detached) from this
     encode's descriptors, with no second encode and no table gradient (no
-    ``scatter_cols_accum``); the features stay differentiable in the
+    ``scatter_cols_outer``); the features stay differentiable in the
     caller's graph as :func:`hash_encode`'s are. With ``group`` the
     pullback makes the route's collectives, so every rank calls it."""
     out, desc, route = _encode(tables, x, config, grad_phase, group,

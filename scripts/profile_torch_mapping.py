@@ -13,7 +13,7 @@ each part of a step over the same window, and profiles one more window with
 ``torch.profiler``. Prints the step time and rays/s, the time per part
 (ray batch, forward with the surface-normal pullback, backward, the two Adam
 steps, the proposal refresh; each synchronized), the device-busy share
-(kernel time / wall), the four table kernels' share, and the top kernels.
+(kernel time / wall), the table kernels' share, and the top kernels.
 The window is a multiple of the refresh period (16), so it holds its share
 of refresh steps.
 """
@@ -33,8 +33,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import MAPPING, REPLICA, synthetic_frames  # noqa: E402
 
+# the table kernels of csrc/gather.cu by name (their template instances:
+# gather_cols_kernel<L, Sink> is rows 2 and gather_cols_dot,
+# scatter_cols_accum_kernel<F, Src> the scatters' slab design and
+# scatter_runs_kernel<F, Src> their runs design)
 TABLE_KERNELS = ("gather_cols_kernel", "gather_interp_kernel",
-                 "gather_interp_mm_kernel", "scatter_cols_accum_kernel")
+                 "gather_interp_mm_kernel", "scatter_cols_accum_kernel",
+                 "scatter_runs_kernel")
 
 
 def keyframe_packet(n, H, W, device):
@@ -141,7 +146,7 @@ def main():
     print(f"device busy {dev_us / a.window / 1e3:.2f} ms/step of "
           f"{wall * 1e3:.2f} ms wall ({dev_us / a.window / 1e3 / (wall * 1e3):.1%}"
           f" busy, profiler on); {n_launch / a.window:.0f} kernel launches "
-          f"per step; the four table kernels {table_us / a.window / 1e3:.3f} "
+          f"per step; the table kernels {table_us / a.window / 1e3:.3f} "
           f"ms/step ({table_us / max(dev_us, 1):.1%} of device time)")
     print(events.table(sort_by="self_device_time_total", row_limit=30,
                        max_name_column_width=60))

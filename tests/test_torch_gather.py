@@ -1,7 +1,10 @@
-"""The plain versions of the port's four table kernels
+"""The plain versions of the port's table kernels
 (``nerf_vo_tpu_torch/ops/gather_cuda.py``) against the Pallas kernels of
 ``nerf_vo_tpu/ops/gather_pallas.py`` in interpret mode, and against the
-XLA chain of ``hash_encode`` that computes the same functions.
+XLA chain of ``hash_encode`` that computes the same functions. The two
+adjoints of ``gather_interp`` (``gather_cols_dot``, ``scatter_cols_outer``)
+are held against the Pallas ``gather_cols`` / ``scatter_cols_accum``
+followed by the contraction / the outer product in ``jnp``.
 
 Pallas runs as ``tests/test_gather_pallas.py`` runs it: interpret mode,
 tile 128, a 64-brick table of 256-wide rows, M = 256 descriptors. Inputs are
@@ -12,8 +15,11 @@ sums and the output in f32. Tolerances:
 - ``gather_cols``: exact (the same round-to-nearest-even bf16 values);
 - ``gather_interp`` / ``gather_interp_mm``: abs < 0.05 with w rounded to
   bf16 on both sides (the Pallas output's bf16 rounding over |out| <~ 10);
-- ``scatter_cols_accum``: abs < 0.2, the bound of the Pallas tests (Pallas
-  accumulates its ~4 N(0, 0.1) rows per brick in bf16, the port in f32);
+- ``scatter_cols_accum`` / ``scatter_cols_outer``: abs < 0.2, the bound of
+  the Pallas tests (Pallas accumulates its ~4 N(0, 0.1) rows per brick in
+  bf16, the port in f32), and 1e-5 against numpy's f32 ``add.at``;
+- ``gather_cols_dot``: 1e-5 against the Pallas gather's bf16 rows
+  contracted in f32 in ``jnp``, and against numpy (F-term f32 sums);
 - against the XLA chain (all f32 but the bf16 table): 1e-5, the order of
   a 32-term f32 sum.
 """
@@ -134,6 +140,81 @@ def test_scatter_cols_accum_matches_pallas(data):
     np.testing.assert_allclose(got2.numpy(), ref2, rtol=0, atol=1e-5)
 
 
+ADJOINT_CASES = [(8, "random"), (2, "random"), (2, "runs")]
+
+
+def _adjoint_case(F, ids):
+    """A [B, 32F] table, M ids (uniform, or in runs as the hash proposals
+    hand them over: level-major, a ray's samples adjacent), bf16-exact
+    trilinear-like weights [M, 32] (entries 27..31 zero) and a cotangent
+    [M, F] ~ N(0, 0.1)."""
+    rng = np.random.default_rng(20 + F)
+    tab = rng.normal(size=(B, 32 * F)).astype(np.float32)
+    if ids == "runs":
+        idx = np.repeat(rng.integers(0, B, 64), rng.integers(1, 24, 64))[:M]
+        assert idx.shape == (M,) and (idx[1:] == idx[:-1]).mean() > 0.5
+    else:
+        idx = rng.integers(0, B, M)
+    W = _bf16(rng.uniform(0, 1, (M, 32)))
+    W[:, 27:] = 0.0
+    cot = rng.normal(0, 0.1, (M, F)).astype(np.float32)
+    return tab, idx.astype(np.int32), W, cot
+
+
+@pytest.mark.parametrize("F,ids", ADJOINT_CASES)
+def test_gather_cols_dot_matches_pallas(F, ids):
+    """dW[t, e] = sum_f bf16(tab[idx[t], eF+f]) cot[t, f]: the Pallas
+    gather's bf16 rows contracted with cot in jnp, and numpy's f32 sum."""
+    tab, idx, _, cot = _adjoint_case(F, ids)
+    rows = gp.gather_cols(jnp.asarray(tab, jnp.bfloat16), jnp.asarray(idx),
+                          interpret=True, tile=TILE)
+    want = jnp.sum(rows.astype(jnp.float32).reshape(M, 32, F)
+                   * jnp.asarray(cot)[:, None, :], axis=-1)
+    got = gc.gather_cols_dot(torch.tensor(tab), torch.tensor(idx),
+                             torch.tensor(cot))
+    assert got.shape == (M, 32) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    ref = (_bf16(tab)[idx].reshape(M, 32, F) * cot[:, None, :]).sum(-1)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
+
+
+def _bf16_sum_bound(idx, terms, n_bricks):
+    """Elementwise bound on |bf16 scatter - exact sum| for a scatter of
+    ``terms`` rounded to bf16 and added in a bf16 accumulator in any
+    order: gamma_(n+1) * sum |terms| over the n terms of each brick, unit
+    roundoff u = 2^-8 (one rounding of each term, one of each add)."""
+    u = 2.0 ** -8
+    n = np.bincount(idx, minlength=n_bricks)[:, None]
+    assert (n + 1).max() * u < 1
+    abs_sum = np.zeros((n_bricks, terms.shape[1]))
+    np.add.at(abs_sum, idx, np.abs(terms.astype(np.float64)))
+    return (n + 1) * u / (1 - (n + 1) * u) * abs_sum
+
+
+@pytest.mark.parametrize("F,ids", ADJOINT_CASES)
+def test_scatter_cols_outer_matches_pallas(F, ids):
+    """out[b, eF+f] = sum_{idx[t] = b} W[t, e] cot[t, f]: the outer
+    product in jnp through the Pallas scatter (bf16 rows and accumulator),
+    within the bf16 summation bound of each brick's terms, and numpy's f32
+    add.at of the f32 rows."""
+    _, idx, W, cot = _adjoint_case(F, ids)
+    rows = (jnp.asarray(W)[:, :, None] * jnp.asarray(cot)[:, None, :]
+            ).reshape(M, 32 * F)
+    want = gp.scatter_cols_accum(rows.astype(jnp.bfloat16), jnp.asarray(idx),
+                                 n_bricks=B, interpret=True, tile=TILE)
+    got = gc.scatter_cols_outer(torch.tensor(W), torch.tensor(cot),
+                                torch.tensor(idx), B)
+    assert got.shape == (B, 32 * F) and got.dtype == torch.float32
+    terms = (W[:, :, None] * cot[:, None, :]).reshape(M, -1)
+    diff = np.abs(got.numpy() - np.asarray(want, np.float32))
+    bound = _bf16_sum_bound(idx, terms, B) + 1e-5
+    assert (diff <= bound).all(), (diff - bound).max()
+    ref = np.zeros((B, 32 * F), np.float32)
+    np.add.at(ref, idx, terms)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("F", [8, 1])
 def test_plain_versions_compose_to_the_hash_encode_chain(data, F):
     """The XLA chain of hash_encode (feature-major table, bf16 take, f32
@@ -173,4 +254,9 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(data):
         gc.gather_interp(tab, idx, torch.empty(M, 32, device="meta"), 8)
     with pytest.raises(ValueError, match="unsupported device"):
         gc.scatter_cols_accum(torch.empty(M, 256, device="meta"), idx, B)
+    cot = torch.empty(M, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gc.gather_cols_dot(tab, idx, cot)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gc.scatter_cols_outer(torch.empty(M, 32, device="meta"), cot, idx, B)
     assert all(k.launches == 0 for k in gc.KERNELS)

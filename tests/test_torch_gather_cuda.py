@@ -16,7 +16,11 @@ leading rows kept on chip (``hot_rows``) and without; ids out of
 ``[0, n_bricks)`` are held against a reference that reads zeros for them
 (gather) or drops them (scatter). The scatter's id patterns (runs of equal
 ids, which the F <= 2 kernel sums in registers) are held elementwise
-within the f32 summation bound of each brick's terms.
+within the f32 summation bound of each brick's terms. The fused adjoints
+of ``gather_interp``: ``gather_cols_dot`` elementwise within the f32
+summation bound of its F terms, ``scatter_cols_outer`` within that of
+each brick's terms (its rows ``W (x) cot`` formed in registers) and
+bitwise the same over two calls (it adds no atomics).
 """
 
 import pytest
@@ -434,8 +438,10 @@ def test_hash_proposal_grid_at_f2_with_512_hot_rows(dev):
     features, log2 17, resolution 16 -> 128: level 0's 512 bricks on the
     one-hot route and kept on chip, 512 hot rows): hash_encode's forward,
     table gradient and position gradient on the card against the plain
-    versions on the CPU; then gather_interp_mm and scatter_cols_accum
-    alone at F = 2 with the 512 hot rows, against plain."""
+    versions on the CPU (rows 2 and 5 as the fused adjoints, one launch
+    each, the unfused kernels none); then gather_interp_mm and
+    scatter_cols_accum alone at F = 2 with the 512 hot rows, against
+    plain."""
     cfg = hg.HashGridConfig(5, 2, 17, 16, 128)
     assert hg._hot_rows(cfg) == 512
     g = torch.Generator().manual_seed(7)
@@ -452,9 +458,11 @@ def test_hash_proposal_grid_at_f2_with_512_hot_rows(dev):
         outs.append([v.detach().cpu() for v in (out, gt, gp)])
     for a, b in zip(*outs):
         _close(b, a)
-    for name in ("gather_cols", "gather_interp", "gather_interp_mm",
-                 "scatter_cols_accum"):
+    for name in ("gather_cols_dot", "gather_interp", "gather_interp_mm",
+                 "scatter_cols_outer"):
         assert getattr(gc, name).launches == counts[name] + 1, name
+    for name in ("gather_cols", "scatter_cols_accum"):
+        assert getattr(gc, name).launches == counts[name], name
     tab_d = tab.to(dev)
     n = 2000
     idx, _, _, W, _ = hg._descriptors(x.to(dev), cfg)
@@ -603,3 +611,186 @@ def test_gather_cols_bitwise_widths(dev, R, M):
     safe = torch.where(ok, idx, torch.zeros_like(idx))
     want = gc.gather_cols_plain(tab, safe) * ok[:, None]
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the fused adjoints of gather_interp: gather_cols_dot (row 2 with the
+# contraction that consumed its rows) and scatter_cols_outer (row 5 with
+# the outer product that fed it)
+# ---------------------------------------------------------------------------
+
+ADJOINT_IDS = ["random", "runs", "out_of_range"]
+
+
+def _adjoint_inputs(dev, F, ids, M=4099, n_bricks=700):
+    """A table, M ids (uniform; in runs of 1-29, as the hash grid hands
+    them over; or uniform with ids out of range among them), trilinear
+    weights of random points (8 live corners, entries 27..31 zero) and a
+    cotangent [M, F]."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(21 + F)
+    tab = torch.randn(n_bricks, 32 * F, generator=g, device=dev)
+    if ids == "runs":
+        c = torch.Generator().manual_seed(22)
+        starts = torch.randint(0, n_bricks, (M,), generator=c)
+        lengths = torch.randint(1, 30, (M,), generator=c)
+        idx = _runs(dev, lengths.tolist(), starts.tolist())[:M].contiguous()
+    else:
+        lo, hi = (-50, n_bricks + 50) if ids == "out_of_range" else (
+            0, n_bricks)
+        idx = torch.randint(lo, hi, (M,), generator=g, device=dev,
+                            dtype=torch.int32)
+        if ids == "out_of_range":
+            idx[:2] = torch.tensor([-1, 2**31 - 1], dtype=torch.int32)
+    x = torch.rand(M, 3, generator=g, device=dev)
+    _, _, _, w, _ = hg._descriptors(x, hg.HashGridConfig(1, F, 14, 16, 16))
+    cot = torch.randn(M, F, generator=g, device=dev)
+    return tab, idx, w.contiguous(), cot
+
+
+def _within_dot_bound(got, tab, idx, cot):
+    """Elementwise |got - plain| <= 2 gamma_(F+1) * sum_f |bf16(v) c|, the
+    bound on two f32 sums of the same F products in any order; ids outside
+    [0, n_bricks) give rows of zeros."""
+    F = cot.shape[1]
+    ok = (idx >= 0) & (idx < tab.shape[0])
+    safe = torch.where(ok, idx, torch.zeros_like(idx))
+    want = gc.gather_cols_dot_plain(tab, safe, cot) * ok[:, None]
+    abs_sum = gc.gather_cols_dot_plain(tab.abs(), safe, cot.abs())
+    eps = 2.0 ** -24
+    bound = 2 * (F + 1) * eps / (1 - (F + 1) * eps) * abs_sum
+    diff = (got - want).abs()
+    assert bool((diff <= bound).all()), diff.max().item()
+    assert not got[~ok].any()
+
+
+def _outer_rows(W, cot):
+    M, F = cot.shape
+    return (W[:, :, None] * cot[:, None, :]).reshape(M, 32 * F)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids", ADJOINT_IDS)
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_gather_cols_dot_matches_plain(dev, F, ids):
+    tab, idx, _, cot = _adjoint_inputs(dev, F, ids)
+    before = (gc.gather_cols_dot.launches, gc.gather_cols.launches)
+    got = gc.gather_cols_dot(tab, idx, cot)
+    torch.cuda.synchronize()
+    assert (gc.gather_cols_dot.launches, gc.gather_cols.launches) == (
+        before[0] + 1, before[1])
+    assert got.shape == (idx.shape[0], 32) and got.dtype == torch.float32
+    _within_dot_bound(got, tab, idx, cot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids", ADJOINT_IDS)
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_scatter_cols_outer_matches_plain(dev, F, ids):
+    """One launch of the fused kernel and none of row 5; ids out of range
+    are dropped."""
+    _, idx, W, cot = _adjoint_inputs(dev, F, ids)
+    before = (gc.scatter_cols_outer.launches, gc.scatter_cols_accum.launches)
+    got = gc.scatter_cols_outer(W, cot, idx, 700)
+    torch.cuda.synchronize()
+    assert (gc.scatter_cols_outer.launches,
+            gc.scatter_cols_accum.launches) == (before[0] + 1, before[1])
+    assert got.shape == (700, 32 * F)
+    _within_sum_bound(got, _outer_rows(W, cot), idx, 700)
+    assert not got.reshape(700, 32, F)[:, 27:].any()  # zero weights
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCATTER_CASES)
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_scatter_cols_outer_id_patterns(dev, F, case):
+    """The scatter's id patterns with rows formed from dense random
+    weights (every entry live) and a cotangent."""
+    idx, n_bricks, _ = _scatter_case(dev, case)
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    W = torch.rand(idx.shape[0], 32, generator=g, device=dev)
+    cot = torch.randn(idx.shape[0], F, generator=g, device=dev)
+    got = gc.scatter_cols_outer(W, cot, idx, n_bricks)
+    torch.cuda.synchronize()
+    _within_sum_bound(got, _outer_rows(W, cot), idx, n_bricks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCATTER_CASES)
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_scatter_cols_outer_repeats_bitwise(dev, F, case):
+    """The sorted design adds no atomics: two calls on the same inputs
+    give the same bits, ids spanning many lane groups' ranges included."""
+    idx, n_bricks, _ = _scatter_case(dev, case)
+    g = torch.Generator(device=dev)
+    g.manual_seed(25)
+    W = torch.rand(idx.shape[0], 32, generator=g, device=dev)
+    cot = torch.randn(idx.shape[0], F, generator=g, device=dev)
+    first = gc.scatter_cols_outer(W, cot, idx, n_bricks)
+    again = gc.scatter_cols_outer(W, cot, idx, n_bricks)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_adjoints_on_proposal_rays(dev, F):
+    """Level-major descriptors of rays (each ray's samples adjacent) through
+    a 5-level grid: both adjoints as the hash grid's backward calls
+    them."""
+    cfg = hg.HashGridConfig(5, F, 17, 16, 128)
+    g = torch.Generator(device=dev)
+    g.manual_seed(24)
+    rays, samples = 1024, 96
+    o = torch.rand(rays, 1, 3, generator=g, device=dev) * 0.2 + 0.4
+    d = torch.randn(rays, 1, 3, generator=g, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.linspace(0.0, 0.5, samples, device=dev)[None, :, None]
+    idx, _, _, W, _ = hg._descriptors((o + t * d).clamp(0.0, 1.0), cfg)
+    cot = torch.randn(idx.shape[0], F, generator=g, device=dev)
+    nb = 5 * cfg.bricks_per_level
+    tab = torch.randn(nb, 32 * F, generator=g, device=dev)
+    got = gc.scatter_cols_outer(W, cot, idx, nb)
+    dW = gc.gather_cols_dot(tab, idx, cot)
+    torch.cuda.synchronize()
+    _within_sum_bound(got, _outer_rows(W, cot), idx, nb)
+    _within_dot_bound(dW, tab, idx, cot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_adjoints_with_no_descriptors(dev, F):
+    """M = 0: an empty dW and a zero gradient, no launch."""
+    tab, idx, W, cot = _adjoint_inputs(dev, F, "random", M=16)
+    before = (gc.gather_cols_dot.launches, gc.scatter_cols_outer.launches)
+    dW = gc.gather_cols_dot(tab, idx[:0], cot[:0])
+    grad = gc.scatter_cols_outer(W[:0], cot[:0], idx[:0], 700)
+    torch.cuda.synchronize()
+    assert dW.shape == (0, 32)
+    assert grad.shape == (700, 32 * F) and not grad.any()
+    assert (gc.gather_cols_dot.launches,
+            gc.scatter_cols_outer.launches) == before
+
+
+@pytest.mark.cuda
+def test_adjoints_reject_bad_inputs(dev):
+    tab, idx, W, cot = _adjoint_inputs(dev, 8, "random", M=64)
+    with pytest.raises(ValueError):
+        gc.gather_cols_dot(tab, idx, cot[:, :4].contiguous())  # R != 32F
+    with pytest.raises(ValueError):
+        gc.gather_cols_dot(tab, idx, cot[:10])  # row count mismatch
+    with pytest.raises(TypeError):
+        gc.gather_cols_dot(tab, idx, cot.double())
+    with pytest.raises(ValueError):
+        gc.gather_cols_dot(tab, idx, cot.cpu())
+    with pytest.raises(ValueError):
+        gc.gather_cols_dot(tab, idx, cot[:, :3].contiguous())  # F 3
+    with pytest.raises(ValueError):
+        gc.scatter_cols_outer(W[:, :16].contiguous(), cot, idx, 700)
+    with pytest.raises(ValueError):
+        gc.scatter_cols_outer(W, cot[:10], idx, 700)
+    with pytest.raises(TypeError):
+        gc.scatter_cols_outer(W, cot, idx.long(), 700)
+    with pytest.raises(ValueError):
+        gc.scatter_cols_outer(W, cot.t(), idx, 700)  # not contiguous

@@ -5,8 +5,8 @@ Inputs are numpy draws from a fixed seed; tables go to the port transposed
 to its brick-major layout. On the CPU the port's ``hash_encode`` runs the
 plain versions of its kernels: the one-hot route (``gather_interp_mm``) on
 the dense prefix levels with at most 512 bricks, ``gather_interp`` on the
-rest, ``scatter_cols_accum`` for the table gradient and ``gather_cols`` for
-the position gradient.
+rest, ``scatter_cols_outer`` for the table gradient and ``gather_cols_dot``
+for the position gradient.
 
 Tolerances, from the measured spread:
 - brick ids: bit-exact (int64 masked to 32 bits against uint32);
@@ -126,9 +126,8 @@ def _jax_onehot_rows(jcfg):
                                   "proposal160", "proposal16",
                                   "proposal24"])
 def test_hot_rows_follow_the_jax_onehot_rule(case, monkeypatch):
-    """The leading rows ``hash_encode`` asks ``gather_interp_mm`` and
-    ``scatter_cols_accum`` to keep on chip are the rows of the JAX
-    package's one-hot levels: the test field, the replica field (3 x 8, log2
+    """The leading rows ``hash_encode`` asks ``gather_interp_mm`` to keep
+    on chip are the rows of the JAX package's one-hot levels: the test field, the replica field (3 x 8, log2
     19, 16 -> 2048) and the replica's two dense proposal grids (128, 160),
     and the small proposal grids of the parity test."""
     grids = dict(_grid_cases(),
@@ -152,16 +151,39 @@ def test_hot_rows_follow_the_jax_onehot_rule(case, monkeypatch):
             return real(*args, hot_rows=hot_rows)
         return call
 
-    for name in ("gather_interp_mm", "scatter_cols_accum"):
-        monkeypatch.setattr(thg.gc, name, spy(name))
+    monkeypatch.setattr(thg.gc, "gather_interp_mm", spy("gather_interp_mm"))
     L, F = tcfg.n_levels, tcfg.features_per_level
     rng = np.random.default_rng(3)
     tab = torch.tensor(rng.normal(size=(L * tcfg.bricks_per_level, 32 * F)),
                        dtype=torch.float32, requires_grad=True)
     x = torch.tensor(rng.uniform(0, 1, (64, 3)), dtype=torch.float32)
     thg.hash_encode(tab, x, tcfg).sum().backward()
-    assert seen["scatter_cols_accum"] == [want]
     assert seen.get("gather_interp_mm", []) == ([want] if want else [])
+
+
+def test_dfrac_matches_the_einsum_form():
+    """``_dfrac`` (broadcast products summed one axis at a time) against
+    the contraction it replaced, one ``einsum("mijk,mi,mj,mk->m")`` per
+    axis, on the descriptors of points in and around the unit cube and a
+    dW ~ N(0, 1): f32 sums of 27 terms in another order, 1e-6 relative."""
+    cfg = thg.HashGridConfig(**FIELD)
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.uniform(-0.02, 1.02, (2000, 3)).astype(np.float32))
+    _, local, frac, _, _ = thg._descriptors(x, cfg)
+    dW = torch.tensor(rng.normal(size=(local.shape[0], 32)).astype(
+        np.float32))
+    d = dW[:, :27].reshape(-1, 3, 3, 3)
+    w = [thg._axis_weights(local[:, a], frac[:, a]) for a in range(3)]
+    dw = [thg._axis_dweights(local[:, a]) for a in range(3)]
+    want = torch.stack([
+        torch.einsum("mijk,mi,mj,mk->m", d, dw[0], w[1], w[2]),
+        torch.einsum("mijk,mi,mj,mk->m", d, w[0], dw[1], w[2]),
+        torch.einsum("mijk,mi,mj,mk->m", d, w[0], w[1], dw[2]),
+    ], dim=-1).numpy()
+    got = thg._dfrac(dW, local, frac).numpy()
+    assert got.shape == (local.shape[0], 3)
+    np.testing.assert_allclose(got, want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())
 
 
 def test_contractions_match_jax():

@@ -1,21 +1,24 @@
-"""The order in which the hash proposals hand their table gradient to
-``scatter_cols_accum``, which the kernel's F <= 2 design relies on: it
-sums runs of equal ids in registers before adding them to the table
-(``nerf_vo_tpu_torch/csrc/gather.cu``).
+"""The order in which the hash proposals and the NeRF field hand their
+table gradient to ``scatter_cols_outer``, which the atomic runs design of
+``scatter_cols_accum`` relies on: it sums runs of equal ids in registers
+before adding them to the table (``nerf_vo_tpu_torch/csrc/gather.cu``;
+``scatter_cols_outer`` sorts the ids first and does not depend on it).
 
-A ``ProposalDensityField`` encodes ``positions [rays, samples, 3]``; its
-backward scatters one row per (level, sample) in level-major order, and
-within a level in ray-major order, a ray's samples adjacent. Consecutive
-samples of a ray lie close together, so at the coarse levels they fall in
-the same brick: the ids come in runs longer than 1. CPU only (the plain
-scatter), at a small proposal grid.
+A ``ProposalDensityField`` or ``NerfactoField`` encodes ``positions
+[rays, samples, 3]``; its backward scatters one row per (level, sample) in
+level-major order, and within a level in ray-major order, a ray's samples
+adjacent. Consecutive samples of a ray lie close together, so at the
+coarse levels they fall in the same brick: the ids come in runs longer
+than 1. CPU only (the plain scatter), at small proposal grids and the
+replica field's grid.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from nerf_vo_tpu_torch.models.nerf_field import ProposalDensityField
+from nerf_vo_tpu_torch.models.nerf_field import (NerfactoField,
+                                                 ProposalDensityField)
 from nerf_vo_tpu_torch.ops import gather_cuda as gc
 from nerf_vo_tpu_torch.ops import hash_grid as hg
 
@@ -35,18 +38,36 @@ def _ray_positions(seed):
     return torch.tensor((o + t[None, :, None] * d).astype(np.float32))
 
 
-def _scattered_ids(field, pos, monkeypatch):
+def _scattered_ids(density, pos, monkeypatch):
     seen = []
-    scatter = gc.scatter_cols_accum
+    scatter = gc.scatter_cols_outer
 
-    def record(g, idx, n_bricks, hot_rows=0):
+    def record(W, cot, idx, n_bricks):
         seen.append(idx.clone())
-        return scatter(g, idx, n_bricks, hot_rows=hot_rows)
+        return scatter(W, cot, idx, n_bricks)
 
-    monkeypatch.setattr(gc, "scatter_cols_accum", record)
-    field(pos).sum().backward()
+    monkeypatch.setattr(gc, "scatter_cols_outer", record)
+    density(pos).sum().backward()
     assert len(seen) == 1
     return seen[0]
+
+
+def _level_runs(field, density, cfg, pos, monkeypatch):
+    """The ids that ``density(pos)``'s backward scatters checked to be
+    level-major, then ray-major with a ray's samples adjacent, each level
+    in its own rows; returns the number of id runs in each level."""
+    idx = _scattered_ids(density, pos, monkeypatch)
+    L, NB, n = cfg.n_levels, cfg.bricks_per_level, RAYS * SAMPLES
+    assert idx.shape == (L * n,) and idx.dtype == torch.int32
+    per_level = idx.reshape(L, RAYS, SAMPLES).long()
+    for r in range(RAYS):
+        alone, *_ = hg._descriptors(field._to_unit(pos[r]), cfg)
+        assert torch.equal(per_level[:, r], alone.reshape(L, SAMPLES).long())
+    for lv in range(L):
+        assert per_level[lv].min() >= lv * NB
+        assert per_level[lv].max() < (lv + 1) * NB
+    return [int((s[1:] != s[:-1]).sum()) + 1
+            for s in per_level.reshape(L, n)]
 
 
 @pytest.mark.parametrize("max_res", [128, 256], ids=["proposal0",
@@ -59,22 +80,27 @@ def test_proposal_scatter_ids_are_level_then_ray_major(max_res,
     cfg = hg.HashGridConfig(5, 2, 13, 16, max_res)
     torch.manual_seed(0)
     field = ProposalDensityField(grid=cfg)
-    pos = _ray_positions(1)
-    idx = _scattered_ids(field, pos, monkeypatch)
-    L, NB, n = cfg.n_levels, cfg.bricks_per_level, RAYS * SAMPLES
-    assert idx.shape == (L * n,) and idx.dtype == torch.int32
-    per_level = idx.reshape(L, RAYS, SAMPLES).long()
-    for r in range(RAYS):
-        alone, *_ = hg._descriptors(field._to_unit(pos[r]), cfg)
-        assert torch.equal(per_level[:, r], alone.reshape(L, SAMPLES).long())
-    for lv in range(L):
-        assert per_level[lv].min() >= lv * NB
-        assert per_level[lv].max() < (lv + 1) * NB
-    runs = [int((s[1:] != s[:-1]).sum()) + 1
-            for s in per_level.reshape(L, n)]
+    runs = _level_runs(field, field, cfg, _ray_positions(1), monkeypatch)
+    n = RAYS * SAMPLES
     # level 0 (8 bricks an axis) and level 1: several samples a brick
     assert runs[0] * 4 <= n and runs[1] * 2 <= n, runs
     # finer levels split rays into more bricks
+    assert runs[0] <= runs[1] <= runs[-1], runs
+
+
+def test_field_scatter_ids_are_level_then_ray_major(monkeypatch):
+    """The same order for the NeRF field at the replica configuration's
+    grid (3 x 8, log2 19, 16 -> 2048), the shape of the F = 8 measurements
+    of the scatter designs: level 0's ids come in runs longer than 1, and
+    the finer levels in more runs."""
+    cfg = hg.HashGridConfig(3, 8, 19, 16, 2048)
+    torch.manual_seed(0)
+    field = NerfactoField(grid=cfg, predict_normals=False)
+    runs = _level_runs(field, lambda p: field.density(p)[0], cfg,
+                       _ray_positions(2), monkeypatch)
+    n = RAYS * SAMPLES
+    # level 0 (8 bricks an axis): several samples a brick
+    assert runs[0] * 4 <= n, runs
     assert runs[0] <= runs[1] <= runs[-1], runs
 
 
