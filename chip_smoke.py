@@ -15,9 +15,14 @@ exit:
       version's time, the least time the card could take and, where one
       PyTorch call computes the same function, that call's time; rows 2
       and 5 (``gather_cols``, ``scatter_cols_accum``) as the TPU had them,
-      and as the paths run them, fused with their consumer and producer
-      (``gather_cols_dot``, ``scatter_cols_outer``), each of those timed
-      beside the chain it replaced;
+      and as the paths run them, fused with their consumer and producer:
+      the position pullback ``gather_cols_dfrac`` (row 2's gather with the
+      contraction through the trilinear weights' derivatives, 8 corners a
+      descriptor) and ``scatter_cols_outer`` (row 5 with the outer
+      product, on the ids sorted by ``sort_ids``), each timed beside the
+      chain it replaced (``gather_cols_dot`` then ``dfrac``; the
+      materialized rows then row 5), the sort beside ``torch.sort``;
+      ``gather_cols_dot`` held as row 2's earlier fused form;
   (b) tracking: ``TrackingStage`` at the full replica configuration
       (DPVO fdim 128 / cdim 384, 96 patches, 32768 edge slots, 32-frame
       ring) on synthetic 360x640 frames, random weights from a seed;
@@ -29,8 +34,8 @@ exit:
       with train steps interleaved as the serial pipeline does, 64 steps in
       all, then one full-frame render; the last step's calls of the fused
       adjoints held and timed, the field scatter's id runs per level
-      printed; rows 2 and 5 with their plain row sink and source launch on
-      no path (here or in any later phase);
+      printed; rows 2 and 5 with their plain row sink and source, and
+      ``gather_cols_dot``, launch on no path (here or in any later phase);
   (e) the pipeline: ``runtime.pipeline.execute`` at the replica
       configuration's full width and its own threaded mode, fed the
       synthetic frames through ``DataStage`` (the card has no OpenCV to
@@ -166,18 +171,23 @@ SLEEP_CYCLES = 100_000_000  # ~50 ms of device clock
 L2_FLUSH_BYTES = 128 << 20  # written before each cold call: > the 50 MB L2
 # table-kernel launches of one train step without a proposal refresh: the
 # forward (one per route, the surface pass's too), the surface-normal
-# pullback (position only: one gather_cols_dot, no scatter) and the outer
-# backward (the field's position gradient; both passes' table gradients)
-ORDINARY_STEP_LAUNCHES = dict(gather_cols_dot=2, gather_interp=4,
-                              gather_interp_mm=2, scatter_cols_outer=2)
+# pullback (position only: one gather_cols_dfrac, no scatter) and the
+# outer backward (the field's position gradient; both passes' table
+# gradients, each with its sort)
+ORDINARY_STEP_LAUNCHES = dict(gather_cols_dfrac=2, gather_interp=4,
+                              gather_interp_mm=2, scatter_cols_outer=2,
+                              sort_ids=2)
 # rows 2-5 as the paths run them: rows 2 and 5 (gather_cols,
-# scatter_cols_accum) through their fused instantiations, the W and the
-# table adjoints of row 3
-TABLE_ROWS = ("gather_cols_dot", "gather_interp", "gather_interp_mm",
+# scatter_cols_accum) through their fused instantiations, the position
+# pullback and the table adjoint of row 3
+TABLE_ROWS = ("gather_cols_dfrac", "gather_interp", "gather_interp_mm",
               "scatter_cols_outer")
-# rows 2 and 5 with their plain row source and sink: held in phase (a),
-# launched on no path
-UNFUSED = ("gather_cols", "scatter_cols_accum")
+# the table adjoint's sort: launched by scatter_cols_outer, once a call
+SORT = "sort_ids"
+# rows 2 and 5 with their plain row source and sink, and row 2's earlier
+# fused form (dW, which the position pullback no longer writes): held in
+# phase (a), launched on no path
+UNFUSED = ("gather_cols", "scatter_cols_accum", "gather_cols_dot")
 
 
 def log(*a):
@@ -380,8 +390,9 @@ def gather_inputs(dev):
     grid (3 levels x 8 features, 16,384 bricks a level; level 0's 512
     bricks on the one-hot route). Returns the table, the level-major ids and
     trilinear weights of all levels, the number of level-0 descriptors, a
-    cotangent of the encoded features, and the number of leading table rows
-    the hash grid keeps on chip (level 0's 512 bricks)."""
+    cotangent of the encoded features, the number of leading table rows
+    the hash grid keeps on chip (level 0's 512 bricks), and the
+    descriptors' base corners and offsets."""
     from nerf_vo_tpu_torch.ops import hash_grid as hg
 
     cfg = hg.HashGridConfig(3, 8, 19, 16, 2048)
@@ -391,9 +402,9 @@ def gather_inputs(dev):
                       device=dev) * 0.5
     n = RAYS * FIELD_SAMPLES
     x = torch.rand(n, 3, generator=gen, device=dev)
-    idx, _, _, W, _ = hg._descriptors(x, cfg)
+    idx, local, frac, W, _ = hg._descriptors(x, cfg)
     cot = torch.randn(3 * n, 8, generator=gen, device=dev)
-    return tab, idx, W, n, cot, hg._hot_rows(cfg)
+    return tab, idx, W, n, cot, hg._hot_rows(cfg), local, frac
 
 
 def proposal_inputs(dev):
@@ -504,19 +515,25 @@ def check_sums(name, got, want, abs_sum, terms, tag):
 
 
 def check_unfused(counts, where):
-    """Rows 2 and 5 with their plain row sink and source launch on no path:
-    the hash grid's backward takes their fused instantiations."""
+    """Rows 2 and 5 with their plain row sink and source, and
+    ``gather_cols_dot``, launch on no path: the hash grid's backward takes
+    ``gather_cols_dfrac`` and ``scatter_cols_outer``; and the scatter
+    sorts with ``sort_ids``, once a call."""
     for name in UNFUSED:
         if counts.get(name):
             fail(f"{where} launched {name} {counts[name]} times; the hash "
-                 "grid's backward takes gather_cols_dot / scatter_cols_outer")
+                 "grid's backward takes gather_cols_dfrac / "
+                 "scatter_cols_outer")
+    if counts.get(SORT, 0) != counts.get("scatter_cols_outer", 0):
+        fail(f"{where} launched sort_ids {counts.get(SORT)} times for "
+             f"{counts.get('scatter_cols_outer')} scatters")
 
 
 def call_shape(name, a):
     """(M, F) of a recorded table-kernel call."""
     if name == "scatter_cols_outer":
         return a[0].shape[0], a[1].shape[1]
-    if name == "gather_cols_dot":
+    if name in ("gather_cols_dot", "gather_cols_dfrac"):
         return a[1].shape[0], a[2].shape[1]
     if name in UNFUSED:
         return a[1].shape[0], a[0].shape[1] // 32
@@ -537,19 +554,102 @@ def chain_hot_rows(nb, F):
     return hot if F == 8 and nb in field else 0
 
 
+def corner_table_bytes(t, i, local, F):
+    """Bytes of the table that the position pullback needs for these
+    descriptors: of each touched brick, once, the 32-byte sectors that hold
+    one of a descriptor's 8 cell corners (the entries with a non-zero
+    weight or weight derivative)."""
+    from nerf_vo_tpu_torch.ops import hash_grid as hg
+
+    i3 = torch.arange(3, device=local.device)
+    ax = [((i3 == lo[:, None]) | (i3 == lo[:, None] + 1)).float()
+          for lo in local.T]
+    corners = torch.cat([hg._trilinear(*ax),
+                         ax[0].new_zeros(local.shape[0], 5)], 1)
+    live = live_groups(t, i, corners, F, 32)
+    G = live.shape[1]
+    flat = (i.long().clamp(0, t.shape[0] - 1)[:, None] * G
+            + torch.arange(G, device=i.device)[None, :])
+    touched = torch.zeros(t.shape[0] * G, dtype=torch.bool, device=i.device)
+    touched[flat[live]] = True
+    return int(touched.sum()) * 32
+
+
+def dfrac_abs_sum(t, i, c, local, frac, first, res):
+    """The position pullback of the terms' absolute values: |bf16(v)| |c|
+    w w |w'| res summed as the function sums its terms (the scale of
+    check_sums' bound)."""
+    from nerf_vo_tpu_torch.ops import gather_cuda as gc
+
+    d = gc.gather_cols_dot_plain(t.abs(), i, c.abs())[:, :27].reshape(
+        -1, 3, 3, 3)
+    w = [gc.axis_weights(local[:, a], frac[:, a]) for a in range(3)]
+    dw = [gc.axis_dweights(local[:, a]).abs() for a in range(3)]
+    scale = torch.tensor(res, dtype=torch.float32, device=t.device)[
+        gc.id_levels(i, first)]
+    return torch.stack([
+        torch.einsum("mijk,mi,mj,mk->m", d, dw[0], w[1], w[2]),
+        torch.einsum("mijk,mi,mj,mk->m", d, w[0], dw[1], w[2]),
+        torch.einsum("mijk,mi,mj,mk->m", d, w[0], w[1], dw[2]),
+    ], dim=-1) * scale[:, None]
+
+
+def sort_timing(i, nb, label, tag):
+    """``sort_ids`` on a scatter's ids: exactly its plain version (keys and
+    positions), timed as phase (a) times a kernel, beside ``torch.sort``
+    of the same ids (its library call; the plain version maps ids out of
+    range first). Bound: the ids read, the keys and positions written."""
+    from nerf_vo_tpu_torch.ops import gather_cuda as gc
+
+    m = i.shape[0]
+    keys, perm = gc.sort_ids(i, nb)
+    want_k, want_p = gc.sort_ids_plain(i, nb)
+    torch.cuda.synchronize()
+    if not (torch.equal(keys, want_k) and torch.equal(perm, want_p)):
+        fail(f"sort_ids at {label} differs from its plain version")
+    return time_kernel(
+        f"sort_ids at {label}: M={m} ids of {nb} bricks",
+        lambda: gc.sort_ids(i, nb), lambda: gc.sort_ids_plain(i, nb),
+        lambda: torch.sort(i, stable=True), 12 * m, 0, 0.0, tag=tag)
+
+
 def adjoint_timing(name, a, label, tag):
     """One fused adjoint on its inputs: held elementwise within the f32
     summation bound of its terms against its plain version, timed as phase
-    (a) times a kernel, and the chain it replaced on the same inputs (row 2
-    then the cast, product and sum; or the materialized W (x) cot rows then
-    row 5, given the hot rows it was given then: :func:`chain_hot_rows`)
-    timed in the same call. Returns the timing."""
+    (a) times a kernel, and the chain it replaced on the same inputs timed
+    in the same call: for ``gather_cols_dfrac`` ``gather_cols_dot``, then
+    ``dfrac`` and the resolution's product; for ``gather_cols_dot`` row 2
+    then the cast, product and sum; for ``scatter_cols_outer`` the
+    materialized W (x) cot rows then row 5, given the hot rows it was given
+    then (:func:`chain_hot_rows`), and its ids' sort (:func:`sort_timing`,
+    under ``sort``). Returns the timing."""
     from nerf_vo_tpu_torch.ops import gather_cuda as gc
 
     kernel = getattr(gc, name)
     got = kernel(*a)
     torch.cuda.synchronize()
-    if name == "gather_cols_dot":
+    extra = {}
+    if name == "gather_cols_dfrac":
+        t, i, c, local, frac, first, res = a
+        m, F = c.shape
+        again = kernel(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"{name} at {label} gave other bits on a second call")
+        err = check_sums(f"{name} at {label}", got,
+                         gc.gather_cols_dfrac_plain(*a),
+                         dfrac_abs_sum(*a), F + 12, tag)
+        scale = torch.tensor(res, dtype=torch.float32, device=t.device)[
+            gc.id_levels(i, first)][:, None]
+
+        def chain():
+            return gc.dfrac(gc.gather_cols_dot(t, i, c), local, frac) * scale
+
+        nbytes = corner_table_bytes(t, i, local, F) + m * (4 + 4 * F + 24
+                                                           + 12 + 12)
+        flops = m * (8 * 2 * F + 40)
+        what = f"M={m} F={F} over {t.shape[0]} bricks"
+    elif name == "gather_cols_dot":
         t, i, c = a
         m, F = c.shape
         err = check_sums(f"{name} at {label}", got,
@@ -562,8 +662,8 @@ def adjoint_timing(name, a, label, tag):
             return torch.sum(g * c[:, None, :], dim=-1)
 
         nbytes = table_bytes(t, i) + m * (4 + 4 * F + 32 * 4)
+        flops = 2 * m * 32 * F
         what = f"M={m} F={F} over {t.shape[0]} bricks"
-        plain = lambda: gc.gather_cols_dot_plain(t, i, c)  # noqa: E731
     else:
         W, c, i, nb = a[:4]
         m, F = c.shape
@@ -572,6 +672,10 @@ def adjoint_timing(name, a, label, tag):
         live = (il >= 0) & (il < nb)
         terms = torch.zeros(nb, device=W.device).index_add_(
             0, il[live], torch.ones(int(live.sum()), device=W.device))
+        again = kernel(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"{name} at {label} gave other bits on a second call")
         err = check_sums(f"{name} at {label}", got,
                          gc.scatter_cols_outer_plain(W, c, i, nb),
                          gc.scatter_cols_outer_plain(W.abs(), c.abs(), i,
@@ -583,19 +687,22 @@ def adjoint_timing(name, a, label, tag):
             return gc.scatter_cols_accum(rows, i, nb, hot_rows=hot)
 
         nbytes = m * (32 * 4 + 4 * F + 4) + nb * 32 * F * 4
+        flops = 2 * m * 32 * F
         what = (f"M={m} F={F} into {nb} bricks"
                 f"{f' (the chain with hot rows {hot})' if hot else ''}")
-        plain = lambda: gc.scatter_cols_outer_plain(W, c, i, nb)  # noqa: E731
+        extra["sort"] = sort_timing(i, nb, label, tag)
     timing = time_kernel(f"{name} at {label}: {what}",
-                         lambda: kernel(*a), plain, None, nbytes,
-                         2 * m * 32 * F, err, tag=tag)
+                         lambda: kernel(*a), lambda: getattr(
+                             gc, f"{name}_plain")(*a), None, nbytes, flops,
+                         err, tag=tag)
     chain_ms = cuda_ms(chain, 20)
     chain_queued = cuda_ms(chain, 20, queued=True)
     print(f"{tag} the chain {name} replaces, same inputs: {chain_ms:.4f} "
           f"ms, queued {chain_queued:.4f} ms; the kernel "
           f"{timing['ms']:.4f} ms ({timing['ms'] / chain_ms:.1%} of the "
           "chain's time)", flush=True)
-    return dict(timing, chain_ms=chain_ms, chain_queued_ms=chain_queued)
+    return dict(timing, chain_ms=chain_ms, chain_queued_ms=chain_queued,
+                **extra)
 
 
 def stress_checks(tab, hot):
@@ -722,15 +829,16 @@ def phase_gather(dev):
     import torch.nn.functional as Fn
 
     from nerf_vo_tpu_torch.ops import gather_cuda as gc
+    from nerf_vo_tpu_torch.ops import hash_grid as hg
 
-    tab, idx, W, n, cot, hot = gather_inputs(dev)
+    tab, idx, W, n, cot, hot, local, frac = gather_inputs(dev)
     M, R = idx.shape[0], tab.shape[1]
     src = "nerf_vo_tpu_torch/csrc/gather.cu"
     pallas = "nerf_vo_tpu/ops/gather_pallas.py"
     out = []
 
     # 2: gather_cols, every level (held here: the paths take its
-    # gather_cols_dot instantiation)
+    # gather_cols_dfrac instantiation)
     got = gc.gather_cols(tab, idx)
     torch.cuda.synchronize()
     if not torch.equal(got, gc.gather_cols_plain(tab, idx)):
@@ -842,18 +950,30 @@ def phase_gather(dev):
     scatter_entry("level 0 alone (no hot rows)", rows[:n], idx[:n], 0)
     scatter_entry("hashed levels alone", rows[n:], idx[n:], hot)
 
-    # rows 2 and 5 as the paths run them: the W and the table adjoints of
-    # row 3 over every level of the field, the product or the contraction
-    # in registers; each beside the chain it replaced
+    # rows 2 and 5 as the paths run them: the position pullback and the
+    # table adjoint of row 3 over every level of the field, the contraction
+    # or the product in registers, each beside the chain it replaced, and
+    # the scatter's sort; row 2's earlier fused form (dW), on no path
     out.append(dict(name="gather_cols_dot", route="cuda", source=src,
                     replaces=f"{pallas}:79", launches=None,
                     **adjoint_timing("gather_cols_dot", (tab, idx, cot),
                                      "the field shape", "(a)")))
+    cfg = hg.HashGridConfig(3, 8, 19, 16, 2048)
+    levels = ([l * cfg.bricks_per_level for l in range(3)],
+              cfg.resolutions)
+    out.append(dict(name="gather_cols_dfrac", route="cuda", source=src,
+                    replaces=f"{pallas}:79", launches=None,
+                    **adjoint_timing("gather_cols_dfrac",
+                                     (tab, idx, cot, local, frac, *levels),
+                                     "the field shape", "(a)")))
+    outer = adjoint_timing("scatter_cols_outer", (W, cot, idx, nb),
+                           "the field shape", "(a)")
     out.append(dict(name="scatter_cols_outer", route="cuda", source=src,
                     replaces=f"{pallas}:297", launches=None,
-                    **adjoint_timing("scatter_cols_outer",
-                                     (W, cot, idx, nb), "the field shape",
-                                     "(a)")))
+                    **{k: v for k, v in outer.items() if k != "sort"}))
+    out.append(dict(name=SORT, route="cuda", source=src,
+                    replaces=f"{pallas}:297", launches=None,
+                    **outer["sort"]))
 
     stress_checks(tab, hot)
 
@@ -1028,7 +1148,7 @@ def drive_mapping(stage, enhanced, frame_of, record=()):
 # the field grid's levels (configs/nerf_vo_replica.yaml: 3 x 8, log2 19,
 # 16 -> 2048)
 FIELD_LEVELS = 3
-ADJOINTS = ("gather_cols_dot", "scatter_cols_outer")
+ADJOINTS = ("gather_cols_dfrac", "scatter_cols_outer")
 
 
 def phase_mapping(dev, enhanced, frame_of):
@@ -1107,11 +1227,13 @@ BF16_PHASED = dict(proposal_table_dtype="bfloat16", table_grad_phase=True)
 MLP_PROPOSALS = dict(proposal_type="mlp")
 # table-kernel launches of one (h1) step: the forward (the field and each
 # hash proposal: level 0 on the one-hot route, the rest gathered), the
-# per-sample normal pullback (one gather_cols_dot, no scatter: it takes the
-# position gradient only) and the backward (the field and both proposals:
-# one scatter_cols_outer and one gather_cols_dot each)
-H1_STEP_LAUNCHES = dict(gather_cols_dot=4, gather_interp=3,
-                        gather_interp_mm=3, scatter_cols_outer=3)
+# per-sample normal pullback (one gather_cols_dfrac, no scatter: it takes
+# the position gradient only) and the backward (the field and both
+# proposals: one scatter_cols_outer with its sort and one gather_cols_dfrac
+# each)
+H1_STEP_LAUNCHES = dict(gather_cols_dfrac=4, gather_interp=3,
+                        gather_interp_mm=3, scatter_cols_outer=3,
+                        sort_ids=3)
 # the kernel only a bf16 proposal table launches: no other phase's path has
 # one
 BF16_KERNELS = ("gather_interp_bf16",)
@@ -1672,9 +1794,10 @@ def hold_calls(calls, label, tag):
     bf16-table ``gather_interp_bf16`` also bitwise against the f32 kernel
     on the table's values in f32 (its library call, ``embedding_bag``,
     runs on that f32 copy: it takes no bf16 table with f32 weights); the
-    fused adjoints ``gather_cols_dot`` and ``scatter_cols_outer`` within
-    the f32 summation bound, with the chain each replaced timed beside
-    them (:func:`adjoint_timing`). The launches made here are not counted:
+    fused adjoints ``gather_cols_dfrac``, ``gather_cols_dot`` and
+    ``scatter_cols_outer`` within the f32 summation bound, with the chain
+    each replaced timed beside them and the scatter's sort timed
+    (:func:`adjoint_timing`). The launches made here are not counted:
     every kernel's count is as it was before the call. Returns (name,
     timing with the call's M) for each call."""
     import torch.nn.functional as Fn
@@ -1688,7 +1811,7 @@ def hold_calls(calls, label, tag):
     counted = read_launches()
     held = []
     for name, a, kw in calls:
-        if name in ("gather_cols_dot", "scatter_cols_outer"):
+        if name in ADJOINTS + ("gather_cols_dot",):
             timing = adjoint_timing(name, a, label, tag)
             held.append((name, dict(timing, M=call_shape(name, a)[0])))
             continue
@@ -1927,7 +2050,7 @@ def phase_evaluation(dev, smi, mapping, args, tmp):
           flush=True)
     print(f"(f) the NeRF mesh, apart: {steps[-1][1]:.2f} s, launches "
           f"{nerf_counts}", flush=True)
-    for name in UNFUSED + ADJOINTS + CORR_KERNELS:
+    for name in UNFUSED + ADJOINTS + (SORT,) + CORR_KERNELS:
         if nerf_counts[name]:
             fail(f"the density grid launched {name} {nerf_counts[name]} "
                  "times: a gradient or tracking")
@@ -2257,7 +2380,7 @@ def phase_slam_render(dev, smi, mapping):
         fail("the renders did not go through the occupancy grid")
     if not counts["gather_interp"] or not counts["gather_interp_mm"]:
         fail("the renders launched no field kernel")
-    if any(counts[name] for name in UNFUSED + ADJOINTS):
+    if any(counts[name] for name in UNFUSED + ADJOINTS + (SORT,)):
         fail("a render launched a gradient kernel")
     if color.shape != (H, W, 3) or not np.isfinite(depth).all():
         fail("the render is not a finite full frame")
@@ -2742,7 +2865,7 @@ def pick_tp_calls(calls):
     ones: the largest masked ``gather_interp`` (local rows, zero weights on
     the descriptors owned elsewhere), the slab's ``gather_interp_mm``, the
     largest compacted ``scatter_cols_outer`` into the local rows (not the
-    slab's) and the largest ``gather_cols_dot`` of owned descriptors."""
+    slab's) and the largest ``gather_cols_dfrac`` of owned descriptors."""
     best = {}
     local = max(a[0].shape[0] for name, a, kw in calls
                 if name != "scatter_cols_outer" and a[0].shape[1] == 256)
@@ -2752,7 +2875,7 @@ def pick_tp_calls(calls):
             continue
         if name == "scatter_cols_outer" and a[3] != local:
             continue  # the slab's
-        if name == "gather_cols_dot" and a[0].shape[0] != local:
+        if name == "gather_cols_dfrac" and a[0].shape[0] != local:
             continue  # the slab's
         if name not in best or m > call_shape(name, best[name][1])[0]:
             best[name] = (name, a, kw)
@@ -2952,6 +3075,8 @@ def phase_parallel(dev, smi):
                   f"(i2) {mode}: a rank launched no {TP_ROWS} kernel")
             check(not any(r["launches"][n] for n in UNFUSED),
                   f"(i2) {mode}: a rank launched {UNFUSED}")
+            check(r["launches"][SORT] == r["launches"]["scatter_cols_outer"],
+                  f"(i2) {mode}: a rank's scatters and sorts differ")
     rr = res[0]["dp"]["render"]
     print(f"(i2) MapRenderer(mesh=) {PARALLEL['render'][0]}x"
           f"{PARALLEL['render'][1]} of the DP(4) map: {rr['ms']:.1f} ms over "
@@ -3004,7 +3129,7 @@ def phase_parallel(dev, smi):
     launches = {name: {"i1": {m: r1[m]["launches"][name] for m in r1},
                        **{m: [r[m]["launches"][name] for r in res]
                           for m in ("dp", "rows", "tp", "ds", "ngp")}}
-                for name in TP_ROWS}
+                for name in TP_ROWS + (SORT,)}
     return launches, res[0]["held"]
 
 
@@ -3474,7 +3599,7 @@ def run_phases(jtmp):
     for name in ("gather_interp", "gather_interp_mm"):
         if not eval_counts[name]:
             fail(f"the evaluation path never launched {name}")
-    for name in UNFUSED + ADJOINTS + CORR_KERNELS:
+    for name in UNFUSED + ADJOINTS + (SORT,) + CORR_KERNELS:
         if eval_counts[name]:
             fail(f"the evaluation path launched {name} "
                  f"{eval_counts[name]} times: a gradient or tracking")
@@ -3507,13 +3632,20 @@ def run_phases(jtmp):
             entry["h1_proposal_f2"] = [t for n, t in held["h1"] if n == name]
         if name in ADJOINTS:
             entry["d_last_step"] = [t for n, t in held_d if n == name]
-        if name in TP_ROWS:  # (i): by case, per rank
+        if name in parallel_launches:  # (i): by case, per rank
             entry["i_launches"] = parallel_launches[name]
             entry["i_tp_route"] = [t for n, t in parallel_held if n == name]
         entry["j1_launches"] = j1_launches[name]
         entry["j2_launches"] = j2_launches[name]
         if name in TABLE_ROWS:
             entry["j2_f32_targets"] = [t for n, t in j2_held if n == name]
+        if name == SORT:  # timed on each held scatter's ids
+            entry.update({k: [t["sort"] for n, t in h
+                              if n == "scatter_cols_outer"]
+                          for k, h in (("h1_proposal_f2", held["h1"]),
+                                       ("d_last_step", held_d),
+                                       ("i_tp_route", parallel_held),
+                                       ("j2_f32_targets", j2_held))})
     # the bf16 kernel's path is (h2)'s: no other path has a bf16 table
     bf16_entry["launches"] = variant_launches["h2"]["gather_interp_bf16"]
     kernels.append(bf16_entry)

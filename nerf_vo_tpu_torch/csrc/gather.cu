@@ -22,16 +22,23 @@
 // and the hash grid's backward runs rows 2 and 5 fused with what consumed
 // or fed them, the two adjoints of gather_interp:
 //
+//   gather_cols_dfrac  <- gather_cols (:79): the position pullback,
+//       res[level] d<gather_interp(tab, idx, W, F)[t], cot[t]> / dfrac[t]
+//       [M, 3] f32, W the trilinear weights of (local[t], frac[t]): the 8
+//       corners of each cell read and contracted in registers
+//   scatter_cols_outer <- scatter_cols_accum (:297): the runs kernel
+//       with the Outer row source and the OwnRuns sink, on the ids sorted
+//       by sort_ids, out[b, e*F + f] += W[t, e] * cot[t, f] (the table
+//       gradient), each product one f32 multiply in registers, the same
+//       bits every call
+//   sort_ids           the ids sorted stably (int32 keys and positions),
+//       the scatter's first launch
 //   gather_cols_dot    <- gather_cols (:79): gather_cols_kernel with the
 //       DotCot sink,  dW[t, e] = sum_f bf16(tab[idx[t], e*F + f]) * cot[t, f]
-//       [M, 32] f32 (the position pullback's brick contraction)
-//   scatter_cols_outer <- scatter_cols_accum (:297): the runs kernel
-//       with the Outer row source and the OwnRuns sink, on the ids sorted,
-//       out[b, e*F + f] += W[t, e] * cot[t, f] (the table gradient), each
-//       product one f32 multiply in registers, the same bits every call
+//       [M, 32] f32; the position pullback's earlier form, on no path
 //
 // so no [M, 32F] tensor is written on a path (at the field's shape the
-// bf16 rows were 302 MB and the W x cot rows 604 MB a pass).
+// bf16 rows were 302 MB and the W x cot rows 604 MB a pass), nor dW.
 //
 // bf16(.) is round-to-nearest-even, done in registers on the f32 parameter
 // table: no bf16 copy of the table is made. gather_interp_bf16 reads a bf16
@@ -61,6 +68,12 @@
 //                      M 1,966,080 x 64 into 20,480 bricks: 516 MB ~0.154 ms
 //   gather_cols_dot    M 589,824, F 8: touched rows + 18.9 MB cot + 75.5 MB
 //                      dW + ids                                ~0.039 ms
+//   gather_cols_dfrac  M 589,824, F 8: the corners' sectors of the
+//                      touched rows + ids 2.4 MB + cot 18.9 + local 14.2
+//                      + frac 7.1 + out 7.1                    ~0.022 ms
+//                      M 1,966,080, F 2 (proposal 0)           ~0.036 ms
+//   sort_ids           M 589,824: ids in, keys and positions out
+//                      (7.1 MB)                                ~0.002 ms
 //   scatter_cols_outer M 589,824, F 8: 75.5 MB W + 18.9 MB cot + 50.3 MB
 //                      table + ids                             ~0.044 ms
 //                      M 1,966,080, F 2: W 252 MB + cot 15.7 + table 5.2
@@ -125,41 +138,90 @@
 // descriptor's cotangent in registers and writes 4 * 8 / F bytes a lane
 // (128 B a descriptor) in place of 16 bytes of bf16. The batch's cotangent
 // rows are contiguous and are loaded once, coalesced, and handed out by
-// shuffle (DotCot). It still reads whole brick rows through L2, as row 2
-// does, since dW has all 32 entries.
+// shuffle (DotCot). It reads whole brick rows through L2, as row 2 does,
+// since dW has all 32 entries.
 //
-// The scatters (scatter_cols_accum, scatter_cols_outer). One runs kernel
-// (scatter_runs_kernel) takes the row from a template source (Rows loads
-// g[t]; Outer<F> forms W[r] x cot[r] from W's 128 B and cot's 4F bytes,
-// at F = 8 160 B a descriptor for the row's 1 KB) and hands each run's sum
-// to a template sink (AddRuns adds it with float4 atomics; OwnRuns stores
-// it). scatter_cols_accum takes runs with AddRuns at F <= 2 and the slabs
+// gather_cols_dfrac (the paths' position pullback; it replaced
+// gather_cols_dot and the ~10 elementwise launches of hash_grid's dfrac
+// contraction that consumed dW): only the 8 corners of a point's cell have
+// a non-zero trilinear weight or weight derivative, so one thread serves a
+// descriptor and reads those 8 entries (F floats each, a 32-byte sector at
+// F = 8, with the descriptor's id, cotangent, base corner and offsets all
+// in flight), rounds them to bf16, contracts each with the cotangent
+// (D[abc]) and then with the separable weights (1 - f, f) and derivatives
+// (-1, +1) in registers, and writes dfrac * res: 12 bytes a descriptor,
+// no dW. The level's resolution comes from the id (Levels: each level's
+// first id), so one launch serves every level and every id space the
+// hash grid hands it (global rows, a shard's local rows, the one-hot
+// slab). A thread's sums run in a fixed order whatever the descriptor's
+// place in the launch, so the descriptor-sharded route (a descriptor at
+// its owner, local ids) gets the one-rank route's bits. In one call of
+// scripts/exp_torch_table_adjoints.py (NVIDIA H100 80GB HBM3, 700 W): at
+// (d)'s field call (M 589,824, F 8) 0.0479 ms queued, 44% of its ~0.022
+// ms bound, against 0.859 for gather_cols_dot then dfrac; at (h1)'s
+// proposal 0 (M 1,966,080, F 2) 0.0384, 93% of its bound, against 2.32.
+//
+// sort_ids (the scatter's sort; it replaced torch.sort, which sorted all
+// 32 bits of the ids and gave int64 positions): an LSD radix sort with
+// 8-bit digits, as many passes as n_bricks has bits (two below 65,536
+// rows, three at the dense proposal grids), in one cooperative launch of
+// one 1024-thread block an SM; each block owns a contiguous chunk of the
+// keys. A pass: every warp counts its keys' digits (__match_any_sync
+// groups a round's equal digits), the block writes its counts; grid
+// barrier; four threads a digit read the earlier blocks' counts, so each
+// block knows where its keys of each digit start; then sub-tiles of 8192
+// keys are ranked in their warps, staged in shared memory in digit order
+// and written out in that order, so that a digit's keys of a sub-tile go
+// out as one contiguous run; grid barrier. Stable, integer, the same
+// order on every call. Written out key by key, the first build took
+// 0.060 ms at (a) (uniform ids: every store its own transaction); staged,
+// 0.047 against torch.sort's 0.075; 0.070 against 0.145 at (h1)'s
+// proposal 0, 0.029 against 0.057 at an (i2)-shaped M 48,206 (queued, one
+// call of the script above).
+//
+// The scatters (scatter_cols_accum, scatter_cols_outer). One runs body
+// (scatter_runs) takes the row from a template source (Rows loads g[t];
+// Outer<F> forms W[r] x cot[r] from W's 128 B and cot's 4F bytes, at F = 8
+// 160 B a descriptor for the row's 1 KB) and hands each run's sum to a
+// template sink (AddRuns adds it with float4 atomics; OwnRuns stores it).
+// scatter_cols_accum takes runs with AddRuns at F <= 2 and the slabs
 // (scatter_cols_accum_kernel) at F >= 4; both leave out a zero 16-byte
 // piece (+0 changes no sum; a point's zero trilinear weights and the
 // padding entries 27..31 make 24 of a brick's 32 entries zero), and both
 // sum in an order that changes from call to call.
 //
-// scatter_cols_outer, which the paths run, is deterministic: the wrapper
-// sorts the ids (torch.sort, stable) and the runs kernel walks them in
-// sorted order through the permutation (Outer reads W[perm[t]],
-// cot[perm[t]]), so each id's descriptors are contiguous. A run that
-// neither continues from the previous lane group's range nor into the next
-// is the id's whole sum and is stored with plain stores; a run that does
-// is written to a partial row of its range, and scatter_combine_kernel,
-// one block an id that spans ranges, sums its partials in range order (a
-// fixed strided split over the block's threads, then a fixed tree). No
-// atomics: the same inputs give the same bits on every call. Why: with
-// atomics (runs or slabs) the order of a brick's adds changed from call
-// to call, and over 8 Adam steps the normal MLP's near-zero gradients
-// turned that into differences above 2.5 lr: chip_smoke.py (i2)'s
-// descriptor-sharded step failed its check against DP(4) in two runs of
-// the script, and in 1 of 6 of scripts/exp_torch_ds_repeats.py --scatter
-// atomic, with DP(4) itself never repeating; sorted, 0 of 6, every DP(4)
-// run the same bits (NVIDIA H100 80GB HBM3, 700 W). The cost,
-// in one call of scripts/exp_torch_table_adjoints.py: at (d)'s field
-// scatter (M 589,824, F 8) 0.231-0.233 ms against 0.159-0.161 by atomic
-// runs and 0.231-0.234 by slabs; at (h1)'s proposal 0 (M 1,966,080, F 2)
-// 0.328 against 0.111. The sort alone takes 0.075 / 0.146 ms of that.
+// scatter_cols_outer, which the paths run, is deterministic: sort_ids
+// sorts the ids and the runs walk them in sorted order through the
+// positions (Outer reads W[perm[t]], cot[perm[t]]), so each id's
+// descriptors are contiguous. A run that neither continues from the
+// previous lane group's range nor into the next is the id's whole sum and
+// is stored with plain stores; a run that does is written to a partial row
+// of its range. In the same cooperative launch (scatter_owned_kernel),
+// after a grid barrier, each id that spans ranges gets its partials summed
+// in range order: by one warp where they end within 32 slots of its first
+// (lane l adds columns l, l + 32, ... slot by slot), else by the block (a
+// fixed strided split over its threads, then a fixed tree). No atomics:
+// the same inputs give the same bits on every call. Why: with atomics
+// (runs or slabs) the order of a brick's adds changed from call to call,
+// and over 8 Adam steps the normal MLP's near-zero gradients turned that
+// into differences above 2.5 lr: chip_smoke.py (i2)'s descriptor-sharded
+// step failed its check against DP(4) in two runs of the script, and in 1
+// of 6 of scripts/exp_torch_ds_repeats.py --scatter atomic, with DP(4)
+// itself never repeating; sorted, 0 of 6, every DP(4) run the same bits
+// (NVIDIA H100 80GB HBM3, 700 W). Queued times, one call of
+// scripts/exp_torch_table_adjoints.py: at (d)'s field scatter (M 589,824,
+// F 8) 0.203 ms against the earlier design's 0.232 (torch.sort, the runs
+// kernel, a separate combine launch after three memsets of scratch;
+// scripts/exp_torch_table_adjoints_prior.cu) and atomic runs' 0.167; at
+// (h1)'s proposal 0 (M 1,966,080, F 2) 0.240 against 0.328 and 0.111. The
+// same kernels as the earlier design on sort_ids' order (the combine a
+// launch of its own) took 0.198 at (d), 0.240 at (h1)'s proposal 0 and
+// 0.067 against 0.059 at the (i2)-shaped call: folding the combine in
+// saves four launches a call and wins where a call is small. Forming each
+// W[r, e] from the descriptor's offsets and base corner (36 bytes, read by
+// every lane of the descriptor) in place of reading W's row was slower at
+// every shape (0.3075 against 0.2028 ms at (d)): built in
+// scripts/exp_torch_table_adjoints_variants.cu, on no path.
 //
 // Which atomic design would serve F = 8, from the field scatter of
 // chip_smoke.py phase (d)'s last step (replica mapper, M 589,824, 3 levels
@@ -171,9 +233,9 @@
 // on chip, shared-memory adds as CAS loops). At levels 1-2, where runs
 // have length ~1, slabs were 10-20% faster (0.064 / 0.063 against 0.078 /
 // 0.069 ms). The whole call: atomic runs 0.162 ms, slabs 0.233; at phase
-// (a)'s uniform points (no runs) 0.166 against 0.197
-// (scripts/exp_torch_table_adjoints.py, one call, both designs built from
-// scripts/exp_torch_table_adjoints_variants.cu). scatter_cols_accum at
+// (a)'s uniform points (no runs) 0.166 against 0.197 (one call of
+// scripts/exp_torch_table_adjoints.py as it stood then, both designs
+// built beside the port's). scatter_cols_accum at
 // F = 8 keeps slabs: phase (a) holds it on uniform points, and no path
 // runs it.
 //
@@ -219,6 +281,7 @@
 //
 // Plain C interface, bound with ctypes (nerf_vo_tpu_torch/ops/gather_cuda.py).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -598,6 +661,115 @@ int launch_gather_cols(const float* tab, const int* idx, Sink sink, int M,
   if (blocks > need) blocks = need;
   kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
       tab, idx, sink, M, n_bricks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// gather_cols_dfrac: the position pullback, one thread a descriptor, only
+// the 8 corners of its cell read
+// ---------------------------------------------------------------------------
+
+constexpr int kDfThreads = 256;
+constexpr int kMaxLevels = 32;
+
+// The levels of the ids a launch is given: level l's first id (ascending)
+// and resolution; an id's level is the last whose first id is at most it.
+struct Levels {
+  int n;
+  int first[kMaxLevels];
+  float res[kMaxLevels];
+};
+
+// Descriptor t (brick idx[t], base corner local[t] in {0, 1}^3 of its
+// 3x3x3 lattice, offsets frac[t] in its cell): the entries of the cell's 8
+// corners, e = ((lo0 + a) 3 + lo1 + b) 3 + lo2 + c, are the only ones with
+// a non-zero weight or weight derivative. Each corner's F features are
+// read (one 32-byte sector at F = 8), rounded to bf16 and contracted with
+// cot[t] into D[a][b][c]; the separable weights (1 - f, f) and their
+// derivatives (-1, +1) reduce D, in registers, to the three position
+// derivatives of <features, cot>, times the level's resolution. A thread
+// sums in a fixed order whatever t is, so a descriptor gets the same bits
+// wherever it lies in the launch.
+template <int F>
+__global__ void __launch_bounds__(kDfThreads) gather_cols_dfrac_kernel(
+    const float* __restrict__ tab, const int* __restrict__ idx,
+    const float* __restrict__ cot, const long long* __restrict__ local,
+    const float* __restrict__ frac, float* __restrict__ out, int M,
+    int n_bricks, Levels lv) {
+  constexpr int R = 32 * F;
+  const long long stride = static_cast<long long>(gridDim.x) * kDfThreads;
+  for (long long t =
+           static_cast<long long>(blockIdx.x) * kDfThreads + threadIdx.x;
+       t < M; t += stride) {
+    const int b = __ldcs(idx + t);
+    const bool ok = b >= 0 && b < n_bricks;
+    int lo[3];
+    float f[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = static_cast<int>(__ldcs(local + 3 * t + a)) & 1;
+      f[a] = __ldcs(frac + 3 * t + a);
+    }
+    float c[F];
+    ld_floats_if<F, true>(cot + t * F, true, c);
+    const float* row = tab + static_cast<long long>(ok ? b : 0) * R;
+    float v[8][F];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int e = ((lo[0] + (k >> 2)) * 3 + lo[1] + ((k >> 1) & 1)) * 3 +
+                    lo[2] + (k & 1);
+      ld_floats_if<F, false>(row + e * F, ok, v[k]);
+    }
+    float D[8];  // D[a b c] at k = 4a + 2b + c
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float acc = bf16_round(v[k][0]) * c[0];
+#pragma unroll
+      for (int i = 1; i < F; ++i) acc = fmaf(bf16_round(v[k][i]), c[i], acc);
+      D[k] = acc;
+    }
+    const float w0[2] = {1.f - f[0], f[0]};
+    const float w1[2] = {1.f - f[1], f[1]};
+    const float w2[2] = {1.f - f[2], f[2]};
+    float ij[2][2];  // sum_c D[a b c] w2[c]
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int bb = 0; bb < 2; ++bb)
+        ij[a][bb] = D[4 * a + 2 * bb] * w2[0] + D[4 * a + 2 * bb + 1] * w2[1];
+    const float g0 = (ij[1][0] * w1[0] + ij[1][1] * w1[1]) -
+                     (ij[0][0] * w1[0] + ij[0][1] * w1[1]);
+    const float g1 = (ij[0][1] * w0[0] + ij[1][1] * w0[1]) -
+                     (ij[0][0] * w0[0] + ij[1][0] * w0[1]);
+    float kk[2];  // sum_ab D[a b c] w0[a] w1[b]
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc)
+      kk[cc] = ((D[cc] * (w0[0] * w1[0]) + D[2 + cc] * (w0[0] * w1[1])) +
+                D[4 + cc] * (w0[1] * w1[0])) +
+               D[6 + cc] * (w0[1] * w1[1]);
+    const float g2 = kk[1] - kk[0];
+    int l = 0;
+    for (int k = 1; k < lv.n; ++k) l += b >= lv.first[k];
+    const float s = lv.res[l];
+    __stcs(out + 3 * t + 0, g0 * s);
+    __stcs(out + 3 * t + 1, g1 * s);
+    __stcs(out + 3 * t + 2, g2 * s);
+  }
+}
+
+template <int F>
+int launch_dfrac(const float* tab, const int* idx, const float* cot,
+                 const long long* local, const float* frac, float* out,
+                 int M, int n_bricks, const Levels& lv, cudaStream_t stream) {
+  static KernelFacts facts[kMaxDevices];
+  auto kernel = gather_cols_dfrac_kernel<F>;
+  long long blocks = 0;
+  cudaError_t err = resident_grid(kernel, facts, kDfThreads, 0, 0, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long need = (M + kDfThreads - 1) / kDfThreads;
+  if (blocks > need) blocks = need;
+  kernel<<<static_cast<unsigned int>(blocks), kDfThreads, 0, stream>>>(
+      tab, idx, cot, local, frac, out, M, n_bricks, lv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1058,7 +1230,7 @@ template <int F>
 struct Outer {
   const float* W;
   const float* cot;
-  const long long* perm;
+  const int* perm;
   template <int R>
   __device__ __forceinline__ void load(long long t, int col, bool ok,
                                        float (&v)[8]) const {
@@ -1208,7 +1380,7 @@ __device__ __forceinline__ void add_run(float* out, int b, int j,
 // are contiguous: a run that neither continues from the previous range nor
 // into the next is the id's whole sum and is stored; a run that does is
 // written to a partial row of its range (slot 2g for the range's first
-// run, 2g + 1 for its last), which scatter_combine_kernel sums in range
+// run, 2g + 1 for its last), which the kernel's second phase sums in range
 // order. No atomics: the result is the same on every call.
 struct AddRuns {
   float* out;
@@ -1218,6 +1390,8 @@ struct AddRuns {
     return {};
   }
   template <int R>
+  __device__ __forceinline__ void clear(const Range&, int) const {}
+  template <int R>
   __device__ __forceinline__ void put(const Range&, int b, int j,
                                       const float (&acc)[8]) const {
     add_run<R>(out, b, j, acc);
@@ -1225,15 +1399,12 @@ struct AddRuns {
 };
 
 // A partial's code: 2 b + 1 for the first part of id b's sum (the run
-// that starts it), 2 b for a later part; -1 for an empty slot. The slots
-// of first parts are also listed in `heads` (in no fixed order: each is
-// combined on its own).
+// that starts it), 2 b for a later part; -1 for an empty slot, whose row
+// holds zeros. A lane group clears its two slots before its first run.
 struct OwnRuns {
   float* out;
   float* part;   // [2 * groups, R]
   int* part_id;  // [2 * groups]
-  int* n_heads;  // [1]
-  int* heads;    // [groups]
   struct Range {
     long long g;
     int prev, next;  // the ids just before and just after the range
@@ -1245,6 +1416,21 @@ struct OwnRuns {
                   hi < M ? __ldg(idx + hi) : -1};
     return r;
   }
+  // lane j's 8 floats of both slots zeroed, their codes -1 (lane 0)
+  template <int R>
+  __device__ __forceinline__ void clear(const Range& r, int j) const {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      float4* o = reinterpret_cast<float4*>(part + (2 * r.g + s) * R + 8 * j);
+      o[0] = z;
+      o[1] = z;
+    }
+    if (j == 0) {
+      part_id[2 * r.g] = -1;
+      part_id[2 * r.g + 1] = -1;
+    }
+  }
   template <int R>
   __device__ __forceinline__ void put(const Range& r, int b, int j,
                                       const float (&acc)[8]) const {
@@ -1255,10 +1441,7 @@ struct OwnRuns {
     } else {
       const long long slot = 2 * r.g + (from_prev ? 0 : 1);
       o = part + slot * R;
-      if (j == 0) {
-        part_id[slot] = 2 * b + (from_prev ? 0 : 1);
-        if (!from_prev) heads[atomicAdd(n_heads, 1)] = static_cast<int>(slot);
-      }
+      if (j == 0) part_id[slot] = 2 * b + (from_prev ? 0 : 1);
     }
     float4* o4 = reinterpret_cast<float4*>(o + 8 * j);
     o4[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
@@ -1274,9 +1457,10 @@ struct OwnRuns {
 // repeats and handing the sum to the sink where it changes. An id outside
 // [0, n_bricks) is skipped (it neither adds nor ends a run).
 template <int F, typename Src, typename Sink>
-__global__ void __launch_bounds__(kRunThreads, 1) scatter_runs_kernel(
-    Src src, const int* __restrict__ idx, Sink sink, int M, int n_bricks,
-    long long span) {
+__device__ __forceinline__ void scatter_runs(Src src,
+                                             const int* __restrict__ idx,
+                                             Sink sink, int M, int n_bricks,
+                                             long long span) {
   constexpr int R = 32 * F;
   constexpr int L = R / 8;
   constexpr int G = 32 / L;
@@ -1290,6 +1474,7 @@ __global__ void __launch_bounds__(kRunThreads, 1) scatter_runs_kernel(
   const long long lo = g * span;
   const long long hi = lo + span < M ? lo + span : M;
   const typename Sink::Range rg = sink.range(g, lo, hi, idx, M);
+  sink.template clear<R>(rg, j);
   float acc[8] = {};
   int cur = -1;
   // every group of the warp takes the same number of tiles, so that the
@@ -1327,14 +1512,177 @@ __global__ void __launch_bounds__(kRunThreads, 1) scatter_runs_kernel(
   if (cur >= 0) sink.template put<R>(rg, cur, j, acc);
 }
 
-// The runs kernel's grid for M descriptors: blocks, and descriptors a lane
-// group (span).
 template <int F, typename Src, typename Sink>
-cudaError_t runs_grid(int M, long long* blocks, long long* span) {
-  static KernelFacts facts[kMaxDevices];
+__global__ void __launch_bounds__(kRunThreads, 1) scatter_runs_kernel(
+    Src src, const int* __restrict__ idx, Sink sink, int M, int n_bricks,
+    long long span) {
+  scatter_runs<F>(src, idx, sink, M, n_bricks, span);
+}
+
+constexpr int kCombUnroll = 4;  // slots a thread loads at once
+
+// The sum of id b's parts, slots [s, end) from head slot s (code 2 b + 1)
+// to the first later slot holding another id's code (empty slots between
+// parts hold zeros), by the whole block: thread r of P takes slots s + r,
+// s + r + P, ..., kCombUnroll loads in flight, then a fixed tree over r in
+// shared memory; the total is stored in b's row. The order is fixed, so
+// the result does not depend on which block takes which head. part and
+// part_id were written by this launch: read through L2 (__ldcg).
+template <int F>
+__device__ void combine_head(const float* part, const int* part_id,
+                             float* out, int s, int n_slots, float4* red,
+                             int* end) {
+  constexpr int R = 32 * F;
+  constexpr int C = R / 4;            // float4 columns of a row
+  constexpr int P = kRunThreads / C;  // slots summed at once
+  const int c4 = threadIdx.x % C;
+  const int r = threadIdx.x / C;
+  const int b = __ldcg(part_id + s) >> 1;
+  if (threadIdx.x == 0) *end = n_slots;
+  __syncthreads();
+  for (int k0 = s + 1; k0 < n_slots; k0 += kRunThreads) {
+    const int k = k0 + threadIdx.x;
+    const int c = k < n_slots ? __ldcg(part_id + k) : -1;
+    if (c >= 0 && c != 2 * b) atomicMin(end, k);
+    __syncthreads();
+    const bool found = *end < n_slots;
+    __syncthreads();
+    if (found) break;
+  }
+  const int stop = *end;
+  const float4* col = reinterpret_cast<const float4*>(part) + c4;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  int k = s + r;
+  for (; k + (kCombUnroll - 1) * P < stop; k += kCombUnroll * P) {
+    float4 v[kCombUnroll];
+#pragma unroll
+    for (int u = 0; u < kCombUnroll; ++u)
+      v[u] = __ldcg(col + static_cast<long long>(k + u * P) * C);
+#pragma unroll
+    for (int u = 0; u < kCombUnroll; ++u) {
+      acc.x += v[u].x;
+      acc.y += v[u].y;
+      acc.z += v[u].z;
+      acc.w += v[u].w;
+    }
+  }
+  for (; k < stop; k += P) {
+    const float4 v = __ldcg(col + static_cast<long long>(k) * C);
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  red[threadIdx.x] = acc;
+  __syncthreads();
+#pragma unroll
+  for (int h = P / 2; h > 0; h >>= 1) {
+    if (r < h) {
+      const float4 v = red[threadIdx.x + h * C];
+      red[threadIdx.x].x += v.x;
+      red[threadIdx.x].y += v.y;
+      red[threadIdx.x].z += v.z;
+      red[threadIdx.x].w += v.w;
+    }
+    __syncthreads();
+  }
+  if (r == 0)
+    reinterpret_cast<float4*>(out + static_cast<long long>(b) * R)[c4] =
+        red[c4];
+  __syncthreads();
+}
+
+// combine_head's sum by one warp, for a head whose parts end within the 32
+// slots after it (the usual case: an id split by one range boundary):
+// lane l holds float4 columns l, l + 32, ... and adds the slots in order.
+// Returns false, and does nothing, for a head whose parts go on further.
+template <int F>
+__device__ __forceinline__ bool combine_head_warp(const float* part,
+                                                  const int* part_id,
+                                                  float* out, int s,
+                                                  int n_slots) {
+  constexpr int C = 32 * F / 4;  // float4 columns of a row
+  const int lane = threadIdx.x & 31;
+  const int b = __ldcg(part_id + s) >> 1;
+  const int k = s + 1 + lane;
+  const int c = k < n_slots ? __ldcg(part_id + k) : -1;
+  const unsigned other =
+      __ballot_sync(0xffffffffu, k >= n_slots || (c >= 0 && c != 2 * b));
+  if (other == 0) return false;
+  const int stop = s + __ffs(other);  // the first slot of another id
+  const float4* col = reinterpret_cast<const float4*>(part);
+  for (int c4 = lane; c4 < C; c4 += 32) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int j = s; j < stop; ++j) {
+      const float4 v = __ldcg(col + static_cast<long long>(j) * C + c4);
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    reinterpret_cast<float4*>(out + static_cast<long long>(b) * 32 * F)[c4] =
+        acc;
+  }
+  return true;
+}
+
+// scatter_cols_outer in one cooperative launch: the runs on the sorted ids
+// with the OwnRuns sink, a grid-wide barrier, then the ids that span
+// ranges: each block reads the codes of its share of the slots at once;
+// its warps combine the heads among them whose parts end within 32 slots
+// (combine_head_warp), one warp a head, and the block combines the rest
+// (combine_head), one after another. Which of the two sums a head depends
+// only on where its parts end, so the result is the same on every call.
+template <int F, typename Src>
+__global__ void __launch_bounds__(kRunThreads, 1) scatter_owned_kernel(
+    Src src, const int* __restrict__ sidx, OwnRuns sink, int M, int n_bricks,
+    long long span) {
+  namespace cg = cooperative_groups;
+  constexpr int G = 32 / (32 * F / 8);
+  __shared__ float4 red[kRunThreads];
+  __shared__ int heads[kRunThreads];
+  __shared__ int big[kRunThreads];
+  __shared__ int n_heads, n_big, end;
+  scatter_runs<F>(src, sidx, sink, M, n_bricks, span);
+  cg::this_grid().sync();
+  const int warp = threadIdx.x >> 5;
+  const int n_slots = 2 * gridDim.x * kRunWarps * G;
+  const int chunk = (n_slots + gridDim.x - 1) / gridDim.x;
+  const int s_lo = blockIdx.x * chunk;
+  const int s_hi = s_lo + chunk < n_slots ? s_lo + chunk : n_slots;
+  for (int s0 = s_lo; s0 < s_hi; s0 += kRunThreads) {
+    if (threadIdx.x == 0) n_heads = n_big = 0;
+    __syncthreads();
+    const int s = s0 + threadIdx.x;
+    if (s < s_hi) {
+      const int code = __ldcg(sink.part_id + s);
+      if (code >= 0 && (code & 1)) heads[atomicAdd(&n_heads, 1)] = s;
+    }
+    __syncthreads();
+    const int nh = n_heads;
+    for (int h = warp; h < nh; h += kRunWarps)
+      if (!combine_head_warp<F>(sink.part, sink.part_id, sink.out, heads[h],
+                                n_slots) &&
+          (threadIdx.x & 31) == 0)
+        big[atomicAdd(&n_big, 1)] = heads[h];
+    __syncthreads();
+    const int nb = n_big;
+    for (int h = 0; h < nb; ++h)
+      combine_head<F>(sink.part, sink.part_id, sink.out, big[h], n_slots,
+                      red, &end);
+    __syncthreads();
+  }
+}
+
+// The grid of a runs kernel for M descriptors: blocks (at most those
+// resident at once) and descriptors a lane group (span).
+template <int F, typename Kernel>
+cudaError_t runs_grid(Kernel kernel, KernelFacts* facts, int M,
+                      long long* blocks, long long* span) {
   constexpr int groups = kRunWarps * (32 / (32 * F / 8));  // a block's
-  cudaError_t err = resident_grid(scatter_runs_kernel<F, Src, Sink>, facts,
-                                  kRunThreads, 0, 0, blocks);
+  cudaError_t err =
+      resident_grid(kernel, facts, kRunThreads, 0, 0, blocks);
   if (err != cudaSuccess) return err;
   const long long need = (M + groups * kRunTile - 1) / (groups * kRunTile);
   if (*blocks > need) *blocks = need;
@@ -1346,138 +1694,307 @@ cudaError_t runs_grid(int M, long long* blocks, long long* span) {
 template <int F, typename Src, typename Sink>
 int launch_scatter_runs(Src src, Sink sink, const int* idx, int M,
                         int n_bricks, cudaStream_t stream) {
+  static KernelFacts facts[kMaxDevices];
+  auto kernel = scatter_runs_kernel<F, Src, Sink>;
   long long blocks = 0, span = 0;
-  cudaError_t err = runs_grid<F, Src, Sink>(M, &blocks, &span);
+  cudaError_t err = runs_grid<F>(kernel, facts, M, &blocks, &span);
   if (err != cudaSuccess) return static_cast<int>(err);
-  scatter_runs_kernel<F, Src, Sink>
-      <<<static_cast<unsigned int>(blocks), kRunThreads, 0, stream>>>(
-          src, idx, sink, M, n_bricks, span);
+  kernel<<<static_cast<unsigned int>(blocks), kRunThreads, 0, stream>>>(
+      src, idx, sink, M, n_bricks, span);
   return static_cast<int>(cudaGetLastError());
 }
 
-// OwnRuns' partial slots for M descriptors: 2 a lane group of the grid.
-template <int F>
-long long own_slots(int M) {
+// scatter_owned_kernel's grid for M descriptors, its scratch slots (two
+// a lane group) and its launch.
+template <int F, typename Src>
+cudaError_t owned_grid(int M, long long* blocks, long long* span) {
+  static KernelFacts facts[kMaxDevices];
+  return runs_grid<F>(scatter_owned_kernel<F, Src>, facts, M, blocks, span);
+}
+
+template <int F, typename Src>
+long long owned_slots(int M) {
   long long blocks = 0, span = 0;
-  if (runs_grid<F, Outer<F>, OwnRuns>(M, &blocks, &span) != cudaSuccess)
-    return -1;
+  if (owned_grid<F, Src>(M, &blocks, &span) != cudaSuccess) return -1;
   return 2 * blocks * kRunWarps * (32 / (32 * F / 8));
 }
 
-constexpr int kCombThreads = 512;
-constexpr int kCombUnroll = 4;  // slots a thread loads at once
+// part [owned_slots(M), 32F] f32, part_id [owned_slots(M)] int32: scratch
+template <int F, typename Src>
+int launch_scatter_owned(Src src, const int* sidx, float* out, float* part,
+                         int* part_id, int M, int n_bricks,
+                         cudaStream_t stream) {
+  long long blocks = 0, span = 0;
+  cudaError_t err = owned_grid<F, Src>(M, &blocks, &span);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  OwnRuns sink{out, part, part_id};
+  auto kernel = scatter_owned_kernel<F, Src>;
+  void* args[] = {&src, &sidx, &sink, &M, &n_bricks, &span};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel),
+      dim3(static_cast<unsigned int>(blocks)), dim3(kRunThreads), args, 0,
+      stream);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
 
-// The sums of ids whose descriptors span ranges, one block a listed head
-// slot s (code 2 b + 1) at a time: the block finds where b's parts end
-// (the first later slot holding another code; the empty slots between
-// parts hold zeros), sums slots [s, end) in a fixed order (thread r of P
-// takes slots s + r, s + r + P, ..., kCombUnroll loads in flight; then a
-// tree over r in shared memory) and stores the total. The result does not
-// depend on which block takes which head.
-template <int F>
-__global__ void __launch_bounds__(kCombThreads) scatter_combine_kernel(
-    const float* __restrict__ part, const int* __restrict__ part_id,
-    const int* __restrict__ n_heads, const int* __restrict__ heads,
-    float* __restrict__ out, int n_slots) {
-  constexpr int R = 32 * F;
-  constexpr int C = R / 4;             // float4 columns of a row
-  constexpr int P = kCombThreads / C;  // slots summed at once
-  __shared__ float4 red[kCombThreads];
-  __shared__ int end;
-  const int c4 = threadIdx.x % C;
-  const int r = threadIdx.x / C;
-  const int n = *n_heads;
-  for (int i = blockIdx.x; i < n; i += gridDim.x) {
-    const int s = heads[i];
-    const int b = part_id[s] >> 1;
-    if (threadIdx.x == 0) end = n_slots;
-    __syncthreads();
-    for (int k0 = s + 1; k0 < n_slots; k0 += kCombThreads) {
-      const int k = k0 + threadIdx.x;
-      const int c = k < n_slots ? part_id[k] : -1;
-      if (c >= 0 && c != 2 * b) atomicMin(&end, k);
-      __syncthreads();
-      const bool found = end < n_slots;
-      __syncthreads();
-      if (found) break;
+// ---------------------------------------------------------------------------
+// sort_ids: a stable LSD radix sort of brick ids, 8 bits a pass, in one
+// cooperative launch of one block an SM
+// ---------------------------------------------------------------------------
+
+constexpr int kSortThreads = 1024;
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kDigitBits = 8;
+constexpr int kDigits = 1 << kDigitBits;
+constexpr int kSortParts = kSortThreads / kDigits;  // threads a digit
+constexpr int kSortRounds = 8;  // 32-key rounds of a warp in a sub-tile
+constexpr int kSortTile = kSortWarps * kSortRounds * 32;  // 8192 keys
+constexpr int kSortStage = 2 * kSortTile * 4;  // staged keys and positions
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// Exclusive sum over the block of one int a thread; `total` gets the
+// block's sum. red: kSortWarps ints of shared memory. Every thread calls.
+__device__ __forceinline__ int block_exclusive_sum(int v, int* red,
+                                                   int* total) {
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) red[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    int s = lane < kSortWarps ? red[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < kSortWarps; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
     }
-    const float4* col = reinterpret_cast<const float4*>(part) + c4;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    int k = s + r;
-    for (; k + (kCombUnroll - 1) * P < end; k += kCombUnroll * P) {
-      float4 v[kCombUnroll];
+    if (lane < kSortWarps) red[lane] = s;
+  }
+  __syncthreads();
+  *total = red[kSortWarps - 1];
+  const int before = w > 0 ? red[w - 1] : 0;
+  __syncthreads();
+  return before + x - v;
+}
+
+// One sub-tile of a block's keys: kSortTile consecutive positions from t0
+// (none at or past hi), warp w taking rounds w kSortRounds .. (w + 1)
+// kSortRounds - 1 of 32 (lane l of round r: t0 + 32 r + l). The first pass
+// reads the ids (key: the id in [0, n_bricks), else n_bricks) and numbers
+// them; later passes read what the pass before wrote in this launch
+// (through L2). Each key's digit (-1 past hi) and its rank among the
+// warp's earlier keys of that digit, counts[w][d] counting the warp's keys
+// of digit d on from its value on entry. Stable: positions ascend with the
+// warp, then the round, then the lane.
+struct SortTile {
+  int key[kSortRounds];
+  int val[kSortRounds];
+  int digit[kSortRounds];
+  int rank[kSortRounds];
+};
+
+__device__ __forceinline__ void rank_sort_tile(
+    const int* src_k, const int* src_v, long long t0, long long hi,
+    int n_bricks, int shift, int (*counts)[kDigits], SortTile& st) {
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const long long base = t0 + static_cast<long long>(w) * kSortRounds * 32;
 #pragma unroll
-      for (int u = 0; u < kCombUnroll; ++u)
-        v[u] = col[static_cast<long long>(k + u * P) * C];
-#pragma unroll
-      for (int u = 0; u < kCombUnroll; ++u) {
-        acc.x += v[u].x;
-        acc.y += v[u].y;
-        acc.z += v[u].z;
-        acc.w += v[u].w;
+  for (int r = 0; r < kSortRounds; ++r) {
+    const long long pos = base + 32 * r + lane;
+    int key = 0, val = 0;
+    if (pos < hi) {
+      key = __ldcg(src_k + pos);
+      if (src_v == nullptr) {
+        key = key >= 0 && key < n_bricks ? key : n_bricks;
+        val = static_cast<int>(pos);
+      } else {
+        val = __ldcg(src_v + pos);
       }
     }
-    for (; k < end; k += P) {
-      const float4 v = col[static_cast<long long>(k) * C];
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
-    }
-    red[threadIdx.x] = acc;
-    __syncthreads();
+    st.key[r] = key;
+    st.val[r] = val;
+    st.digit[r] = pos < hi ? (key >> shift) & (kDigits - 1) : -1;
+  }
 #pragma unroll
-    for (int h = P / 2; h > 0; h >>= 1) {
-      if (r < h) {
-        const float4 v = red[threadIdx.x + h * C];
-        red[threadIdx.x].x += v.x;
-        red[threadIdx.x].y += v.y;
-        red[threadIdx.x].z += v.z;
-        red[threadIdx.x].w += v.w;
-      }
-      __syncthreads();
+  for (int r = 0; r < kSortRounds; ++r) {
+    const int d = st.digit[r];
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    int before = 0;
+    if (d >= 0) {
+      before = counts[w][d];
+      st.rank[r] = before + __popc(peers & lanemask_lt());
     }
-    if (r == 0)
-      reinterpret_cast<float4*>(out + static_cast<long long>(b) * R)[c4] =
-          red[c4];
-    __syncthreads();
+    __syncwarp();
+    if (d >= 0 && lane == __ffs(peers) - 1)
+      counts[w][d] = before + __popc(peers);
+    __syncwarp();
   }
 }
 
-// meta: [2 * slots + 1] int32 scratch: the slots' codes, the number of
-// heads, the head slots.
-template <int F>
-int launch_scatter_owned(const float* W, const float* cot, const int* sidx,
-                         const long long* perm, float* out, float* part,
-                         int* meta, int M, int n_bricks,
-                         cudaStream_t stream) {
-  long long blocks = 0, span = 0;
-  cudaError_t err = runs_grid<F, Outer<F>, OwnRuns>(M, &blocks, &span);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int G = 32 / (32 * F / 8);
-  const int n_slots = static_cast<int>(2 * blocks * kRunWarps * G);
-  int* part_id = meta;
-  int* n_heads = meta + n_slots;
-  err = cudaMemsetAsync(part_id, 0xff, n_slots * sizeof(int), stream);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(n_heads, 0, sizeof(int), stream);
-  if (err == cudaSuccess)  // empty slots add zeros in the combine
-    err = cudaMemsetAsync(part, 0, n_slots * sizeof(float) * 32 * F, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scatter_runs_kernel<F, Outer<F>, OwnRuns>
-      <<<static_cast<unsigned int>(blocks), kRunThreads, 0, stream>>>(
-          Outer<F>{W, cot, perm}, sidx,
-          OwnRuns{out, part, part_id, n_heads, n_heads + 1}, M, n_bricks,
-          span);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = 4 * sm_count(dev);
-  scatter_combine_kernel<F><<<grid, kCombThreads, 0, stream>>>(
-      part, part_id, n_heads, n_heads + 1, out, n_slots);
-  return static_cast<int>(cudaGetLastError());
+// Each pass moves every key by one digit. Block b owns the consecutive
+// keys [b chunk, (b + 1) chunk). (1) It counts their digits (sub-tile by
+// sub-tile, warps in shared memory) and writes its counts to
+// bc[b][digit]; barrier. (2) Per digit, four threads read bc's column:
+// the keys of smaller digits and those of the digit in earlier blocks give
+// where the block's keys of the digit start (run[d]). Then sub-tile by
+// sub-tile: the keys are ranked in their warps, staged in shared memory in
+// digit order (a digit's keys in position order), and written out by the
+// whole block in staged order, so that each digit's keys of a sub-tile
+// are stored as one contiguous run (a key stored alone costs a transaction
+// of its own); barrier. The passes alternate between (keys, perm) and
+// (tmp_k, tmp_v) so that the last writes (keys, perm). Stable: within a
+// digit, keys keep the order of their positions. Dynamic shared memory:
+// kSortStage bytes (the staged keys and positions).
+__global__ void __launch_bounds__(kSortThreads, 1) sort_ids_kernel(
+    const int* __restrict__ idx, int* keys, int* perm, int* tmp_k,
+    int* tmp_v, int* bc, int M, int n_bricks, int passes) {
+  namespace cg = cooperative_groups;
+  __shared__ int counts[kSortWarps][kDigits];
+  __shared__ int part[2][kSortParts][kDigits];
+  __shared__ int run[kDigits], start[kDigits], total[kDigits];
+  __shared__ int red[kSortWarps];
+  extern __shared__ int sort_stage[];
+  int* sk = sort_stage;
+  int* sv = sort_stage + kSortTile;
+  const int w = threadIdx.x >> 5;
+  const int d = threadIdx.x % kDigits;  // this thread's digit
+  const int q = threadIdx.x / kDigits;  // and its share of bc's column
+  const long long chunk = (M + gridDim.x - 1) / gridDim.x;
+  const long long lo0 = static_cast<long long>(blockIdx.x) * chunk;
+  const long long lo = lo0 < M ? lo0 : M;
+  const long long hi = lo0 + chunk < M ? lo0 + chunk : M;
+  for (int i = threadIdx.x; i < kSortWarps * kDigits; i += kSortThreads)
+    (&counts[0][0])[i] = 0;
+  __syncthreads();
+  for (int p = 0; p < passes; ++p) {
+    const int shift = kDigitBits * p;
+    const bool to_out = ((passes - 1 - p) & 1) == 0;
+    int* dst_k = to_out ? keys : tmp_k;
+    int* dst_v = to_out ? perm : tmp_v;
+    const int* src_k = p == 0 ? idx : (to_out ? tmp_k : keys);
+    const int* src_v = p == 0 ? nullptr : (to_out ? tmp_v : perm);
+    // (1)
+    for (long long t0 = lo; t0 < hi; t0 += kSortTile) {
+      SortTile st;
+      rank_sort_tile(src_k, src_v, t0, hi, n_bricks, shift, counts, st);
+    }
+    __syncthreads();
+    if (threadIdx.x < kDigits) {
+      int c = 0;
+      for (int i = 0; i < kSortWarps; ++i) {
+        c += counts[i][d];
+        counts[i][d] = 0;
+      }
+      bc[static_cast<long long>(blockIdx.x) * kDigits + d] = c;
+    }
+    cg::this_grid().sync();
+    // (2)
+    int all = 0, before = 0;
+    for (int b0 = q; b0 < static_cast<int>(gridDim.x);
+         b0 += kSortParts * 16) {
+      int v[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        const int b = b0 + u * kSortParts;
+        v[u] = b < static_cast<int>(gridDim.x)
+                   ? __ldcg(bc + static_cast<long long>(b) * kDigits + d)
+                   : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        all += v[u];
+        before += b0 + u * kSortParts < static_cast<int>(blockIdx.x) ? v[u]
+                                                                     : 0;
+      }
+    }
+    part[0][q][d] = all;
+    part[1][q][d] = before;
+    __syncthreads();
+    all = before = 0;
+    if (threadIdx.x < kDigits) {
+      for (int i = 0; i < kSortParts; ++i) {
+        all += part[0][i][d];
+        before += part[1][i][d];
+      }
+    }
+    int n_keys = 0;
+    const int smaller = block_exclusive_sum(all, red, &n_keys);
+    if (threadIdx.x < kDigits) run[d] = smaller + before;
+    for (long long t0 = lo; t0 < hi; t0 += kSortTile) {
+      SortTile st;
+      rank_sort_tile(src_k, src_v, t0, hi, n_bricks, shift, counts, st);
+      __syncthreads();
+      int c = 0;
+      if (threadIdx.x < kDigits) {
+        for (int i = 0; i < kSortWarps; ++i) {
+          const int ci = counts[i][d];
+          counts[i][d] = c;
+          c += ci;
+        }
+      }
+      int staged = 0;
+      const int at = block_exclusive_sum(c, red, &staged);
+      if (threadIdx.x < kDigits) {
+        start[d] = at;
+        total[d] = c;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kSortRounds; ++r) {
+        const int dg = st.digit[r];
+        if (dg < 0) continue;
+        const int i = start[dg] + counts[w][dg] + st.rank[r];
+        sk[i] = st.key[r];
+        sv[i] = st.val[r];
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < staged; i += kSortThreads) {
+        const int key = sk[i];
+        const int dg = (key >> shift) & (kDigits - 1);
+        const int pos = run[dg] + i - start[dg];
+        dst_k[pos] = key;
+        dst_v[pos] = sv[i];
+      }
+      __syncthreads();
+      if (threadIdx.x < kDigits) {
+        run[d] += total[d];
+        for (int i = 0; i < kSortWarps; ++i) counts[i][d] = 0;
+      }
+      __syncthreads();
+    }
+    if (p + 1 < passes) cg::this_grid().sync();
+  }
+}
+
+// 8-bit passes for keys up to n_bricks (the key of an id out of range)
+int sort_passes(int n_bricks) {
+  int bits = 1;
+  while (bits < 31 && (1LL << bits) <= n_bricks) ++bits;
+  return (bits + kDigitBits - 1) / kDigitBits;
+}
+
+// sort_ids_kernel's grid for M ids: its resident blocks, at most one a
+// 1024 ids
+cudaError_t sort_grid(int M, long long* blocks) {
+  static KernelFacts facts[kMaxDevices];
+  cudaError_t err = resident_grid(sort_ids_kernel, facts, kSortThreads,
+                                  kSortStage, kSortStage, blocks);
+  if (err != cudaSuccess) return err;
+  const long long need = (M + kSortThreads - 1) / kSortThreads;
+  if (*blocks > need) *blocks = need;
+  if (*blocks < 1) *blocks = 1;
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -1619,46 +2136,121 @@ extern "C" int scatter_cols_accum(const void* g, const void* idx, void* out,
 }
 
 // W [M, 32] f32, cot [M, F] f32 (aligned to 4F bytes, 16 at F = 8); sidx
-// [M] int32 the ids sorted, stably, and perm [M] int64 their positions
-// (sidx[t] = idx[perm[t]]); out [n_bricks, 32F] f32, zeroed by the caller:
-// out[b, e F + f] = sum of W[t, e] cot[t, f] over idx[t] == b, the product
-// formed in registers, each id's terms summed in sorted order, the same on
-// every call. part [slots, 32F] f32 and meta [2 slots + 1] int32 are
-// scratch, slots = scatter_cols_outer_slots(M, F).
+// [M] int32 the keys of sort_ids (the ids sorted, stably; n_bricks for an
+// id out of range) and perm [M] int32 their positions; out [n_bricks, 32F]
+// f32, zeroed by the caller: out[b, e F + f] = sum of W[t, e] cot[t, f]
+// over idx[t] == b, the product formed in registers, each id's terms
+// summed in sorted order, the same on every call. part [slots, 32F] f32
+// and part_id [slots] int32 are scratch, slots =
+// scatter_cols_outer_slots(M, F). One cooperative launch.
 extern "C" int scatter_cols_outer(const void* W, const void* cot,
                                   const void* sidx, const void* perm,
-                                  void* out, void* part, void* meta, int M,
-                                  int F, int n_bricks, void* stream) {
+                                  void* out, void* part, void* part_id,
+                                  int M, int F, int n_bricks, void* stream) {
   if (M == 0) return 0;
   const float* w = static_cast<const float*>(W);
   const float* c = static_cast<const float*>(cot);
   const int* ix = static_cast<const int*>(sidx);
-  const long long* pm = static_cast<const long long*>(perm);
+  const int* pm = static_cast<const int*>(perm);
   float* o = static_cast<float*>(out);
   float* pt = static_cast<float*>(part);
-  int* pi = static_cast<int*>(meta);
+  int* pi = static_cast<int*>(part_id);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
-    case 1: return launch_scatter_owned<1>(w, c, ix, pm, o, pt, pi, M,
-                                           n_bricks, s);
-    case 2: return launch_scatter_owned<2>(w, c, ix, pm, o, pt, pi, M,
-                                           n_bricks, s);
-    case 4: return launch_scatter_owned<4>(w, c, ix, pm, o, pt, pi, M,
-                                           n_bricks, s);
-    case 8: return launch_scatter_owned<8>(w, c, ix, pm, o, pt, pi, M,
-                                           n_bricks, s);
+    case 1: return launch_scatter_owned<1>(Outer<1>{w, c, pm}, ix, o, pt, pi,
+                                           M, n_bricks, s);
+    case 2: return launch_scatter_owned<2>(Outer<2>{w, c, pm}, ix, o, pt, pi,
+                                           M, n_bricks, s);
+    case 4: return launch_scatter_owned<4>(Outer<4>{w, c, pm}, ix, o, pt, pi,
+                                           M, n_bricks, s);
+    case 8: return launch_scatter_owned<8>(Outer<8>{w, c, pm}, ix, o, pt, pi,
+                                           M, n_bricks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// scatter_cols_outer's scratch rows for M descriptors on the current
+// scatter_cols_outer's scratch slots for M descriptors on the current
 // device, or a negative value if the grid cannot be sized.
 extern "C" long long scatter_cols_outer_slots(int M, int F) {
   switch (F) {
-    case 1: return own_slots<1>(M);
-    case 2: return own_slots<2>(M);
-    case 4: return own_slots<4>(M);
-    case 8: return own_slots<8>(M);
+    case 1: return owned_slots<1, Outer<1>>(M);
+    case 2: return owned_slots<2, Outer<2>>(M);
+    case 4: return owned_slots<4, Outer<4>>(M);
+    case 8: return owned_slots<8, Outer<8>>(M);
     default: return -1;
   }
+}
+
+// tab [n_bricks, 32F] f32, idx [M] int32, cot [M, F] f32 (aligned to 4F
+// bytes, 16 at F = 8), local [M, 3] int64 (each 0 or 1), frac [M, 3] f32
+// -> out [M, 3] f32: res[l] d<gather_interp(tab, idx, W, F)[t], cot[t]> /
+// dfrac[t], W the trilinear weights of (local[t], frac[t]) and l the level
+// of idx[t] among the n_levels levels whose first ids are first[]
+// (ascending) and resolutions res[] (host arrays, n_levels <= 32). An id out
+// of range gives zeros. F in {1, 2, 4, 8}.
+extern "C" int gather_cols_dfrac(const void* tab, const void* idx,
+                                 const void* cot, const void* local,
+                                 const void* frac, void* out, int M, int F,
+                                 int n_bricks, int n_levels,
+                                 const int* first, const float* res,
+                                 void* stream) {
+  if (M == 0) return 0;
+  if (n_levels < 1 || n_levels > kMaxLevels)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Levels lv{};
+  lv.n = n_levels;
+  for (int l = 0; l < n_levels; ++l) {
+    lv.first[l] = first[l];
+    lv.res[l] = res[l];
+  }
+  const float* tb = static_cast<const float*>(tab);
+  const int* ix = static_cast<const int*>(idx);
+  const float* c = static_cast<const float*>(cot);
+  const long long* lc = static_cast<const long long*>(local);
+  const float* fr = static_cast<const float*>(frac);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (F) {
+    case 1: return launch_dfrac<1>(tb, ix, c, lc, fr, o, M, n_bricks, lv, s);
+    case 2: return launch_dfrac<2>(tb, ix, c, lc, fr, o, M, n_bricks, lv, s);
+    case 4: return launch_dfrac<4>(tb, ix, c, lc, fr, o, M, n_bricks, lv, s);
+    case 8: return launch_dfrac<8>(tb, ix, c, lc, fr, o, M, n_bricks, lv, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// idx [M] int32 -> keys [M] int32, perm [M] int32: the keys (an id in [0,
+// n_bricks), else n_bricks) in ascending order, equal keys in the order of
+// their positions, and perm[i] the position of keys[i]. scratch: int32
+// [sort_ids_scratch(M)]. One cooperative launch, ceil(bits / 8) passes for
+// the bits of n_bricks.
+extern "C" int sort_ids(const void* idx, void* keys, void* perm,
+                        void* scratch, int M, int n_bricks, void* stream) {
+  if (M == 0) return 0;
+  long long blocks = 0;
+  cudaError_t err = sort_grid(M, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = sort_ids_kernel;
+  const int* ix = static_cast<const int*>(idx);
+  int* k = static_cast<int*>(keys);
+  int* p = static_cast<int*>(perm);
+  int* tmp_k = static_cast<int*>(scratch);
+  int* tmp_v = tmp_k + M;
+  int* bc = tmp_v + M;
+  int passes = sort_passes(n_bricks);
+  void* args[] = {&ix, &k, &p, &tmp_k, &tmp_v, &bc, &M, &n_bricks,
+                  &passes};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel),
+      dim3(static_cast<unsigned int>(blocks)), dim3(kSortThreads), args,
+      kSortStage, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// sort_ids' scratch ints for M ids on the current device, or a negative
+// value if the grid cannot be sized.
+extern "C" long long sort_ids_scratch(int M) {
+  long long blocks = 0;
+  if (sort_grid(M, &blocks) != cudaSuccess) return -1;
+  return 2LL * M + kDigits * blocks;
 }

@@ -22,12 +22,17 @@ wrapper                function
                        cot[t, f]``, [M, 32] f32
 :func:`scatter_cols_outer`  ``out[b, eF+f] = sum_{t: idx[t] = b} W[t, e]
                        cot[t, f]``, f32
+:func:`gather_cols_dfrac`  ``res * d<gather_interp(tab, idx, W, F)[t],
+                       cot[t]> / dfrac[t]``, [M, 3] f32, W the trilinear
+                       weights of (local, frac)
+:func:`sort_ids`       the ids sorted stably, and their positions (int32)
 =====================  ===================================================
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor
 and launches its kernel for a CUDA tensor, or raises; it counts its kernel
 launches in ``<wrapper>.launches``. ``bf16`` rounds to nearest even (the
 JAX package's bf16 shadow of the table); weights, sums and outputs are f32.
+``scatter_cols_outer`` launches :func:`sort_ids` and then its own kernel.
 ``gather_interp_mm`` and ``scatter_cols_accum`` take ``hot_rows``, the
 number of leading table rows the kernel keeps on chip (staged, or
 accumulated, in shared memory; the scatter's slab design only); the hash
@@ -96,6 +101,61 @@ def scatter_cols_outer_plain(W, cot, idx, n_bricks: int):
     return scatter_cols_accum_plain(rows, idx, n_bricks)
 
 
+def axis_weights(lo, f):
+    """[M, 3] trilinear weights of the 3 lattice points of a brick on one
+    axis: (i == lo) (1 - f) + (i == lo + 1) f."""
+    i3 = torch.arange(3, device=lo.device)
+    lo = lo[:, None]
+    f = f[:, None]
+    return (i3 == lo) * (1.0 - f) + (i3 == lo + 1) * f
+
+
+def axis_dweights(lo):
+    """[M, 3] d(axis weights)/df: -(i == lo) + (i == lo + 1)."""
+    i3 = torch.arange(3, device=lo.device)
+    lo = lo[:, None]
+    return (i3 == lo + 1).float() - (i3 == lo).float()
+
+
+def dfrac(dW, local, frac):
+    """[M, 3] d<features, cot>/dfrac from dW [M, 32] = d<features,
+    cot>/dW through the separable trilinear weights of (local [M, 3], frac
+    [M, 3]): sum_ijk dW[ijk] w0'[i] w1[j] w2[k] and its two siblings, as
+    broadcast products summed one axis at a time (an ``einsum`` over M runs
+    as a batched matrix-vector product)."""
+    M = dW.shape[0]
+    dW = dW[:, :27].reshape(M, 3, 3, 3)
+    w = [axis_weights(local[:, a], frac[:, a]) for a in range(3)]
+    dw = [axis_dweights(local[:, a]) for a in range(3)]
+    ij = torch.sum(dW * w[2][:, None, None, :], dim=3)  # [M, i, j]
+    k = torch.sum(dW * (w[0][:, :, None, None] * w[1][:, None, :, None]),
+                  dim=(1, 2))  # [M, k]
+    return torch.stack([
+        torch.sum(torch.sum(ij * w[1][:, None, :], dim=2) * dw[0], dim=1),
+        torch.sum(torch.sum(ij * w[0][:, :, None], dim=1) * dw[1], dim=1),
+        torch.sum(k * dw[2], dim=1),
+    ], dim=-1)
+
+
+def id_levels(idx, level_first):
+    """The level of each id: the last level whose first id (ascending) is
+    at most it (level 0 below the first)."""
+    first = torch.tensor(level_first, dtype=torch.int64, device=idx.device)
+    return (torch.searchsorted(first, idx.long(), right=True) - 1).clamp_min(0)
+
+
+def gather_cols_dfrac_plain(tab, idx, cot, local, frac, level_first, res):
+    scale = torch.tensor(res, dtype=torch.float32, device=idx.device)
+    return (dfrac(gather_cols_dot_plain(tab, idx, cot), local, frac)
+            * scale[id_levels(idx, level_first)][:, None])
+
+
+def sort_ids_plain(idx, n_bricks: int):
+    key = torch.where((idx >= 0) & (idx < n_bricks), idx, n_bricks)
+    keys, perm = torch.sort(key, stable=True)
+    return keys, perm.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -113,9 +173,14 @@ def _lib():
     lib.scatter_cols_outer.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     lib.scatter_cols_outer_slots.argtypes = [i, i]
     lib.scatter_cols_outer_slots.restype = ctypes.c_longlong
+    lib.gather_cols_dfrac.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p]
+    lib.sort_ids.argtypes = [p, p, p, p, i, i, p]
+    lib.sort_ids_scratch.argtypes = [i]
+    lib.sort_ids_scratch.restype = ctypes.c_longlong
     for fn in (lib.gather_cols, lib.gather_interp, lib.gather_interp_bf16,
                lib.gather_interp_mm, lib.scatter_cols_accum,
-               lib.gather_cols_dot, lib.scatter_cols_outer):
+               lib.gather_cols_dot, lib.scatter_cols_outer,
+               lib.gather_cols_dfrac, lib.sort_ids):
         fn.restype = ctypes.c_int
     return lib
 
@@ -317,6 +382,38 @@ def gather_cols_dot(tab, idx, cot):
     return out
 
 
+def sort_ids(idx, n_bricks: int):
+    """Sort brick ids stably: idx [M] int32 -> (keys [M] int32, perm [M]
+    int32), ``keys[i] = key(idx[perm[i]])`` ascending, equal keys in the
+    order of their positions; ``key(b) = b`` for b in [0, n_bricks), else
+    n_bricks (an id out of range sorts last). The order
+    ``torch.sort(key, stable=True)`` gives.
+
+    On the card it is an LSD radix sort with 8-bit digits, as many passes
+    as the bits of n_bricks need (two for a table under 65,536 rows), in
+    one cooperative launch of one block an SM; it sorts integers, so every
+    call gives the same order."""
+    if idx.device.type == "cpu":
+        return sort_ids_plain(idx, n_bricks)
+    dev = _cuda_device(idx, "sort_ids")
+    _check("idx", idx, torch.int32, 1, dev)
+    if not 0 <= n_bricks < 2**31 - 1:
+        raise ValueError(f"sort_ids: {n_bricks} bricks")
+    M = idx.shape[0]
+    keys = torch.empty(M, dtype=torch.int32, device=dev)
+    perm = torch.empty(M, dtype=torch.int32, device=dev)
+    if M:
+        size = int(_lib().sort_ids_scratch(M))
+        if size <= 0:
+            raise RuntimeError("sort_ids: the kernel's grid could not be "
+                               "sized")
+        scratch = torch.empty(size, dtype=torch.int32, device=dev)
+        _launched(sort_ids, _lib().sort_ids(
+            idx.data_ptr(), keys.data_ptr(), perm.data_ptr(),
+            scratch.data_ptr(), M, n_bricks, _stream(dev)))
+    return keys, perm
+
+
 def scatter_cols_outer(W, cot, idx, n_bricks: int):
     """The table adjoint of :func:`gather_interp`: W [M, 32] f32, cot [M, F]
     f32, idx [M] int32 -> [n_bricks, 32F] f32 with ``out[b, eF+f] = sum of
@@ -325,8 +422,8 @@ def scatter_cols_outer(W, cot, idx, n_bricks: int):
     On the card it is :func:`scatter_cols_accum` with its producer fused:
     each product ``W[t, e] * cot[t, f]`` is one f32 multiply in registers,
     the value the materialized row ``W (x) cot`` held, so no [M, 32F] row
-    is written or read. The ids are sorted first (``torch.sort``, stable),
-    and each id's terms are summed in registers in sorted order with no
+    is written or read. The ids are sorted first (:func:`sort_ids`), and
+    each id's terms are summed in registers in sorted order with no
     atomics (the design noted at the top of ``csrc/gather.cu``): the
     result is the same on every call. An id out of range is dropped."""
     if W.device.type == "cpu":
@@ -341,21 +438,73 @@ def scatter_cols_outer(W, cot, idx, n_bricks: int):
     F = _features("scatter_cols_outer", cot, M, dev)
     out = torch.zeros(n_bricks, 32 * F, dtype=torch.float32, device=dev)
     if M:
-        sidx, perm = torch.sort(idx, stable=True)
+        keys, perm = sort_ids(idx, n_bricks)
         slots = int(_lib().scatter_cols_outer_slots(M, F))
         if slots <= 0:
             raise RuntimeError("scatter_cols_outer: the kernel's grid could "
                                "not be sized")
         part = torch.empty(slots, 32 * F, dtype=torch.float32, device=dev)
-        meta = torch.empty(2 * slots + 1, dtype=torch.int32, device=dev)
+        part_id = torch.empty(slots, dtype=torch.int32, device=dev)
         _launched(scatter_cols_outer, _lib().scatter_cols_outer(
-            W.data_ptr(), cot.data_ptr(), sidx.data_ptr(), perm.data_ptr(),
-            out.data_ptr(), part.data_ptr(), meta.data_ptr(), M, F, n_bricks,
+            W.data_ptr(), cot.data_ptr(), keys.data_ptr(), perm.data_ptr(),
+            out.data_ptr(), part.data_ptr(), part_id.data_ptr(), M, F,
+            n_bricks, _stream(dev)))
+    return out
+
+
+def gather_cols_dfrac(tab, idx, cot, local, frac, level_first, res):
+    """The position pullback of :func:`gather_interp` on trilinear weights:
+    tab [n_bricks, 32F] f32, idx [M] int32, cot [M, F] f32, local [M, 3]
+    int64 (a point's base corner in its brick, 0 or 1 an axis), frac [M, 3]
+    f32 (its offsets in its cell) -> [M, 3] f32, ``res[l] *
+    d<gather_interp(tab, idx, W, F)[t], cot[t]> / dfrac[t]`` with W the
+    trilinear weights of (local, frac) and l the level of idx[t]: the last
+    of the levels whose first ids ``level_first`` (ascending, at most 32)
+    is at most idx[t]. Its plain version is :func:`dfrac` of
+    :func:`gather_cols_dot`'s ``dW``, times ``res``.
+
+    On the card one thread serves a descriptor: it reads the F features of
+    the 8 corners of its cell (the only entries with a non-zero weight or
+    weight derivative; one 32-byte sector each at F = 8), rounds them to
+    bf16 and contracts them with ``cot`` and the separable weights in
+    registers, in a fixed order: no ``dW`` is written, and a descriptor gets
+    the same bits wherever it lies in the call. An id out of range gives
+    zeros (for a finite ``cot``)."""
+    if tab.device.type == "cpu":
+        return gather_cols_dfrac_plain(tab, idx, cot, local, frac,
+                                       level_first, res)
+    dev = _cuda_device(tab, "gather_cols_dfrac")
+    _check("tab", tab, torch.float32, 2, dev, align=16)
+    _check("idx", idx, torch.int32, 1, dev)
+    M = idx.shape[0]
+    F = _features("gather_cols_dfrac", cot, M, dev)
+    n_bricks, R = tab.shape
+    if R != 32 * F:
+        raise ValueError(f"gather_cols_dfrac: rows of {R} floats with "
+                         f"F={F}; the kernel takes R = 32F")
+    _check("local", local, torch.int64, 2, dev, align=8)
+    _check("frac", frac, torch.float32, 2, dev)
+    if tuple(local.shape) != (M, 3) or tuple(frac.shape) != (M, 3):
+        raise ValueError(f"gather_cols_dfrac: local {tuple(local.shape)} and "
+                         f"frac {tuple(frac.shape)}, expected {(M, 3)}")
+    L = len(level_first)
+    if not 1 <= L <= 32 or len(res) != L or any(
+            a > b for a, b in zip(level_first, level_first[1:])):
+        raise ValueError(f"gather_cols_dfrac: levels {list(level_first)} "
+                         f"with resolutions {list(res)}")
+    out = torch.empty(M, 3, dtype=torch.float32, device=dev)
+    if M:
+        first = (ctypes.c_int * L)(*[int(v) for v in level_first])
+        scale = (ctypes.c_float * L)(*[float(v) for v in res])
+        _launched(gather_cols_dfrac, _lib().gather_cols_dfrac(
+            tab.data_ptr(), idx.data_ptr(), cot.data_ptr(), local.data_ptr(),
+            frac.data_ptr(), out.data_ptr(), M, F, n_bricks, L, first, scale,
             _stream(dev)))
     return out
 
 
 KERNELS = (gather_cols, gather_interp, gather_interp_bf16, gather_interp_mm,
-           scatter_cols_accum, gather_cols_dot, scatter_cols_outer)
+           scatter_cols_accum, gather_cols_dot, scatter_cols_outer,
+           gather_cols_dfrac, sort_ids)
 for _fn in KERNELS:
     _fn.launches = 0

@@ -25,14 +25,15 @@ table and the positions. Its table operations are the kernels of
   count);
 - on the card, ``gather_interp_mm`` keeps the one-hot levels' table rows
   (:func:`_hot_rows`; level 0's 512 bricks in the field) in shared memory;
-- backward, positions: ``gather_cols_dot`` re-gathers the bf16 brick rows
-  (they are not kept from the forward) and contracts them with the
-  cotangent into ``dW`` [M, 32]; the ``dfrac * res`` contraction through
-  the separable weights is plain torch (broadcast products, no [M, 32F]
-  tensor). :func:`hash_encode_vjp` gives that position pullback on its
-  own, as ``jax.vjp`` does for the density's normals: a custom backward
-  cannot see that ``torch.autograd.grad(density, positions)`` will drop
-  its table gradient, so it would make one.
+- backward, positions: ``gather_cols_dfrac`` re-reads the 8 corners of
+  each descriptor's cell (the bf16 brick rows are not kept from the
+  forward), contracts them with the cotangent and the separable weights'
+  derivatives and scales by the level's resolution, [M, 3]; the level sum
+  and the clamp's mask are plain torch. :func:`hash_encode_vjp` gives that
+  position pullback on its own, as ``jax.vjp`` does for the density's
+  normals: a custom backward cannot see that
+  ``torch.autograd.grad(density, positions)`` will drop its table
+  gradient, so it would make one.
 
 Gathered table values are ``bf16(table)``, as the JAX package's bf16 shadow;
 weights, sums and gradients are f32 (the JAX package accumulates the hashed
@@ -160,22 +161,6 @@ def _hot_rows(config: HashGridConfig) -> int:
     return (n - 1) * config.bricks_per_level + bpa**3
 
 
-def _axis_weights(lo, f):
-    """[M, 3] weights of the 3 lattice points on one axis:
-    (i == lo) (1 - f) + (i == lo + 1) f."""
-    i3 = torch.arange(3, device=lo.device)
-    lo = lo[:, None]
-    f = f[:, None]
-    return (i3 == lo) * (1.0 - f) + (i3 == lo + 1) * f
-
-
-def _axis_dweights(lo):
-    """[M, 3] d(axis weights)/df: -(i == lo) + (i == lo + 1)."""
-    i3 = torch.arange(3, device=lo.device)
-    lo = lo[:, None]
-    return (i3 == lo + 1).float() - (i3 == lo).float()
-
-
 def _trilinear(w0, w1, w2):
     """[M, 3] x 3 -> [M, 27]: W[(i*3+j)*3+k] = w0[i] w1[j] w2[k]."""
     M = w0.shape[0]
@@ -203,51 +188,33 @@ def _descriptors(x, config: HashGridConfig):
     idx = torch.cat(ids).to(torch.int32)
     frac = torch.cat(fr)
     local = torch.cat(loc)
-    W = _trilinear(*(_axis_weights(local[:, a], frac[:, a]) for a in range(3)))
+    W = _trilinear(*(gc.axis_weights(local[:, a], frac[:, a])
+                     for a in range(3)))
     W = torch.cat([W, W.new_zeros(W.shape[0], _BRICK_PAD - _BRICK)], 1)
     return idx, local, frac, W, inside
 
 
-def _brick_dW(tables, idx, cot):
-    """d<features, cot>/dW [M, 32] of M descriptors: ``gather_cols_dot``
-    re-gathers their bf16 brick rows and contracts them with cot [M, F]
-    f32."""
+def _dfrac_res(tables, idx, cot, local, frac, level_first, res):
+    """``dfrac * res`` [M, 3] of M descriptors (``gather_cols_dfrac``):
+    d<features, cot>/dx of each, before the level sum. level_first: each
+    level's first id in idx's id space."""
     if tables.dtype != torch.float32:
-        tables = tables.float()  # exact: the gather rounds to bf16 again
-    return gc.gather_cols_dot(tables, idx, cot)
-
-
-def _dfrac(dW, local, frac):
-    """[M, 3] d<features, cot>/dfrac from dW [M, 32] through the separable
-    trilinear weights: sum_ijk dW[ijk] w0'[i] w1[j] w2[k] and its two
-    siblings, as broadcast products summed one axis at a time (an
-    ``einsum`` over M runs as a batched matrix-vector product)."""
-    M = dW.shape[0]
-    dW = dW[:, :_BRICK].reshape(M, 3, 3, 3)
-    w = [_axis_weights(local[:, a], frac[:, a]) for a in range(3)]
-    dw = [_axis_dweights(local[:, a]) for a in range(3)]
-    ij = torch.sum(dW * w[2][:, None, None, :], dim=3)  # [M, i, j]
-    k = torch.sum(dW * (w[0][:, :, None, None] * w[1][:, None, :, None]),
-                  dim=(1, 2))  # [M, k]
-    return torch.stack([
-        torch.sum(torch.sum(ij * w[1][:, None, :], dim=2) * dw[0], dim=1),
-        torch.sum(torch.sum(ij * w[0][:, :, None], dim=1) * dw[1], dim=1),
-        torch.sum(k * dw[2], dim=1),
-    ], dim=-1)
+        tables = tables.float()  # exact: the kernel rounds to bf16 again
+    return gc.gather_cols_dfrac(tables, idx, cot, local, frac, level_first,
+                                res)
 
 
 def _position_grad(tables, desc, cot, config: HashGridConfig, x_shape,
                    x_dtype):
-    """d<features, cot>/dx from one encode's descriptors: ``dW`` from
-    ``gather_cols_dot``, then the ``dfrac * res`` contraction. cot: [L*n,
-    F] level-major f32."""
+    """d<features, cot>/dx from one encode's descriptors: ``dfrac * res``
+    of every descriptor, summed over the levels. cot: [L*n, F] level-major
+    f32."""
     idx, local, frac, _, inside = desc
-    L = config.n_levels
+    L, NB = config.n_levels, config.bricks_per_level
     n = idx.shape[0] // L
-    dfrac = _dfrac(_brick_dW(tables, idx, cot), local, frac).reshape(L, n, 3)
-    res = torch.tensor([float(r) for r in config.resolutions],
-                       device=dfrac.device)
-    grad_x = torch.sum(dfrac * res[:, None, None], dim=0) * inside
+    d = _dfrac_res(tables, idx, cot, local, frac,
+                   [l * NB for l in range(L)], config.resolutions)
+    grad_x = torch.sum(d.reshape(L, n, 3), dim=0) * inside
     return grad_x.reshape(x_shape).to(x_dtype)
 
 
@@ -353,18 +320,18 @@ class _TPRoute:
       position gradient sums the owned descriptors' terms and all-reduces
       [n, 3];
     - ``descriptor_sharding`` (each rank encodes its own points): each
-      descriptor's local id and weight row go to its owner in one
-      ``all_to_all`` (split sizes exchanged first), the owner interpolates
-      and returns the [R, F] features; the backward routes the [M, F]
-      cotangents the same way, the owner scatters them into its rows (so
-      its table gradient is the SUM over the axis) and returns each
-      descriptor's [32] weight gradient for the requester's position
+      descriptor's local id, weight row, offsets and base corner go to its
+      owner in one ``all_to_all`` (split sizes exchanged first), the owner
+      interpolates and returns the [R, F] features; the backward routes the
+      [M, F] cotangents the same way, the owner scatters them into its rows
+      (so its table gradient is the SUM over the axis) and returns each
+      descriptor's [3] ``dfrac * res`` for the requester's position
       gradient. The exact splits need no capacity and no overflow path.
     """
 
     def __init__(self, tables, desc, config: HashGridConfig, axis,
                  descriptor_sharding: bool):
-        idx, _, _, W, _ = desc
+        idx, local, frac, W, _ = desc
         L, NB = config.n_levels, config.bricks_per_level
         self.config, self.axis, self.desc = config, axis, desc
         self.ds = descriptor_sharding
@@ -373,6 +340,8 @@ class _TPRoute:
             raise ValueError(f"a table shard of {R} rows over {axis.size} "
                              f"ranks for a {L * NB}-row table")
         self.base = base = axis.index * R
+        # each level's first id among this rank's local row ids
+        self.level_first = [l * NB - base for l in range(L)]
         self.n = n = idx.shape[0] // L
         n_oh = _n_onehot(config) if tables.dtype == torch.float32 else 0
         self.split = split = n_oh * n
@@ -384,6 +353,7 @@ class _TPRoute:
             sid.append(idx[l * n:(l + 1) * n] - l * NB + off)
             off += bpa**3
         self.slab_rows = off
+        self.slab_first = [o for _, _, o in self.spans]
         self.sid = torch.cat(sid) if sid else None
         self.slab = None
         if split == L * n:
@@ -403,13 +373,17 @@ class _TPRoute:
         send = torch.bincount(owner, minlength=axis.size)
         recv = pdist.exchange_counts(send, axis)
         self.send, self.recv = send.tolist(), recv.tolist()
-        # a local id travels as an f32 column beside its weights: exact
-        # below 2**24 rows
+        # a local id travels as an f32 column beside its weights, offsets
+        # and base corner: exact below 2**24 rows
         li = (idx_s - owner * R)[self.order].to(torch.float32)
-        packet = torch.cat([W_s[self.order], li[:, None]], 1)
+        packet = torch.cat([W_s[self.order], li[:, None],
+                            frac[split:][self.order],
+                            local[split:][self.order].float()], 1)
         got = pdist.all_to_all_rows(packet, self.send, self.recv, axis)
         self.recv_w = got[:, :_BRICK_PAD].contiguous()
         self.recv_li = got[:, _BRICK_PAD].to(torch.int32)
+        self.recv_frac = got[:, _BRICK_PAD + 1:_BRICK_PAD + 4].contiguous()
+        self.recv_local = got[:, _BRICK_PAD + 4:].long()
 
     # -- forward -----------------------------------------------------------
 
@@ -490,34 +464,34 @@ class _TPRoute:
         never all-reduced."""
         idx, local, frac, _, inside = self.desc
         n = self.n
-        res = torch.tensor([float(r) for r in self.config.resolutions],
-                           device=cot.device)
-        row_res = res.repeat_interleave(n)
+        res = self.config.resolutions
         sample = torch.arange(n, device=cot.device).repeat(
             self.config.n_levels)
         grad = torch.zeros(n, 3, device=cot.device)
         if self.split < idx.shape[0]:
             s = self.split
-            cot_s = cot[s:]
             if not self.ds:
                 sel = self.own_rows
-                dW = _brick_dW(tables, self.own_li, cot_s[sel])
+                d = _dfrac_res(tables, self.own_li, cot[s:][sel],
+                               local[s:][sel], frac[s:][sel],
+                               self.level_first, res)
                 rows = sel + s
             else:
-                dW_own = _brick_dW(tables, self.recv_li, routed)
-                back = pdist.all_to_all_rows(dW_own, self.recv, self.send,
+                d_own = _dfrac_res(tables, self.recv_li, routed,
+                                   self.recv_local, self.recv_frac,
+                                   self.level_first, res)
+                back = pdist.all_to_all_rows(d_own, self.recv, self.send,
                                              self.axis)
-                dW = torch.empty_like(back)
-                dW[self.order] = back
+                d = torch.empty_like(back)
+                d[self.order] = back
                 rows = torch.arange(s, idx.shape[0], device=cot.device)
-            d = _dfrac(dW, local[rows], frac[rows]) * row_res[rows, None]
             grad.index_add_(0, sample[rows], d)
             if not self.ds:
                 pdist.all_reduce_sum(grad, self.axis)
         if self.split:
             s = self.split
-            d = _dfrac(_brick_dW(self.slab, self.sid, cot[:s]), local[:s],
-                       frac[:s]) * row_res[:s, None]
+            d = _dfrac_res(self.slab, self.sid, cot[:s], local[:s], frac[:s],
+                           self.slab_first, res[:len(self.spans)])
             grad.index_add_(0, sample[:s], d)
         return (grad * inside).reshape(x_shape).to(x_dtype)
 

@@ -1,18 +1,20 @@
-// scatter_cols_outer's function by the two designs it does not take, on no
+// scatter_cols_outer's function by two designs it does not take, on no
 // path: scripts/exp_torch_table_adjoints.py builds this file (the whole of
 // nerf_vo_tpu_torch/csrc/gather.cu is included, for its kernels and
-// helpers) and times both against the port's design (ids sorted, each
-// id's terms summed in order, no atomics):
+// helpers) and times both against the port's design (ids sorted by
+// sort_ids, each id's terms summed in order, no atomics, one cooperative
+// launch):
 //
 // - scatter_cols_outer_atomic_runs: the runs kernel on the ids in the
 //   order given (level-major, ray-major), each run's sum added with float4
-//   atomics (AddRuns), as scatter_cols_accum does at F <= 2; any F;
-// - scatter_cols_outer_slabs: the slabs of scatter_cols_accum_kernel
-//   (32-column slabs, rows [0, hot) accumulated in shared memory, float4
-//   atomics, zero 16-byte pieces left out), with each row formed as
-//   W (x) cot in registers in place of loaded; F = 8.
-//
-// Both sum in an order that changes from call to call.
+//   atomics (AddRuns), as scatter_cols_accum does at F <= 2; any F; it
+//   sums in an order that changes from call to call;
+// - scatter_cols_outer_tri: the port's design with another row source,
+//   OuterTri, which forms each weight W[r, e] in registers from the
+//   descriptor's offsets frac[r] and base corner local[r] (36 bytes, read
+//   by every lane of the descriptor) in place of reading W's 128-byte row:
+//   (w0[i] w1[j]) w2[k], the f32 products in hash_grid._trilinear's order,
+//   so that its result is bitwise the port's.
 
 #include "nerf_vo_tpu_torch/csrc/gather.cu"
 
@@ -35,112 +37,49 @@ struct OuterInOrder {
   }
 };
 
-// columns col..col+3 (col a multiple of 4) of row t of W (x) cot at F = 8:
-// entry col / 8, features col % 8..col % 8 + 3; zeros where !ok
-__device__ __forceinline__ float4 outer8(const float* W, const float* cot,
-                                         long long t, int col, bool ok) {
-  float w[1], c[4];
-  ld_floats_if<1, true>(W + t * 32 + col / 8, ok, w);
-  ld_floats_if<4, false>(cot + t * 8 + col % 8, ok, c);
-  return make_float4(w[0] * c[0], w[0] * c[1], w[0] * c[2], w[0] * c[3]);
+// the weight of lattice point i on an axis: (i == lo) (1 - f) + (i == lo +
+// 1) f, as hash_grid's axis weights give it bit for bit
+__device__ __forceinline__ float axis_weight(int i, int lo, float f) {
+  return i == lo ? 1.f - f : (i == lo + 1 ? f : 0.f);
 }
 
-__global__ void __launch_bounds__(kScThreads) scatter_outer_slabs_kernel(
-    const float* __restrict__ W, const float* __restrict__ cot,
-    const int* __restrict__ idx, float* __restrict__ out, int M,
-    int n_bricks, int hot) {
-  constexpr int F = 8;
-  constexpr int R = 32 * F;  // F slabs of 32 columns
-  extern __shared__ __align__(16) float sc_smem[];
-  const int s = blockIdx.x % F;
-  const int chunk = blockIdx.x / F;
-  const int n_chunks = gridDim.x / F;
-  for (int i = threadIdx.x; i < hot * kSlab; i += kScThreads) sc_smem[i] = 0.f;
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int q = lane >> 3;  // descriptor of the 4 served at once
-  const int c4 = lane & 7;  // columns 4*c4..4*c4+3 of the slab
-  float* out_s = out + s * kSlab + 4 * c4;
-  const long long batch0 =
-      static_cast<long long>(chunk) * kScWarps + (threadIdx.x >> 5);
-  const long long bstep = static_cast<long long>(n_chunks) * kScWarps;
-  for (long long bt = batch0 * 32; bt < M; bt += bstep * 32) {
-    const long long tl = bt + lane;
-    const int my_id = tl < M ? __ldg(idx + tl) : -1;
+// Outer<F> with W formed from (frac, local) of descriptor r = perm[t]
+template <int F>
+struct OuterTri {
+  const float* frac;
+  const long long* local;
+  const float* cot;
+  const int* perm;
+  template <int R>
+  __device__ __forceinline__ void load(long long t, int col, bool ok,
+                                       float (&v)[8]) const {
+    constexpr int E = F >= 8 ? 1 : 8 / F;  // entries the 8 columns span
+    const long long r = ok ? __ldg(perm + t) : 0;
+    float c[F < 8 ? F : 8];
+    ld_floats_if<(F < 8 ? F : 8), false>(cot + r * F + col % F, ok, c);
+    int lo[3];
+    float f[3];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float4 v[4];
-      int b[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int d = h * 16 + k * 4 + q;
-        b[k] = __shfl_sync(0xffffffffu, my_id, d);
-        v[k] = outer8(W, cot, bt + d, s * kSlab + 4 * c4,
-                      b[k] >= 0 && b[k] < n_bricks);
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int bk = b[k];
-        if (bk < 0 || bk >= n_bricks || !nonzero(v[k])) continue;
-        if (bk < hot) {
-          atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 0), v[k].x);
-          atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 1), v[k].y);
-          atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 2), v[k].z);
-          atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 3), v[k].w);
-        } else {
-          atomicAdd(reinterpret_cast<float4*>(
-                        out_s + static_cast<long long>(bk) * R), v[k]);
-        }
-      }
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = ok ? static_cast<int>(__ldg(local + 3 * r + a)) : 0;
+      f[a] = ok ? __ldg(frac + 3 * r + a) : 0.f;
     }
+    float w[E];
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int e = col / F + k;
+      w[k] = ok && e < kEntries
+                 ? (axis_weight(e / 9, lo[0], f[0]) *
+                    axis_weight((e / 3) % 3, lo[1], f[1])) *
+                       axis_weight(e % 3, lo[2], f[2])
+                 : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = w[i / F] * c[i % F];
   }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < hot * 8; i += kScThreads) {
-    const int r = i >> 3;
-    const int c = (i & 7) * 4;
-    const float4 v = make_float4(
-        sc_smem[slab_pos(r, c + 0)], sc_smem[slab_pos(r, c + 1)],
-        sc_smem[slab_pos(r, c + 2)], sc_smem[slab_pos(r, c + 3)]);
-    if (nonzero(v))
-      atomicAdd(reinterpret_cast<float4*>(
-                    out + static_cast<long long>(r) * R + s * kSlab + c), v);
-  }
-}
+};
 
 }  // namespace
-
-// W [M, 32] f32, cot [M, 8] f32 (16-byte aligned), idx [M] int32; out
-// [n_bricks, 256] f32, zeroed by the caller; rows [0, hot) (at most 768)
-// accumulate in shared memory. The function of scatter_cols_outer at F = 8.
-extern "C" int scatter_cols_outer_slabs(const void* W, const void* cot,
-                                        const void* idx, void* out, int M,
-                                        int n_bricks, int hot, void* stream) {
-  if (M == 0) return 0;
-  constexpr int F = 8;
-  static KernelFacts facts[kMaxDevices];
-  hot = hot < 0 ? 0 : hot;
-  if (hot > n_bricks) hot = n_bricks;
-  if (hot > kScHotMax) hot = kScHotMax;
-  const int smem = hot * kSlab * 4;
-  long long chunks = 0;
-  cudaError_t err = resident_grid(scatter_outer_slabs_kernel, facts,
-                                  kScThreads, kScHotMax * kSlab * 4, smem,
-                                  &chunks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chunks /= F;
-  const long long need = (M + kScWarps * 32 - 1) / (kScWarps * 32);
-  if (chunks > need) chunks = need;
-  if (chunks < 1) chunks = 1;
-  scatter_outer_slabs_kernel<<<static_cast<unsigned int>(chunks * F),
-                               kScThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(W), static_cast<const float*>(cot),
-      static_cast<const int*>(idx), static_cast<float*>(out), M, n_bricks,
-      hot);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // W [M, 32] f32, cot [M, F] f32, idx [M] int32 (any order); out [n_bricks,
 // 32F] f32, zeroed by the caller. The function of scatter_cols_outer.
@@ -164,5 +103,48 @@ extern "C" int scatter_cols_outer_atomic_runs(const void* W, const void* cot,
     case 8: return launch_scatter_runs<8>(OuterInOrder<8>{w, c}, sink, ix, M,
                                           n_bricks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// frac [M, 3] f32, local [M, 3] int64, cot [M, F] f32; sidx, perm [M]
+// int32 from sort_ids; out [n_bricks, 32F] f32, zeroed by the caller; part
+// [slots, 32F] f32 and part_id [slots] int32 scratch, slots =
+// scatter_cols_outer_tri_slots(M, F). scatter_cols_outer's function on the
+// trilinear weights of (local, frac), bitwise its result.
+extern "C" int scatter_cols_outer_tri(const void* frac, const void* local,
+                                      const void* cot, const void* sidx,
+                                      const void* perm, void* out,
+                                      void* part, void* part_id, int M,
+                                      int F, int n_bricks, void* stream) {
+  if (M == 0) return 0;
+  const float* fr = static_cast<const float*>(frac);
+  const long long* lc = static_cast<const long long*>(local);
+  const float* c = static_cast<const float*>(cot);
+  const int* ix = static_cast<const int*>(sidx);
+  const int* pm = static_cast<const int*>(perm);
+  float* o = static_cast<float*>(out);
+  float* pt = static_cast<float*>(part);
+  int* pi = static_cast<int*>(part_id);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (F) {
+    case 1: return launch_scatter_owned<1>(OuterTri<1>{fr, lc, c, pm}, ix, o,
+                                           pt, pi, M, n_bricks, s);
+    case 2: return launch_scatter_owned<2>(OuterTri<2>{fr, lc, c, pm}, ix, o,
+                                           pt, pi, M, n_bricks, s);
+    case 4: return launch_scatter_owned<4>(OuterTri<4>{fr, lc, c, pm}, ix, o,
+                                           pt, pi, M, n_bricks, s);
+    case 8: return launch_scatter_owned<8>(OuterTri<8>{fr, lc, c, pm}, ix, o,
+                                           pt, pi, M, n_bricks, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" long long scatter_cols_outer_tri_slots(int M, int F) {
+  switch (F) {
+    case 1: return owned_slots<1, OuterTri<1>>(M);
+    case 2: return owned_slots<2, OuterTri<2>>(M);
+    case 4: return owned_slots<4, OuterTri<4>>(M);
+    case 8: return owned_slots<8, OuterTri<8>>(M);
+    default: return -1;
   }
 }

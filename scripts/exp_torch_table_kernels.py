@@ -175,7 +175,7 @@ def main():
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # (a)'s F = 8 shapes: rows 2 and 5
-    tab, idx, W, n, cot, hot = cs.gather_inputs(dev)
+    tab, idx, W, n, cot, hot, _, _ = cs.gather_inputs(dev)
     compare_gather(lib, "(a) F=8", tab, idx)
     rows = (W[:, :, None] * cot[:, None, :]).reshape(idx.shape[0], 256)
     compare_scatter(lib, "(a) F=8", rows, idx, tab.shape[0], hot)

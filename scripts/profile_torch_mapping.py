@@ -34,12 +34,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import MAPPING, REPLICA, synthetic_frames  # noqa: E402
 
 # the table kernels of csrc/gather.cu by name (their template instances:
-# gather_cols_kernel<L, Sink> is rows 2 and gather_cols_dot,
-# scatter_cols_accum_kernel<F, Src> the scatters' slab design and
-# scatter_runs_kernel<F, Src> their runs design)
+# gather_cols_kernel<L, Sink> is row 2 and gather_cols_dot,
+# scatter_cols_accum_kernel<F, Src> the scatters' slab design,
+# scatter_runs_kernel<F, Src> their atomic runs design and
+# scatter_owned_kernel<F, Src> scatter_cols_outer; sort_ids_kernel its sort)
 TABLE_KERNELS = ("gather_cols_kernel", "gather_interp_kernel",
                  "gather_interp_mm_kernel", "scatter_cols_accum_kernel",
-                 "scatter_runs_kernel")
+                 "scatter_runs_kernel", "gather_cols_dfrac_kernel",
+                 "scatter_owned_kernel", "sort_ids_kernel")
 
 
 def keyframe_packet(n, H, W, device):

@@ -244,6 +244,29 @@ def test_plain_versions_compose_to_the_hash_encode_chain(data, F):
     assert not got_g[:, 27 * F:].any()
 
 
+SORT_CASES = ["random", "out_of_range", "all_equal", "empty", "one"]
+
+
+@pytest.mark.parametrize("case", SORT_CASES)
+def test_sort_ids_plain_matches_numpy_stable_argsort(case):
+    """``sort_ids``' plain version against numpy's stable argsort of the
+    keys (an id in [0, n_bricks), else n_bricks): the same keys and the same
+    int32 positions, equal keys in the order of their positions."""
+    n_bricks = 300
+    rng = np.random.default_rng(30)
+    idx = {"random": rng.integers(0, 7, 5000) * 41,
+           "out_of_range": rng.integers(-20, n_bricks + 20, 5000),
+           "all_equal": np.full(4099, 17),
+           "empty": np.zeros(0),
+           "one": np.asarray([299])}[case].astype(np.int32)
+    keys, perm = gc.sort_ids(torch.tensor(idx), n_bricks)
+    key = np.where((idx >= 0) & (idx < n_bricks), idx, n_bricks)
+    want = np.argsort(key, kind="stable")
+    assert keys.dtype == torch.int32 and perm.dtype == torch.int32
+    np.testing.assert_array_equal(perm.numpy(), want)
+    np.testing.assert_array_equal(keys.numpy(), key[want])
+
+
 def test_wrappers_take_the_plain_version_only_on_the_cpu(data):
     """A tensor on another device never falls back to the plain version."""
     tab = torch.tensor(data["tab8"], device="meta")
@@ -259,4 +282,11 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(data):
         gc.gather_cols_dot(tab, idx, cot)
     with pytest.raises(ValueError, match="unsupported device"):
         gc.scatter_cols_outer(torch.empty(M, 32, device="meta"), cot, idx, B)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gc.gather_cols_dfrac(tab, idx, cot,
+                             torch.empty(M, 3, dtype=torch.int64,
+                                         device="meta"),
+                             torch.empty(M, 3, device="meta"), [0], [16.0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        gc.sort_ids(idx, B)
     assert all(k.launches == 0 for k in gc.KERNELS)

@@ -20,7 +20,12 @@ within the f32 summation bound of each brick's terms. The fused adjoints
 of ``gather_interp``: ``gather_cols_dot`` elementwise within the f32
 summation bound of its F terms, ``scatter_cols_outer`` within that of
 each brick's terms (its rows ``W (x) cot`` formed in registers) and
-bitwise the same over two calls (it adds no atomics).
+bitwise the same over two calls (it adds no atomics, and sorts its ids
+with ``sort_ids``, never ``torch.sort``). The position pullback
+``gather_cols_dfrac`` elementwise within the f32 summation bound of its
+terms (F products a corner, the separable weights' sums), bitwise the same
+over two calls and for a descriptor wherever it lies in the call;
+``sort_ids`` exactly ``torch.sort(stable=True)`` (keys and positions).
 """
 
 import pytest
@@ -438,8 +443,9 @@ def test_hash_proposal_grid_at_f2_with_512_hot_rows(dev):
     features, log2 17, resolution 16 -> 128: level 0's 512 bricks on the
     one-hot route and kept on chip, 512 hot rows): hash_encode's forward,
     table gradient and position gradient on the card against the plain
-    versions on the CPU (rows 2 and 5 as the fused adjoints, one launch
-    each, the unfused kernels none); then gather_interp_mm and
+    versions on the CPU (rows 2 and 5 as the position pullback and the
+    table adjoint with its sort, one launch each, the unfused kernels and
+    gather_cols_dot none); then gather_interp_mm and
     scatter_cols_accum alone at F = 2 with the 512 hot rows, against
     plain."""
     cfg = hg.HashGridConfig(5, 2, 17, 16, 128)
@@ -458,10 +464,10 @@ def test_hash_proposal_grid_at_f2_with_512_hot_rows(dev):
         outs.append([v.detach().cpu() for v in (out, gt, gp)])
     for a, b in zip(*outs):
         _close(b, a)
-    for name in ("gather_cols_dot", "gather_interp", "gather_interp_mm",
-                 "scatter_cols_outer"):
+    for name in ("gather_cols_dfrac", "gather_interp", "gather_interp_mm",
+                 "scatter_cols_outer", "sort_ids"):
         assert getattr(gc, name).launches == counts[name] + 1, name
-    for name in ("gather_cols", "scatter_cols_accum"):
+    for name in ("gather_cols", "scatter_cols_accum", "gather_cols_dot"):
         assert getattr(gc, name).launches == counts[name], name
     tab_d = tab.to(dev)
     n = 2000
@@ -727,9 +733,11 @@ def test_scatter_cols_outer_repeats_bitwise(dev, F, case):
     g.manual_seed(25)
     W = torch.rand(idx.shape[0], 32, generator=g, device=dev)
     cot = torch.randn(idx.shape[0], F, generator=g, device=dev)
+    before = gc.sort_ids.launches
     first = gc.scatter_cols_outer(W, cot, idx, n_bricks)
     again = gc.scatter_cols_outer(W, cot, idx, n_bricks)
     torch.cuda.synchronize()
+    assert gc.sort_ids.launches == before + 2
     assert torch.equal(first, again)
 
 
@@ -761,21 +769,42 @@ def test_adjoints_on_proposal_rays(dev, F):
 @pytest.mark.cuda
 @pytest.mark.parametrize("F", [1, 2, 4, 8])
 def test_adjoints_with_no_descriptors(dev, F):
-    """M = 0: an empty dW and a zero gradient, no launch."""
+    """M = 0: an empty dW, dfrac and sort, a zero gradient, no launch."""
     tab, idx, W, cot = _adjoint_inputs(dev, F, "random", M=16)
-    before = (gc.gather_cols_dot.launches, gc.scatter_cols_outer.launches)
+    local, frac = _cells(dev, F, 16)
+    counted = (gc.gather_cols_dot, gc.scatter_cols_outer,
+               gc.gather_cols_dfrac, gc.sort_ids)
+    before = [k.launches for k in counted]
     dW = gc.gather_cols_dot(tab, idx[:0], cot[:0])
     grad = gc.scatter_cols_outer(W[:0], cot[:0], idx[:0], 700)
+    d = gc.gather_cols_dfrac(tab, idx[:0], cot[:0], local[:0], frac[:0],
+                             LEVEL_FIRST, LEVEL_RES)
+    keys, perm = gc.sort_ids(idx[:0], 700)
     torch.cuda.synchronize()
-    assert dW.shape == (0, 32)
+    assert dW.shape == (0, 32) and d.shape == (0, 3)
+    assert keys.shape == (0,) and perm.shape == (0,)
     assert grad.shape == (700, 32 * F) and not grad.any()
-    assert (gc.gather_cols_dot.launches,
-            gc.scatter_cols_outer.launches) == before
+    assert [k.launches for k in counted] == before
 
 
 @pytest.mark.cuda
 def test_adjoints_reject_bad_inputs(dev):
     tab, idx, W, cot = _adjoint_inputs(dev, 8, "random", M=64)
+    local, frac = _cells(dev, 8, 64)
+    with pytest.raises(TypeError):
+        gc.gather_cols_dfrac(tab, idx, cot, local.int(), frac, LEVEL_FIRST,
+                             LEVEL_RES)
+    with pytest.raises(ValueError):
+        gc.gather_cols_dfrac(tab, idx, cot, local, frac[:10], LEVEL_FIRST,
+                             LEVEL_RES)
+    with pytest.raises(ValueError):  # levels not ascending
+        gc.gather_cols_dfrac(tab, idx, cot, local, frac, [0, 466, 233],
+                             LEVEL_RES)
+    with pytest.raises(ValueError):  # more levels than the kernel takes
+        gc.gather_cols_dfrac(tab, idx, cot, local, frac, list(range(33)),
+                             [16.0] * 33)
+    with pytest.raises(TypeError):
+        gc.sort_ids(idx.long(), 700)
     with pytest.raises(ValueError):
         gc.gather_cols_dot(tab, idx, cot[:, :4].contiguous())  # R != 32F
     with pytest.raises(ValueError):
@@ -794,3 +823,209 @@ def test_adjoints_reject_bad_inputs(dev):
         gc.scatter_cols_outer(W, cot, idx.long(), 700)
     with pytest.raises(ValueError):
         gc.scatter_cols_outer(W, cot.t(), idx, 700)  # not contiguous
+
+
+# ---------------------------------------------------------------------------
+# the position pullback (gather_cols_dfrac) and the sort of the table
+# gradient's ids (sort_ids)
+# ---------------------------------------------------------------------------
+
+# three levels of a 700-row table: their first ids and resolutions
+LEVEL_FIRST, LEVEL_RES = [0, 233, 466], [16.0, 32.0, 64.0]
+DFRAC_IDS = ["random", "runs", "one_brick", "out_of_range"]
+
+
+def _cells(dev, F, M, seed=31):
+    """Base corners [M, 3] int64 and offsets [M, 3] f32 of points in and
+    around the unit cube (clamped as the hash grid clamps them, so offsets
+    at the boundary are 0), as ``hash_grid._descriptors`` makes them."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + F)
+    x = torch.rand(M, 3, generator=g, device=dev) * 1.04 - 0.02
+    _, local, frac, _, _ = hg._descriptors(
+        x, hg.HashGridConfig(1, F, 14, 16, 16))
+    return local.contiguous(), frac.contiguous()
+
+
+def _dfrac_case(dev, F, ids, M=4099):
+    tab, idx, _, cot = _adjoint_inputs(dev, F, "out_of_range"
+                                       if ids == "out_of_range" else
+                                       "runs" if ids == "runs" else "random",
+                                       M=M)
+    if ids == "one_brick":
+        idx = torch.full_like(idx, 250)
+    local, frac = _cells(dev, F, M)
+    return tab, idx, cot, local, frac
+
+
+def _within_dfrac_bound(got, tab, idx, cot, local, frac):
+    """Elementwise |got - plain| <= 2 gamma_(k+1) * sum |term|, k = F + 12
+    (a corner's F products, then the weights' two-term sums, the difference
+    and the resolution's product: at most that many roundings on either
+    side), the terms bf16(v) cot w w |w'| res; ids outside [0, n_bricks)
+    give zeros."""
+    F = cot.shape[1]
+    ok = (idx >= 0) & (idx < tab.shape[0])
+    safe = torch.where(ok, idx, torch.zeros_like(idx))
+    want = gc.gather_cols_dfrac_plain(tab, safe, cot, local, frac,
+                                      LEVEL_FIRST, LEVEL_RES) * ok[:, None]
+    dW = gc.gather_cols_dot_plain(tab.abs(), safe, cot.abs())[:, :27]
+    w = [gc.axis_weights(local[:, a], frac[:, a]) for a in range(3)]
+    dw = [gc.axis_dweights(local[:, a]).abs() for a in range(3)]
+    d = dW.reshape(-1, 3, 3, 3)
+    res = torch.tensor(LEVEL_RES, device=tab.device)[
+        gc.id_levels(safe, LEVEL_FIRST)]
+    abs_sum = torch.stack([
+        torch.einsum("mijk,mi,mj,mk->m", d, dw[0], w[1], w[2]),
+        torch.einsum("mijk,mi,mj,mk->m", d, w[0], dw[1], w[2]),
+        torch.einsum("mijk,mi,mj,mk->m", d, w[0], w[1], dw[2]),
+    ], dim=-1) * res[:, None]
+    k = F + 13
+    eps = 2.0 ** -24
+    bound = 2 * k * eps / (1 - k * eps) * abs_sum
+    diff = (got - want).abs()
+    assert bool((diff <= bound).all()), diff.max().item()
+    assert not got[~ok].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids", DFRAC_IDS)
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_gather_cols_dfrac_matches_plain(dev, F, ids):
+    """One launch of the kernel and none of gather_cols_dot; uniform ids,
+    runs of ids, one brick, ids out of range (zeros); two calls give the
+    same bits."""
+    tab, idx, cot, local, frac = _dfrac_case(dev, F, ids)
+    before = (gc.gather_cols_dfrac.launches, gc.gather_cols_dot.launches)
+    got = gc.gather_cols_dfrac(tab, idx, cot, local, frac, LEVEL_FIRST,
+                               LEVEL_RES)
+    again = gc.gather_cols_dfrac(tab, idx, cot, local, frac, LEVEL_FIRST,
+                                 LEVEL_RES)
+    torch.cuda.synchronize()
+    assert (gc.gather_cols_dfrac.launches, gc.gather_cols_dot.launches) == (
+        before[0] + 2, before[1])
+    assert got.shape == (idx.shape[0], 3) and got.dtype == torch.float32
+    _within_dfrac_bound(got, tab, idx, cot, local, frac)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [2, 8])
+def test_gather_cols_dfrac_rows_do_not_depend_on_their_place(dev, F):
+    """A descriptor's row is the same bits in any call that holds it, as
+    the descriptor-sharded route (a rank's descriptors at its owner, local
+    ids) needs it to be against the one-rank route: the reversed and
+    shifted half of a call, its ids made local to a shard of the table."""
+    tab, idx, cot, local, frac = _dfrac_case(dev, F, "random")
+    full = gc.gather_cols_dfrac(tab, idx, cot, local, frac, LEVEL_FIRST,
+                                LEVEL_RES)
+    sel = torch.arange(idx.shape[0] - 1, 0, -2, device=dev)
+    base = 100  # a shard holding global rows 100..699
+    part = gc.gather_cols_dfrac(
+        tab[base:].contiguous(), (idx[sel] - base).contiguous(),
+        cot[sel].contiguous(), local[sel].contiguous(),
+        frac[sel].contiguous(), [f - base for f in LEVEL_FIRST], LEVEL_RES)
+    torch.cuda.synchronize()
+    keep = idx[sel] >= base
+    assert keep.any() and torch.equal(part[keep], full[sel][keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [2, 8])
+def test_gather_cols_dfrac_is_hash_encodes_position_pullback(dev, F):
+    """The kernel, summed over levels, against the plain chain it replaced
+    (``gather_cols_dot``'s dW through ``dfrac``, times the resolution) on a
+    5-level hash grid's descriptors of rays."""
+    cfg = hg.HashGridConfig(5, F, 17, 16, 128)
+    g = torch.Generator(device=dev)
+    g.manual_seed(32)
+    o = torch.rand(512, 1, 3, generator=g, device=dev) * 0.2 + 0.4
+    d = torch.randn(512, 1, 3, generator=g, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.linspace(0.0, 0.7, 48, device=dev)[None, :, None]
+    idx, local, frac, _, _ = hg._descriptors(o + t * d, cfg)
+    nb = 5 * cfg.bricks_per_level
+    tab = torch.randn(nb, 32 * F, generator=g, device=dev)
+    cot = torch.randn(idx.shape[0], F, generator=g, device=dev)
+    first = [l * cfg.bricks_per_level for l in range(5)]
+    got = gc.gather_cols_dfrac(tab, idx, cot, local, frac, first,
+                               cfg.resolutions)
+    chain = gc.dfrac(gc.gather_cols_dot(tab, idx, cot), local, frac) * \
+        torch.tensor(cfg.resolutions, device=dev).repeat_interleave(
+            idx.shape[0] // 5)[:, None]
+    torch.cuda.synchronize()
+    err = (got - chain).abs().max().item()
+    assert err <= 1e-5 * chain.abs().max().item(), err
+
+
+def _sort_ids_case(dev, case):
+    """(ids, n_bricks): ids in runs over a table whose key width is the
+    case's bits, the last of the width's range; or a special case."""
+    g = torch.Generator().manual_seed(33)
+    if case == "all_equal":
+        return torch.full((150001,), 1234, dtype=torch.int32,
+                          device=dev), 4096
+    if case == "one":
+        return torch.tensor([7], dtype=torch.int32, device=dev), 49152
+    if case == "empty":
+        return torch.zeros(0, dtype=torch.int32, device=dev), 49152
+    if case == "many_tiles":  # more tiles than blocks resident at once
+        return torch.randint(0, 49152, (4_200_001,), generator=g,
+                             dtype=torch.int32).to(dev), 49152
+    bits = int(case)
+    n_bricks = (1 << (bits - 1)) + 3  # keys up to n_bricks need `bits`
+    ids = torch.randint(0, n_bricks, (30000,), generator=g)
+    lengths = torch.randint(1, 20, (30000,), generator=g)
+    return _runs(dev, lengths.tolist(), ids.tolist())[:200003], n_bricks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [str(b) for b in range(9, 20)]
+                         + ["all_equal", "one", "empty", "many_tiles"])
+def test_sort_ids_equals_torch_sort(dev, case):
+    """Keys and positions exactly ``torch.sort(stable=True)``'s, at key
+    widths 9-19 bits (two or three 8-bit passes), all ids equal, M = 1,
+    M = 0, and more tiles than the grid's blocks; one launch a call."""
+    idx, n_bricks = _sort_ids_case(dev, case)
+    before = gc.sort_ids.launches
+    keys, perm = gc.sort_ids(idx, n_bricks)
+    want_k, want_p = torch.sort(idx, stable=True)
+    torch.cuda.synchronize()
+    assert gc.sort_ids.launches == before + (1 if idx.shape[0] else 0)
+    assert keys.dtype == torch.int32 and perm.dtype == torch.int32
+    assert torch.equal(keys, want_k)
+    assert torch.equal(perm, want_p.to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_sort_ids_puts_ids_out_of_range_last(dev):
+    """An id outside [0, n_bricks) sorts as n_bricks: after every id in
+    range, in the order of its position, as the plain version orders it."""
+    g = torch.Generator().manual_seed(34)
+    idx = torch.randint(-50, 5050, (100003,), generator=g,
+                        dtype=torch.int32).to(dev)
+    idx[:2] = torch.tensor([-2**31, 2**31 - 1], dtype=torch.int32)
+    keys, perm = gc.sort_ids(idx, 5000)
+    want_k, want_p = gc.sort_ids_plain(idx, 5000)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, want_k) and torch.equal(perm, want_p)
+
+
+@pytest.mark.cuda
+def test_scatter_cols_outer_never_calls_torch_sort(dev, monkeypatch):
+    """The scatter sorts its ids with sort_ids: with torch.sort refused it
+    gives the same bits, and sort_ids launches once a call."""
+    _, idx, W, cot = _adjoint_inputs(dev, 8, "runs")
+    want = gc.scatter_cols_outer(W, cot, idx, 700)
+    torch.cuda.synchronize()
+
+    def refuse(*a, **kw):
+        raise AssertionError("torch.sort was called")
+
+    monkeypatch.setattr(torch, "sort", refuse)
+    monkeypatch.setattr(torch, "argsort", refuse)
+    before = gc.sort_ids.launches
+    got = gc.scatter_cols_outer(W, cot, idx, 700)
+    torch.cuda.synchronize()
+    assert gc.sort_ids.launches == before + 1
+    assert torch.equal(got, want)

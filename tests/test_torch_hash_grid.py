@@ -28,6 +28,7 @@ import torch
 from nerf_vo_tpu.models import nerf_field as jfield
 from nerf_vo_tpu.ops import hash_grid as jhg
 from nerf_vo_tpu_torch.models import nerf_field as tfield
+from nerf_vo_tpu_torch.ops import gather_cuda as tgc
 from nerf_vo_tpu_torch.ops import hash_grid as thg
 
 FIELD = dict(n_levels=3, features_per_level=8, log2_table_size=14,
@@ -162,7 +163,8 @@ def test_hot_rows_follow_the_jax_onehot_rule(case, monkeypatch):
 
 
 def test_dfrac_matches_the_einsum_form():
-    """``_dfrac`` (broadcast products summed one axis at a time) against
+    """``gather_cuda.dfrac`` (broadcast products summed one axis at a
+    time; the contraction of ``gather_cols_dfrac``'s plain version) against
     the contraction it replaced, one ``einsum("mijk,mi,mj,mk->m")`` per
     axis, on the descriptors of points in and around the unit cube and a
     dW ~ N(0, 1): f32 sums of 27 terms in another order, 1e-6 relative."""
@@ -173,17 +175,50 @@ def test_dfrac_matches_the_einsum_form():
     dW = torch.tensor(rng.normal(size=(local.shape[0], 32)).astype(
         np.float32))
     d = dW[:, :27].reshape(-1, 3, 3, 3)
-    w = [thg._axis_weights(local[:, a], frac[:, a]) for a in range(3)]
-    dw = [thg._axis_dweights(local[:, a]) for a in range(3)]
+    w = [tgc.axis_weights(local[:, a], frac[:, a]) for a in range(3)]
+    dw = [tgc.axis_dweights(local[:, a]) for a in range(3)]
     want = torch.stack([
         torch.einsum("mijk,mi,mj,mk->m", d, dw[0], w[1], w[2]),
         torch.einsum("mijk,mi,mj,mk->m", d, w[0], dw[1], w[2]),
         torch.einsum("mijk,mi,mj,mk->m", d, w[0], w[1], dw[2]),
     ], dim=-1).numpy()
-    got = thg._dfrac(dW, local, frac).numpy()
+    got = tgc.dfrac(dW, local, frac).numpy()
     assert got.shape == (local.shape[0], 3)
     np.testing.assert_allclose(got, want, rtol=1e-6,
                                atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("case", ["field", "hash_proposal"])
+def test_position_pullback_kernel_matches_jax_vjp(case):
+    """``gather_cols_dfrac``'s plain version (``dfrac`` of
+    ``gather_cols_dot``'s dW, times the level's resolution), summed over the
+    levels and masked outside the cube, against ``jax.vjp`` of the JAX
+    ``hash_encode`` with respect to the points: the field grid (3 x 8) and
+    nerfstudio's first hash proposal grid (5 x 2, log2 17, 16 -> 128),
+    points in and around the unit cube; f32 on both sides, relative L2 <
+    1e-5 as ``test_hash_encode_matches_jax`` holds it."""
+    jcfg = {"field": jhg.HashGridConfig(**FIELD),
+            "hash_proposal": jhg.HashGridConfig(5, 2, 17, 16, 128)}[case]
+    tcfg = thg.HashGridConfig(**vars(jcfg))
+    L, F, NB = jcfg.n_levels, jcfg.features_per_level, jcfg.bricks_per_level
+    rng = np.random.default_rng(6)
+    tab = rng.normal(0, 0.5, (32 * F, L * NB)).astype(np.float32)
+    x = rng.uniform(-0.02, 1.02, (640, 3)).astype(np.float32)
+    cot = rng.normal(size=(640, L * F)).astype(np.float32)
+    _, vjp = jax.vjp(lambda p: jhg.hash_encode(jnp.asarray(tab), p, jcfg),
+                     jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(cot))[0])
+
+    idx, local, frac, _, inside = thg._descriptors(torch.tensor(x), tcfg)
+    d = tgc.gather_cols_dfrac(thg.tables_from_jax(tab), idx,
+                              thg._level_major(torch.tensor(cot), tcfg),
+                              local, frac, [l * NB for l in range(L)],
+                              tcfg.resolutions)
+    assert d.shape == (L * 640, 3) and d.dtype == torch.float32
+    got = (d.reshape(L, 640, 3).sum(0) * inside).numpy()
+    assert _rel(got, want) < 1e-5
+    outside = (x < 0) | (x > 1)
+    assert outside.any() and not got[outside].any()
 
 
 def test_contractions_match_jax():

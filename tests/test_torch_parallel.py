@@ -61,6 +61,7 @@ from nerf_vo_tpu.ops.occupancy import OccupancyConfig as JOccupancyConfig
 from nerf_vo_tpu.parallel import sharding as jsh
 from nerf_vo_tpu_torch.models import nerfacto as tn
 from nerf_vo_tpu_torch.ops import dense_ba as tba
+from nerf_vo_tpu_torch.ops import hash_grid as thg
 from nerf_vo_tpu_torch.parallel import dist as pdist
 from torch_parity import (occupancy_step_draws, rel_l2, step_draws,
                           to_numpy_tree)
@@ -316,6 +317,24 @@ def test_descriptor_routed_encode_matches_jax(run, grid):
     cat = lambda i: np.concatenate([r["encode_ds"][grid][i] for r in res])
     _check_encode(cfg, cat(0), [r["encode_ds"][grid][1] for r in res],
                   cat(2), run["jax"]["encode_ds"][grid])
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_descriptor_routed_position_grad_matches_one_rank(run, grid):
+    """The descriptor-routed position gradient (each descriptor's local id,
+    offsets and base corner travel to its owner, which returns its
+    ``dfrac * res``) against the one-rank ``hash_encode``'s on the whole
+    table and the same points: the same terms a descriptor, the levels
+    summed in another order (relative L2 < 1e-6)."""
+    _, tab, x, cot = run["enc4"][grid]
+    t = thg.tables_from_jax(tab).requires_grad_(True)
+    xt = torch.tensor(x, requires_grad=True)
+    f = thg.hash_encode(t, xt, thg.HashGridConfig(**GRIDS[grid]))
+    want = torch.autograd.grad(f, (t, xt), torch.tensor(cot))[1].numpy()
+    got = np.concatenate([r["encode_ds"][grid][2] for r in run["four"]])
+    assert rel_l2(got, want) < 1e-6
+    outside = (x < 0) | (x > 1)
+    assert outside.any() and not got[outside].any()
 
 
 # ---------------------------------------------------------------------------
