@@ -30,6 +30,12 @@ picks and stratification uniforms when given (``{"frame", "py", "px",
 picks for the first call; see :meth:`MappingTrainer.draws`), else draws
 them from the trainer's own ``torch.Generator``. In prefetch mode the picks
 are the next step's batch.
+
+Spans (``runtime/perf.py``; open only under a profiler): a step's parts
+are ``map.sample`` (the draws, and the ray batch), ``map.forward`` (the
+loss, with the model's ``map.proposal`` / ``map.field`` / ``map.loss``
+inside), ``map.backward`` (the gradient into each leaf's ``.grad``) and
+``map.optimizer`` (:meth:`MappingTrainer.update`).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from nerf_vo_tpu_torch.core import cameras, conventions, lie
 from nerf_vo_tpu_torch.mapping import keyframe_buffer as kb
 from nerf_vo_tpu_torch.models.nerfacto import NerfactoModel
 from nerf_vo_tpu_torch.ops import occupancy as O
+from nerf_vo_tpu_torch.runtime.perf import span
 
 
 def _prefetch_default() -> bool:
@@ -152,21 +159,22 @@ class MappingTrainer:
         that is alike on every rank."""
         R = n_rays or self.config.rays_per_batch
         g_rays, g_refresh = generators or (self.generator, self.generator)
-        d = kb.draw_pixels(buffer, R, g_rays)
-        if (n_rays is None and self.config.prefetch_batch
-                and state.prefetch is None):
-            d["fill"] = kb.draw_pixels(buffer, R, g_rays)
-        d["uniforms"] = [
-            torch.rand(shape, generator=g_rays, device=self.device)
-            for shape in self.model.uniform_shapes(R)]
-        if self._refreshes_occupancy(state):
-            d["occ_jitter"] = torch.rand(
-                O.slab_size(self.model.config.occupancy), 3,
-                generator=g_refresh, device=self.device)
-        if self._distills_mlp():
-            d["distill_points"] = torch.rand(
-                self.model.config.proposal_distill_points, 3,
-                generator=g_refresh, device=self.device)
+        with span("map.sample"):
+            d = kb.draw_pixels(buffer, R, g_rays)
+            if (n_rays is None and self.config.prefetch_batch
+                    and state.prefetch is None):
+                d["fill"] = kb.draw_pixels(buffer, R, g_rays)
+            d["uniforms"] = [
+                torch.rand(shape, generator=g_rays, device=self.device)
+                for shape in self.model.uniform_shapes(R)]
+            if self._refreshes_occupancy(state):
+                d["occ_jitter"] = torch.rand(
+                    O.slab_size(self.model.config.occupancy), 3,
+                    generator=g_refresh, device=self.device)
+            if self._distills_mlp():
+                d["distill_points"] = torch.rand(
+                    self.model.config.proposal_distill_points, 3,
+                    generator=g_refresh, device=self.device)
         return d
 
     def train_step(self, state: TrainState, buffer: kb.KeyframeBuffer,
@@ -207,30 +215,34 @@ class MappingTrainer:
         cfg = self.config
         deltas = state.pose_deltas if cfg.optimize_extrinsics else None
         step = state.step
-        if n_rays is not None:
-            batch = kb.sample_ray_batch(buffer, deltas, n_rays, picks=draws)
-            step = None
-        elif cfg.prefetch_batch:
-            R = cfg.rays_per_batch
-            if state.prefetch is None:  # the first call fills the buffer
-                state.prefetch = kb.sample_pixel_batch(
-                    buffer, R, draws.get("fill"), self.generator)
-            pixels = state.prefetch
-            # the next step's batch, sampled before this step's update
-            state.prefetch = kb.sample_pixel_batch(buffer, R, picks=draws)
-            batch = kb.rays_from_pixel_batch(buffer, deltas, pixels)
-        else:
-            batch = kb.sample_ray_batch(buffer, deltas, cfg.rays_per_batch,
-                                        picks=draws)
-        loss, metrics = self.model.loss(
-            batch, draws["uniforms"], occ_grid=state.occ_grid,
-            step=step, distill_points=draws.get("distill_points"))
+        with span("map.sample"):
+            if n_rays is not None:
+                batch = kb.sample_ray_batch(buffer, deltas, n_rays,
+                                            picks=draws)
+                step = None
+            elif cfg.prefetch_batch:
+                R = cfg.rays_per_batch
+                if state.prefetch is None:  # the first call fills the buffer
+                    state.prefetch = kb.sample_pixel_batch(
+                        buffer, R, draws.get("fill"), self.generator)
+                pixels = state.prefetch
+                # the next step's batch, sampled before this step's update
+                state.prefetch = kb.sample_pixel_batch(buffer, R, picks=draws)
+                batch = kb.rays_from_pixel_batch(buffer, deltas, pixels)
+            else:
+                batch = kb.sample_ray_batch(buffer, deltas,
+                                            cfg.rays_per_batch, picks=draws)
+        with span("map.forward"):
+            loss, metrics = self.model.loss(
+                batch, draws["uniforms"], occ_grid=state.occ_grid,
+                step=step, distill_points=draws.get("distill_points"))
 
-        leaves = self.leaves(state)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        for p, g in zip(leaves, grads):
-            # a bf16 parameter steps in bf16, as optax keeps its dtype
-            p.grad = torch.zeros_like(p) if g is None else g.to(p.dtype)
+        with span("map.backward"):
+            leaves = self.leaves(state)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            for p, g in zip(leaves, grads):
+                # a bf16 parameter steps in bf16, as optax keeps its dtype
+                p.grad = torch.zeros_like(p) if g is None else g.to(p.dtype)
         return metrics
 
     def update(self, state: TrainState, draws: Dict) -> None:
@@ -238,21 +250,22 @@ class MappingTrainer:
         zeroed first: the gauge anchor), clear them, run the step's
         refreshes, step + 1."""
         cfg = self.config
-        state.opt.step()
-        if cfg.optimize_extrinsics:
-            state.pose_deltas.grad[0] = 0.0  # keyframe 0: the gauge anchor
-            for group in state.cam_opt.param_groups:
-                group["lr"] = self.camera_lr(state.step)
-            state.cam_opt.step()
-        for p in self.leaves(state):
-            p.grad = None
+        with span("map.optimizer"):
+            state.opt.step()
+            if cfg.optimize_extrinsics:
+                state.pose_deltas.grad[0] = 0.0  # keyframe 0: the gauge anchor
+                for group in state.cam_opt.param_groups:
+                    group["lr"] = self.camera_lr(state.step)
+                state.cam_opt.step()
+            for p in self.leaves(state):
+                p.grad = None
 
-        if self.refreshes_proposals(state):
-            self.model.refresh_proposals(state.step)
-        if self._refreshes_occupancy(state):
-            state.occ_grid = self.model.refresh_occupancy(
-                state.occ_grid, state.step, draws["occ_jitter"])
-        state.step += 1
+            if self.refreshes_proposals(state):
+                self.model.refresh_proposals(state.step)
+            if self._refreshes_occupancy(state):
+                state.occ_grid = self.model.refresh_occupancy(
+                    state.occ_grid, state.step, draws["occ_jitter"])
+            state.step += 1
 
     # ------------------------------------------------------------------
 

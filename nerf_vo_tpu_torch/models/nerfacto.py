@@ -57,6 +57,7 @@ from nerf_vo_tpu_torch.ops import losses as L
 from nerf_vo_tpu_torch.ops import occupancy as O
 from nerf_vo_tpu_torch.ops import rendering as R
 from nerf_vo_tpu_torch.parallel import dist as pdist
+from nerf_vo_tpu_torch.runtime.perf import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,92 +241,95 @@ class NerfactoModel(nn.Module):
             s_edges = R.uniform_bins(n_rays, cfg.num_proposal_samples[0],
                                      u[0], device=origins.device)
         for i, pf in enumerate(self.proposal_fields):
+            with span("map.proposal"):
+                t_edges = self._s_to_t(s_edges, cfg.near, cfg.far)
+                t_mid = 0.5 * (t_edges[..., 1:] + t_edges[..., :-1])
+                deltas = t_edges[..., 1:] - t_edges[..., :-1]
+                pos = self._positions(origins, directions, t_mid)
+                if cfg.proposal_training == "distill":
+                    # distilled proposals carry no gradients: neither into
+                    # their parameters nor along the pose chain
+                    with torch.no_grad():
+                        density = pf(pos)
+                else:  # the interlevel loss trains them
+                    density = pf(pos)
+                weights, _ = R.render_weights(density, deltas)
+                edges_list.append(s_edges)
+                weights_list.append(weights)
+                n_next = (cfg.num_proposal_samples[i + 1]
+                          if i + 1 < len(cfg.num_proposal_samples)
+                          else cfg.num_nerf_samples)
+                s_edges = R.sample_pdf(s_edges, weights, n_next, u[i + 1])
+
+        with span("map.field"):  # the final field
             t_edges = self._s_to_t(s_edges, cfg.near, cfg.far)
             t_mid = 0.5 * (t_edges[..., 1:] + t_edges[..., :-1])
             deltas = t_edges[..., 1:] - t_edges[..., :-1]
             pos = self._positions(origins, directions, t_mid)
-            if cfg.proposal_training == "distill":
-                # distilled proposals carry no gradients: neither into
-                # their parameters nor along the pose chain
-                with torch.no_grad():
-                    density = pf(pos)
-            else:  # the interlevel loss trains them
-                density = pf(pos)
+            # phased table gradient: only the main field pass gets the phase
+            gp = (step if cfg.table_grad_phase and uniforms is not None
+                  else None)
+            grad_normals = None
+            if compute_grad_normals and cfg.grad_normal_mode == "samples":
+                # the density's position gradient at every final sample, a
+                # stop-gradient target taken from the same encode
+                density, geo, g = self.field.density_and_gradient(pos, gp)
+                grad_normals = -g / torch.linalg.norm(
+                    g, dim=-1, keepdim=True).clamp(min=1e-7)
+            else:
+                density, geo = self.field.density(pos, gp)
+            dirs_b = directions[..., None, :].expand(pos.shape)
+            rgb_samples = self.field.rgb(geo, dirs_b, camera_indices)
+            pred_n = self.field.normals(geo) if cfg.predict_normals else None
+
+        with span("map.loss"):  # compositing
             weights, _ = R.render_weights(density, deltas)
             edges_list.append(s_edges)
             weights_list.append(weights)
-            n_next = (cfg.num_proposal_samples[i + 1]
-                      if i + 1 < len(cfg.num_proposal_samples)
-                      else cfg.num_nerf_samples)
-            s_edges = R.sample_pdf(s_edges, weights, n_next, u[i + 1])
 
-        # final field
-        t_edges = self._s_to_t(s_edges, cfg.near, cfg.far)
-        t_mid = 0.5 * (t_edges[..., 1:] + t_edges[..., :-1])
-        deltas = t_edges[..., 1:] - t_edges[..., :-1]
-        pos = self._positions(origins, directions, t_mid)
-        # phased table gradient: only the main field pass gets the phase
-        gp = (step if cfg.table_grad_phase and uniforms is not None
-              else None)
-        grad_normals = None
-        if compute_grad_normals and cfg.grad_normal_mode == "samples":
-            # the density's position gradient at every final sample, a
-            # stop-gradient target taken from the same encode
-            density, geo, g = self.field.density_and_gradient(pos, gp)
-            grad_normals = -g / torch.linalg.norm(
-                g, dim=-1, keepdim=True).clamp(min=1e-7)
-        else:
-            density, geo = self.field.density(pos, gp)
-        dirs_b = directions[..., None, :].expand(pos.shape)
-        rgb_samples = self.field.rgb(geo, dirs_b, camera_indices)
+            if cfg.background == "last_sample":
+                background = rgb_samples[..., -1, :]
+            elif cfg.background == "white":
+                background = torch.ones(3, device=origins.device)
+            else:
+                background = torch.zeros(3, device=origins.device)
+            rgb = R.composite(weights, rgb_samples, background=background)
+            depth = R.render_depth(weights, t_mid)
+            acc = R.render_accumulation(weights)
 
-        weights, _ = R.render_weights(density, deltas)
-        edges_list.append(s_edges)
-        weights_list.append(weights)
-
-        if cfg.background == "last_sample":
-            background = rgb_samples[..., -1, :]
-        elif cfg.background == "white":
-            background = torch.ones(3, device=origins.device)
-        else:
-            background = torch.zeros(3, device=origins.device)
-        rgb = R.composite(weights, rgb_samples, background=background)
-        depth = R.render_depth(weights, t_mid)
-        acc = R.render_accumulation(weights)
-
-        out = {
-            "rgb": rgb,
-            "depth": depth,
-            "accumulation": acc,
-            "s_edges_list": edges_list,
-            "weights_list": weights_list,
-            "t_mid": t_mid,
-            "deltas": deltas,
-            "sample_weights": weights,
-        }
-        if (uniforms is not None and cfg.proposal_type == "mlp"
-                and cfg.proposal_training == "distill"):
-            # the MLP proposals' free distillation targets (see loss())
-            out["sample_positions"] = pos
-            out["sample_density"] = density
-        if cfg.predict_normals:
-            pred_n = self.field.normals(geo)
-            out["normals"] = R.composite(weights, pred_n)
-            out["sample_pred_normals"] = pred_n
-        if grad_normals is not None:
-            out["sample_grad_normals"] = grad_normals
+            out = {
+                "rgb": rgb,
+                "depth": depth,
+                "accumulation": acc,
+                "s_edges_list": edges_list,
+                "weights_list": weights_list,
+                "t_mid": t_mid,
+                "deltas": deltas,
+                "sample_weights": weights,
+            }
+            if (uniforms is not None and cfg.proposal_type == "mlp"
+                    and cfg.proposal_training == "distill"):
+                # the MLP proposals' free distillation targets (see loss())
+                out["sample_positions"] = pos
+                out["sample_density"] = density
+            if pred_n is not None:
+                out["normals"] = R.composite(weights, pred_n)
+                out["sample_pred_normals"] = pred_n
+            if grad_normals is not None:
+                out["sample_grad_normals"] = grad_normals
         if compute_grad_normals and cfg.grad_normal_mode == "surface":
             # one density pullback per ray at the rendered expected depth:
             # a first-order gradient with respect to the surface point only,
             # used as a stop-gradient target; geo_s stays in the outer graph
             # (it trains the normal MLP)
-            p_surf = (origins + directions * depth[..., None]).detach()
-            _, geo_s, g = self.field.density_and_gradient(
-                p_surf[..., None, :])
-            out["sample_grad_normals"] = -g / torch.linalg.norm(
-                g, dim=-1, keepdim=True).clamp(min=1e-7)
-            out["surface_pred_normals"] = self.field.normals(geo_s)
-            out["surface_weights"] = acc[..., None]
+            with span("map.field"):
+                p_surf = (origins + directions * depth[..., None]).detach()
+                _, geo_s, g = self.field.density_and_gradient(
+                    p_surf[..., None, :])
+                out["sample_grad_normals"] = -g / torch.linalg.norm(
+                    g, dim=-1, keepdim=True).clamp(min=1e-7)
+                out["surface_pred_normals"] = self.field.normals(geo_s)
+                out["surface_weights"] = acc[..., None]
         return out
 
     # -- losses ------------------------------------------------------------
@@ -349,87 +353,91 @@ class NerfactoModel(nn.Module):
                                   and cfg.grad_normal_mode != "none"),
             occ_grid=occ_grid, step=step,
         )
-        metrics = {}
-        loss = L.rgb_loss(out["rgb"], batch["rgb"])
-        metrics["rgb_loss"] = loss
+        with span("map.loss"):
+            metrics = {}
+            loss = L.rgb_loss(out["rgb"], batch["rgb"])
+            metrics["rgb_loss"] = loss
 
-        final_edges = out["s_edges_list"][-1]
-        final_w = out["weights_list"][-1]
-        if cfg.interlevel_loss_mult > 0 and cfg.proposal_training != "distill":
-            # each proposal histogram against the final one
-            inter = 0.0
-            for pe, pw in zip(out["s_edges_list"][:-1],
-                              out["weights_list"][:-1]):
-                inter = inter + R.interlevel_loss(pe, pw, final_edges,
-                                                  final_w)
-            metrics["interlevel_loss"] = inter
-            loss = loss + cfg.interlevel_loss_mult * inter
+            final_edges = out["s_edges_list"][-1]
+            final_w = out["weights_list"][-1]
+            if (cfg.interlevel_loss_mult > 0
+                    and cfg.proposal_training != "distill"):
+                # each proposal histogram against the final one
+                inter = 0.0
+                for pe, pw in zip(out["s_edges_list"][:-1],
+                                  out["weights_list"][:-1]):
+                    inter = inter + R.interlevel_loss(pe, pw, final_edges,
+                                                      final_w)
+                metrics["interlevel_loss"] = inter
+                loss = loss + cfg.interlevel_loss_mult * inter
 
-        if (cfg.proposal_training == "distill" and cfg.proposal_type == "mlp"
-                and len(self.proposal_fields)):
-            # MLP-proposal distillation: each proposal's logit regressed
-            # onto the field's log-density (stop-gradient) at this step's
-            # final samples and at the uniform unit-cube points
-            c = cfg.proposal_distill_clip
-            pts = out["sample_positions"].detach()
-            tgt = torch.log(out["sample_density"].detach().clamp(
-                min=1e-30)).clamp(-c, c)
-            with torch.no_grad():
-                dens_u = self.field.density_unit(distill_points)
-            tgt_u = torch.log(dens_u.clamp(min=1e-30)).clamp(-c, c)
-            dloss = 0.0
-            for pf in self.proposal_fields:
-                ls = pf.logit(pts) - 1.0
-                lu = pf.logit_unit(distill_points) - 1.0
-                dloss = (dloss + torch.mean(torch.square(ls - tgt))
-                         + torch.mean(torch.square(lu - tgt_u)))
-            metrics["proposal_distill_loss"] = dloss
-            loss = loss + cfg.proposal_distill_loss_mult * dloss
-        if cfg.distortion_loss_mult > 0:
-            dist = R.distortion_loss(final_edges, final_w)
-            metrics["distortion_loss"] = dist
-            loss = loss + cfg.distortion_loss_mult * dist
+            if (cfg.proposal_training == "distill"
+                    and cfg.proposal_type == "mlp"
+                    and len(self.proposal_fields)):
+                # MLP-proposal distillation: each proposal's logit regressed
+                # onto the field's log-density (stop-gradient) at this step's
+                # final samples and at the uniform unit-cube points
+                c = cfg.proposal_distill_clip
+                pts = out["sample_positions"].detach()
+                tgt = torch.log(out["sample_density"].detach().clamp(
+                    min=1e-30)).clamp(-c, c)
+                with torch.no_grad():
+                    dens_u = self.field.density_unit(distill_points)
+                tgt_u = torch.log(dens_u.clamp(min=1e-30)).clamp(-c, c)
+                dloss = 0.0
+                for pf in self.proposal_fields:
+                    ls = pf.logit(pts) - 1.0
+                    lu = pf.logit_unit(distill_points) - 1.0
+                    dloss = (dloss + torch.mean(torch.square(ls - tgt))
+                             + torch.mean(torch.square(lu - tgt_u)))
+                metrics["proposal_distill_loss"] = dloss
+                loss = loss + cfg.proposal_distill_loss_mult * dloss
+            if cfg.distortion_loss_mult > 0:
+                dist = R.distortion_loss(final_edges, final_w)
+                metrics["distortion_loss"] = dist
+                loss = loss + cfg.distortion_loss_mult * dist
 
-        if "depth" in batch and cfg.depth_loss_mult > 0:
-            if cfg.depth_loss_type == "l2":
-                dloss = L.depth_l2_loss(out["depth"], batch["depth"],
-                                        depth_cov=batch.get("depth_cov"),
-                                        mask=batch.get("depth_mask"))
-            else:
-                dloss = L.ds_nerf_depth_loss(
-                    out["sample_weights"], out["t_mid"], out["deltas"],
-                    batch["depth"], cfg.depth_sigma,
-                    mask=batch.get("depth_mask"))
-            metrics["depth_loss"] = dloss
-            loss = loss + cfg.depth_loss_mult * dloss
+            if "depth" in batch and cfg.depth_loss_mult > 0:
+                if cfg.depth_loss_type == "l2":
+                    dloss = L.depth_l2_loss(out["depth"], batch["depth"],
+                                            depth_cov=batch.get("depth_cov"),
+                                            mask=batch.get("depth_mask"))
+                else:
+                    dloss = L.ds_nerf_depth_loss(
+                        out["sample_weights"], out["t_mid"], out["deltas"],
+                        batch["depth"], cfg.depth_sigma,
+                        mask=batch.get("depth_mask"))
+                metrics["depth_loss"] = dloss
+                loss = loss + cfg.depth_loss_mult * dloss
 
-        if ("normal" in batch and cfg.predict_normals
-                and cfg.normal_loss_mult > 0):
-            nloss = L.monosdf_normal_loss(out["normals"], batch["normal"],
-                                          mask=batch.get("normal_mask"))
-            metrics["normal_loss"] = nloss
-            loss = loss + cfg.normal_loss_mult * nloss
+            if ("normal" in batch and cfg.predict_normals
+                    and cfg.normal_loss_mult > 0):
+                nloss = L.monosdf_normal_loss(out["normals"], batch["normal"],
+                                              mask=batch.get("normal_mask"))
+                metrics["normal_loss"] = nloss
+                loss = loss + cfg.normal_loss_mult * nloss
 
-        if cfg.predict_normals and "sample_grad_normals" in out:
-            # surface mode: one accumulation-weighted point a ray; samples
-            # mode: every final sample
-            if cfg.grad_normal_mode == "surface":
-                n_w = out["surface_weights"]
-                n_pred = out["surface_pred_normals"]
-            else:
-                n_w = out["sample_weights"]
-                n_pred = out["sample_pred_normals"]
-            oloss = L.orientation_loss(n_w, out["sample_grad_normals"],
-                                       batch["directions"])
-            ploss = L.pred_normal_loss(n_w, n_pred, out["sample_grad_normals"])
-            metrics["orientation_loss"] = oloss
-            metrics["pred_normal_loss"] = ploss
-            loss = (loss + cfg.orientation_loss_mult * oloss
-                    + cfg.pred_normal_loss_mult * ploss)
+            if cfg.predict_normals and "sample_grad_normals" in out:
+                # surface mode: one accumulation-weighted point a ray; samples
+                # mode: every final sample
+                if cfg.grad_normal_mode == "surface":
+                    n_w = out["surface_weights"]
+                    n_pred = out["surface_pred_normals"]
+                else:
+                    n_w = out["sample_weights"]
+                    n_pred = out["sample_pred_normals"]
+                oloss = L.orientation_loss(n_w, out["sample_grad_normals"],
+                                           batch["directions"])
+                ploss = L.pred_normal_loss(n_w, n_pred,
+                                           out["sample_grad_normals"])
+                metrics["orientation_loss"] = oloss
+                metrics["pred_normal_loss"] = ploss
+                loss = (loss + cfg.orientation_loss_mult * oloss
+                        + cfg.pred_normal_loss_mult * ploss)
 
-        metrics["loss"] = loss
-        metrics["psnr"] = -10.0 * torch.log10(
-            metrics["rgb_loss"].clamp(min=1e-10))
+            metrics["loss"] = loss
+            metrics["psnr"] = -10.0 * torch.log10(
+                metrics["rgb_loss"].clamp(min=1e-10))
         return loss, {k: v.detach() for k, v in metrics.items()}
 
     # -- proposal distillation ----------------------------------------------

@@ -52,6 +52,7 @@ import torch.distributed as dist
 
 from nerf_vo_tpu_torch.ops import gather_cuda as gc
 from nerf_vo_tpu_torch.parallel import dist as pdist
+from nerf_vo_tpu_torch.runtime.perf import span
 
 _PRIMES = (1, 2654435761, 805459861)  # Instant-NGP spatial hash primes
 _BRICK = 27  # 3x3x3 corner lattice of a 2x2x2-cell region
@@ -270,24 +271,25 @@ class _HashEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, cot):
-        (tables,) = ctx.saved_tensors
-        config = ctx.config
-        idx, _, _, W, _ = ctx.desc
-        cot = _level_major(cot, config)
-        grad_tables = grad_x = None
-        if ctx.needs_input_grad[0]:
-            n = idx.shape[0] // config.n_levels
-            spans = _grad_rows(config, n, ctx.grad_phase)
-            if spans is not None:  # one launch over the rows that count
-                keep = lambda t: torch.cat([t[a:b] for a, b in spans])
-                idx_g, W_g, cot_g = keep(idx), keep(W), keep(cot)
-            else:
-                idx_g, W_g, cot_g = idx, W, cot
-            grad_tables = gc.scatter_cols_outer(W_g, cot_g, idx_g,
-                                                tables.shape[0])
-        if ctx.needs_input_grad[1]:
-            grad_x = _position_grad(tables, ctx.desc, cot, config,
-                                    ctx.x_shape, ctx.x_dtype)
+        with span("hash.backward"):
+            (tables,) = ctx.saved_tensors
+            config = ctx.config
+            idx, _, _, W, _ = ctx.desc
+            cot = _level_major(cot, config)
+            grad_tables = grad_x = None
+            if ctx.needs_input_grad[0]:
+                n = idx.shape[0] // config.n_levels
+                spans = _grad_rows(config, n, ctx.grad_phase)
+                if spans is not None:  # one launch over the rows that count
+                    keep = lambda t: torch.cat([t[a:b] for a, b in spans])
+                    idx_g, W_g, cot_g = keep(idx), keep(W), keep(cot)
+                else:
+                    idx_g, W_g, cot_g = idx, W, cot
+                grad_tables = gc.scatter_cols_outer(W_g, cot_g, idx_g,
+                                                    tables.shape[0])
+            if ctx.needs_input_grad[1]:
+                grad_x = _position_grad(tables, ctx.desc, cot, config,
+                                        ctx.x_shape, ctx.x_dtype)
         return grad_tables, grad_x, None, None, None
 
 
@@ -511,28 +513,31 @@ class _TPHashEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, cot):
-        (tables,) = ctx.saved_tensors
-        route = ctx.route
-        cot = _level_major(cot, route.config)
-        routed = route.routed_cot(cot)
-        grad_tables = grad_x = None
-        if ctx.needs_input_grad[0]:
-            grad_tables = route.table_grad(tables.shape, cot, routed)
-        if ctx.needs_input_grad[1]:
-            grad_x = route.position_grad(tables, cot, routed, ctx.x_shape,
-                                         ctx.x_dtype)
+        with span("hash.backward"):
+            (tables,) = ctx.saved_tensors
+            route = ctx.route
+            cot = _level_major(cot, route.config)
+            routed = route.routed_cot(cot)
+            grad_tables = grad_x = None
+            if ctx.needs_input_grad[0]:
+                grad_tables = route.table_grad(tables.shape, cot, routed)
+            if ctx.needs_input_grad[1]:
+                grad_x = route.position_grad(tables, cot, routed,
+                                             ctx.x_shape, ctx.x_dtype)
         return grad_tables, grad_x, None
 
 
 def _encode(tables, x, config, grad_phase, group, descriptor_sharding):
-    """(features, descriptors, route or None) of one encode."""
-    desc = _descriptors(x.detach(), config)
-    if group is None:
-        return _HashEncode.apply(tables, x, config, grad_phase, desc), desc, \
-            None
-    route = _TPRoute(tables.detach(), desc, config, _model_axis(group),
-                     descriptor_sharding)
-    return _TPHashEncode.apply(tables, x, route), desc, route
+    """(features, descriptors, route or None) of one encode, in the span
+    ``hash.encode``."""
+    with span("hash.encode"):
+        desc = _descriptors(x.detach(), config)
+        if group is None:
+            return _HashEncode.apply(tables, x, config, grad_phase, desc), \
+                desc, None
+        route = _TPRoute(tables.detach(), desc, config, _model_axis(group),
+                         descriptor_sharding)
+        return _TPHashEncode.apply(tables, x, route), desc, route
 
 
 def hash_encode(tables, x, config: HashGridConfig, grad_phase=None,

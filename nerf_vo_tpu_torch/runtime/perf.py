@@ -5,6 +5,11 @@ Parity with the reference's PerformanceTracker + LoggingModule CSVs
 logging_module.py:21-25): every stage step is timed; totals/averages exclude
 the first and last step (process_module.py:107-113); per-stage
 ``runtime_<stage>.csv`` files land in ``dir_result``.
+
+:func:`span` names a range of the program's work for a profiler: the
+parts of a mapping step (``map.*``) and the hash grid's encode and backward
+(``hash.*``), which ``scripts/profile_torch_mapping.py`` reduces the
+card's operations by. It costs one flag check unless a profiler is on.
 """
 
 from __future__ import annotations
@@ -12,6 +17,22 @@ from __future__ import annotations
 import os
 import time
 from typing import Dict, List
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
+PREFIX = "nerf_vo."
+
+
+def span(name: str):
+    """The range ``nerf_vo.<name>``: under an active ``torch.profiler`` (or
+    autograd profiler) a ``record_function``, on the clock of the launches
+    and device operations the profiler records; otherwise a shared no-op
+    context (``record_function`` costs microseconds even with no profiler
+    on)."""
+    if _profiler_enabled():
+        return record_function(PREFIX + name)
+    return _NULL
 
 
 class PerformanceTracker:
@@ -66,3 +87,6 @@ class _NullSpan:
 
     def __exit__(self, *exc):
         return False
+
+
+_NULL = _NullSpan()

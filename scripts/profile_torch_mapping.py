@@ -1,157 +1,165 @@
-"""Where the PyTorch port's mapping train step spends its time, on one
-NVIDIA GPU.
+"""Where the port's mapping step spends its time, part by part, in the
+benchmark's ``vo.map`` cell on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_mapping.py [--keyframes 16] [--steps 40] [--window 16]
+    python3 scripts/profile_torch_mapping.py [--seed 7] [--steps 16] [--seconds 20] [--out FILE]
 
-Builds ``MappingStage`` at the replica configuration (192 keyframe slots of
-360x640, 4096 rays per step, field 3 x 8 at log2 table 19, dense proposal
-grids 128 / 160 with 96 + 48 samples, 48 nerf samples; random weights from a
-seed) and inserts ``--keyframes`` synthetic keyframes (the textured frames of
-``chip_smoke.py`` with a smooth depth, cameras panning along x). It then runs
-``--steps`` warm-up steps, times ``--window`` steps (synchronized), times
-each part of a step over the same window, and profiles one more window with
-``torch.profiler``. Prints the step time and rays/s, the time per part
-(ray batch, forward with the surface-normal pullback, backward, the two Adam
-steps, the proposal refresh; each synchronized), the device-busy share
-(kernel time / wall), the table kernels' share, and the top kernels.
-The window is a multiple of the refresh period (16), so it holds its share
-of refresh steps.
+Builds the cell as ``benchmark/run.py --workload vo.map`` does (its driver's
+``setup``: the room's 192 keyframes, nerfacto at its published widths,
+weights from the seed, the compared steps and the warm-up), times
+``--seconds`` of untraced steps, then profiles ``--steps`` steps inside one
+range, ``bench.window`` (``torch.profiler``; no other range is added). The
+window is reduced as the benchmark's readers reduce it
+(``yardstick/trace.py``: launches a step, the idle share) and by the
+program's own spans (``yardstick/parts.py``): each device operation goes to
+the span in which its launch began, three times over: the parts of the
+step (sample, forward, backward, optimizer), the forward's parts (the
+proposal passes, the final field, compositing and the loss terms), and
+the hash grid's encodes and backwards (``hash.encode``, ``hash.backward``),
+each with its device time (a union) and the window's idle time inside it.
+The ``CatArrayBatchedCopy`` copies' device time is given by span in each of
+the three. What the program's spans cost a profiled step is their count a
+step times the time of one empty span under the profiler (the mean of
+20,000). Prints one JSON line (and writes it to ``--out`` when given) with
+the card, its power limit, and per span: launches a step, device ms a
+step, idle share of the window, its top operations; the operations in no
+part and those whose launch the trace lacks, by name.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import subprocess
 import sys
 import time
-from types import SimpleNamespace
 
-import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-from chip_smoke import MAPPING, REPLICA, synthetic_frames  # noqa: E402
+from benchmark import harness  # noqa: E402
+from benchmark.yardstick import parts  # noqa: E402
+from benchmark.yardstick.trace import Trace, busy  # noqa: E402
+from nerf_vo_tpu_torch.runtime import perf  # noqa: E402
 
-# the table kernels of csrc/gather.cu by name (their template instances:
-# gather_cols_kernel<L, Sink> is row 2 and gather_cols_dot,
-# scatter_cols_accum_kernel<F, Src> the scatters' slab design,
-# scatter_runs_kernel<F, Src> their atomic runs design and
-# scatter_owned_kernel<F, Src> scatter_cols_outer; sort_ids_kernel its sort)
-TABLE_KERNELS = ("gather_cols_kernel", "gather_interp_kernel",
-                 "gather_interp_mm_kernel", "scatter_cols_accum_kernel",
-                 "scatter_runs_kernel", "gather_cols_dfrac_kernel",
-                 "scatter_owned_kernel", "sort_ids_kernel")
+WINDOW = "bench.window"
+FORWARD = ("proposal", "field", "loss")
+HASH = ("encode", "backward")
+CAT = "CatArrayBatchedCopy"
 
 
-def keyframe_packet(n, H, W, device):
-    frames = synthetic_frames(n, H, W)
-    c2w = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
-    c2w[:, 0, 3] = np.arange(n) * 0.02
-    yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W),
-                         indexing="ij")
-    depth = (2.0 + 0.5 * np.cos(3 * xx) * np.sin(2 * yy)).astype(np.float32)
-    intr = np.asarray([[320.0, 320.0, W / 2, H / 2]], np.float32)
-    return {
-        "camera_extrinsics": torch.tensor(c2w),
-        "camera_intrinsics": torch.tensor(np.repeat(intr, n, 0)),
-        "frames_color_float": torch.tensor(
-            np.stack(frames).astype(np.float32) / 255.0, device=device),
-        "frames_depth": torch.tensor(np.repeat(depth[None], n, 0),
-                                     device=device),
-    }
+def _card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else ""
+
+
+def _per_part(r, n, win):
+    return {p: {"launches_per_step": v["launches"] / n,
+                "device_ms_per_step": 1e3 * v["device_s"] / n,
+                "idle_pct": 100.0 * v["idle_s"] / win,
+                "top_ops_ms_per_step": [[k, 1e3 * s / n]
+                                        for k, s in v["top_ops"]]}
+            for p, v in r["parts"].items()}
+
+
+def _ms_of(w, key: str, n: int):
+    """Device ms a step of the window's operations named with ``key``, by
+    the span of ``w`` their launch began in ("outside": none)."""
+    lo, hi = w.window
+    by = {}
+    for op in w.in_window():
+        if key in op[2]:
+            h = w.launch(op)
+            part = (w.part_at(h[0]) if h else None) or "outside"
+            by.setdefault(part, []).append(op[:2])
+    return {p: 1e3 * busy(v, lo, hi) * 1e-6 / n for p, v in by.items()}
+
+
+def _span_s(n: int = 20000) -> float:
+    """Seconds of one empty span under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with perf.span("cost"):
+                pass
+        dt = time.perf_counter() - t0
+    return dt / n
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--keyframes", type=int, default=16)
-    ap.add_argument("--steps", type=int, default=40)
-    ap.add_argument("--window", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--seconds", type=float, default=20.0)
+    ap.add_argument("--out", help="also write the line to this file")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    from nerf_vo_tpu_torch.mapping import trainer as trainer_mod
-    from nerf_vo_tpu_torch.runtime.stages import MappingStage
+    cell = harness.Cell("vo.map")
+    ctx = harness.context(cell, a.seed, "cuda:0")
+    drv = cell.driver
+    state = drv.setup(ctx)
+    stage = state.stage
+    untraced = drv.window(ctx, state, a.seconds)
 
-    args = SimpleNamespace(**REPLICA, **MAPPING)
-    stage = MappingStage(args, device="cuda")
-    stage.update(keyframe_packet(a.keyframes, args.frame_height,
-                                 args.frame_width, "cuda"))
-    stage.stream_active = False
-    model = stage.model
-
-    parts = {"ray batch": 0.0, "forward": 0.0, "backward": 0.0,
-             "adam": 0.0, "refresh": 0.0}
-    timing = [False]
-    active = []  # a part called inside another (the forward's surface
-    # pullback calls autograd.grad) counts toward the outer one
-
-    def timed(name, fn):
-        def wrap(*x, **k):
-            if not timing[0] or active:
-                return fn(*x, **k)
-            active.append(name)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(WINDOW):
+            for _ in range(a.steps):
+                stage.train_step()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*x, **k)
-            torch.cuda.synchronize()
-            parts[name] += time.perf_counter() - t0
-            active.pop()
-            return out
-        return wrap
+    tr = Trace.from_profiler(prof, WINDOW)
+    w = parts.Window.from_profiler(prof, WINDOW)
+    del prof
+    r = w.reduce()
+    fw = parts.Window(w.device, w.launches, w.ranges, w.window, FORWARD)
+    hw = parts.Window(w.device, w.launches, w.ranges, w.window, HASH,
+                      parts.PREFIX + "hash.")
+    fwd, hsh = fw.reduce(), hw.reduce()
 
-    kb = trainer_mod.kb
-    kb.sample_ray_batch = timed("ray batch", kb.sample_ray_batch)
-    model.loss = timed("forward", model.loss)
-    torch.autograd.grad = timed("backward", torch.autograd.grad)
-    model.refresh_proposals = timed("refresh", model.refresh_proposals)
-    for opt in (stage.state.opt, stage.state.cam_opt):
-        opt.step = timed("adam", opt.step)
-
-    for _ in range(a.steps):
-        stage.train_step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(a.window):
-        stage.train_step()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / a.window
-    print(f"{torch.cuda.get_device_name(0)}; steady step {wall * 1e3:.2f} ms "
-          f"({args.rays_per_batch / wall:.0f} rays/s), {a.keyframes} "
-          f"keyframes, step {stage.step_count}")
-
-    timing[0] = True
-    t0 = time.perf_counter()
-    for _ in range(a.window):
-        stage.train_step()
-    torch.cuda.synchronize()
-    synced = (time.perf_counter() - t0) / a.window
-    timing[0] = False
-    for k, v in parts.items():
-        print(f"  {k}: {v / a.window * 1e3:.2f} ms/step (synchronized)")
-    print(f"  step with the parts synchronized: {synced * 1e3:.2f} ms")
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        for _ in range(a.window):
-            stage.train_step()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    n_launch = sum(e.count for e in kernels)
-    table_us = sum(e.self_device_time_total for e in kernels
-                   if any(n in e.key for n in TABLE_KERNELS))
-    print(f"device busy {dev_us / a.window / 1e3:.2f} ms/step of "
-          f"{wall * 1e3:.2f} ms wall ({dev_us / a.window / 1e3 / (wall * 1e3):.1%}"
-          f" busy, profiler on); {n_launch / a.window:.0f} kernel launches "
-          f"per step; the table kernels {table_us / a.window / 1e3:.3f} "
-          f"ms/step ({table_us / max(dev_us, 1):.1%} of device time)")
-    print(events.table(sort_by="self_device_time_total", row_limit=30,
-                       max_name_column_width=60))
+    n, win = a.steps, tr.window_s()
+    idle_pct = 100.0 * (1.0 - tr.busy_s() / win)
+    by_part = _per_part(r, n, win)
+    spans = len(w.ranges) / n
+    span_s = _span_s()
+    line = {
+        "card": _card(), "seed": a.seed, "steps": n,
+        "untraced_step_ms": 1e3 * untraced["window_s"]
+        / max(untraced["steps"], 1),
+        "traced_step_ms": 1e3 * win / n,
+        "launches_per_step": tr.count() / n,
+        "device_ms_per_step": 1e3 * tr.busy_s() / n,
+        "idle_pct.map": idle_pct,
+        "parts": by_part,
+        "outside_per_step": r["outside"] / n,
+        "unlinked": r["unlinked"], "unlinked_ops": r["unlinked_ops"],
+        "sum_launches_per_step": sum(v["launches_per_step"]
+                                     for v in by_part.values()),
+        "sum_idle_pct": sum(v["idle_pct"] for v in by_part.values()),
+        "forward_parts": _per_part(fwd, n, win),
+        # the forward's launches in none of its parts (the first bins)
+        "forward_rest_per_step": (r["parts"]["forward"]["launches"]
+                                  - sum(v["launches"] for v in
+                                        fwd["parts"].values())) / n,
+        "hash_parts": _per_part(hsh, n, win),
+        "cat_ms_per_step": {"step": _ms_of(w, CAT, n),
+                            "forward": _ms_of(fw, CAT, n),
+                            "hash": _ms_of(hw, CAT, n)},
+        "spans_per_step": spans, "span_us": 1e6 * span_s,
+        "span_cost_ms_per_step": 1e3 * spans * span_s,
+    }
+    if a.out:
+        with open(a.out, "w") as f:
+            json.dump(line, f, indent=1)
+    print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

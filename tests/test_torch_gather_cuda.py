@@ -26,6 +26,8 @@ with ``sort_ids``, never ``torch.sort``). The position pullback
 terms (F products a corner, the separable weights' sums), bitwise the same
 over two calls and for a descriptor wherever it lies in the call;
 ``sort_ids`` exactly ``torch.sort(stable=True)`` (keys and positions).
+The libraries call the CUDA runtime PyTorch loaded, so the profiler records
+each launch inside the range of the call that made it.
 """
 
 import pytest
@@ -1029,3 +1031,49 @@ def test_scatter_cols_outer_never_calls_torch_sort(dev, monkeypatch):
     torch.cuda.synchronize()
     assert gc.sort_ids.launches == before + 1
     assert torch.equal(got, want)
+
+
+def _cudart_maps():
+    with open("/proc/self/maps") as f:
+        return {line.split()[-1] for line in f if "libcudart" in line}
+
+
+@pytest.mark.cuda
+def test_launches_are_traced_inside_their_spans(dev):
+    """The libraries call the CUDA runtime PyTorch loaded (one libcudart
+    in the process), so the profiler records each kernel's launch,
+    cooperative launches too, inside the range of the call that made
+    it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from nerf_vo_tpu_torch.ops import correlation_cuda
+
+    runtime = _cudart_maps()
+    gc._lib()
+    correlation_cuda._lib()
+    assert len(runtime) == 1 and _cudart_maps() == runtime
+    tab, idx, w = _inputs(dev, 2)
+    cot = torch.randn(idx.shape[0], 2, device=dev)
+    gc.gather_interp(tab, idx, w, 2)  # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("call.gather_interp"):
+            gc.gather_interp(tab, idx, w, 2)
+        with record_function("call.scatter_cols_outer"):
+            gc.scatter_cols_outer(w, cot, idx, tab.shape[0])
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    launches = {k.correlation_id(): k.start_ns() for k in events
+                if k.device_type() == DeviceType.CPU
+                and k.name().startswith("cudaLaunch")}
+    for kernel, call in (("gather_interp_kernel<", "gather_interp"),
+                         ("sort_ids_kernel", "scatter_cols_outer"),
+                         ("scatter_owned_kernel", "scatter_cols_outer")):
+        ops = [k for k in events if k.device_type() == DeviceType.CUDA
+               and kernel in k.name()]
+        spans = [k for k in events if k.device_type() == DeviceType.CPU
+                 and k.name() == f"call.{call}"]
+        assert len(ops) == 1 and len(spans) == 1, kernel
+        t = launches[ops[0].correlation_id()]
+        assert spans[0].start_ns() <= t < spans[0].end_ns(), kernel
