@@ -211,9 +211,9 @@ def se3_matrix(g):
     R = quat_to_matrix(se3_q(g))
     t = se3_t(g)[..., None]
     top = torch.cat([R, t], dim=-1)
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=g.dtype, device=g.device
-    ).expand(g.shape[:-1] + (1, 4))
+    # made on the device (no host copy, so a CUDA graph can hold it)
+    bottom = g.new_zeros(g.shape[:-1] + (1, 4))
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -31,11 +31,35 @@ picks for the first call; see :meth:`MappingTrainer.draws`), else draws
 them from the trainer's own ``torch.Generator``. In prefetch mode the picks
 are the next step's batch.
 
+CUDA graphs (``mapping/step_graph.py``): on a CUDA device, from the
+first step whose optimizers hold their state, :meth:`MappingTrainer.
+train_step` captures the step once as CUDA graphs between the hand-written
+table-kernel calls, which stay eager, and replays that list at later steps:
+the same draws, forward, gradients, Adam updates and kernels, with no
+Python forward, autograd or optimizer on the host. A step stays eager where
+its own state or inputs say the graphs cannot hold it
+(:meth:`MappingTrainer.eager_reason`): a parallel step's share of the batch,
+draws other than ``frame`` / ``py`` / ``px`` / ``uniforms`` (an occupancy
+refresh's jitter, the MLP proposals' distillation points, prefetch's first
+fill), prefetch, phased table gradients. The list is captured
+again when a tensor it reads from outside its memory pool has another
+address or shape (:meth:`MappingTrainer.graph_key`: the keyframe buffer,
+the model's tensors, the optimizers' state, the occupancy grid, the draws'
+shapes); the keyframe inserts, the dense proposal refresh and the
+occupancy refresh write their tensors in place, so they keep it. The
+refreshes after Adam run eagerly after a replay. On the card both Adams
+are ``capturable`` (their step counts on the device) and the camera
+learning rate is a device tensor set before each step's Adam. Counters:
+``captures``, ``replays``, ``eager_steps`` (train steps by how they ran).
+
 Spans (``runtime/perf.py``; open only under a profiler): a step's parts
 are ``map.sample`` (the draws, and the ray batch), ``map.forward`` (the
 loss, with the model's ``map.proposal`` / ``map.field`` / ``map.loss``
 inside), ``map.backward`` (the gradient into each leaf's ``.grad``) and
-``map.optimizer`` (:meth:`MappingTrainer.update`).
+``map.optimizer`` (:meth:`MappingTrainer.update`). A replayed step opens
+``map.replay`` around each graph it replays, and around each table-kernel
+call the spans open at it when it was captured (its part, the hash grid's
+span).
 """
 
 from __future__ import annotations
@@ -48,6 +72,7 @@ import torch
 
 from nerf_vo_tpu_torch.core import cameras, conventions, lie
 from nerf_vo_tpu_torch.mapping import keyframe_buffer as kb
+from nerf_vo_tpu_torch.mapping import step_graph as sg
 from nerf_vo_tpu_torch.models.nerfacto import NerfactoModel
 from nerf_vo_tpu_torch.ops import occupancy as O
 from nerf_vo_tpu_torch.runtime.perf import span
@@ -55,6 +80,10 @@ from nerf_vo_tpu_torch.runtime.perf import span
 
 def _prefetch_default() -> bool:
     return os.environ.get("NERF_VO_PREFETCH_BATCH", "0") == "1"
+
+
+# the draws a replayed step takes (its static buffers hold these)
+GRAPH_DRAWS = frozenset({"frame", "py", "px", "uniforms"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +123,8 @@ class MappingTrainer:
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self.captures = self.replays = self.eager_steps = 0
+        self.graphs: Optional[sg.StepGraphs] = None
 
     def init(self) -> TrainState:
         """Optimizer state for the model's current parameters. Distilled
@@ -104,17 +135,33 @@ class MappingTrainer:
         pose_deltas = torch.zeros(self.num_keyframes, 6, device=self.device,
                                   requires_grad=True)
         cfg = self.config
+        # on the card the step's graphs hold both Adams: their step counts
+        # and the camera learning rate live on the device
+        card = self.device.type == "cuda"
+        cam_lr = (torch.tensor(cfg.camera_learning_rate, device=self.device)
+                  if card else cfg.camera_learning_rate)
+        opt = torch.optim.Adam(list(params.values()), lr=cfg.learning_rate,
+                               eps=cfg.eps, capturable=card)
+        cam_opt = torch.optim.Adam([pose_deltas], lr=cam_lr, eps=1e-8,
+                                   capturable=card)
+        for o in (opt, cam_opt):  # eager steps are meant: no warning
+            o._warned_capturable_if_run_uncaptured = True
+        if card:  # a loaded state's learning rate comes to the device
+            cam_opt.register_load_state_dict_post_hook(self._lr_to_device)
         return TrainState(
             params=params,
             pose_deltas=pose_deltas,
-            opt=torch.optim.Adam(list(params.values()), lr=cfg.learning_rate,
-                                 eps=cfg.eps),
-            cam_opt=torch.optim.Adam([pose_deltas],
-                                     lr=cfg.camera_learning_rate, eps=1e-8),
+            opt=opt,
+            cam_opt=cam_opt,
             step=0,
             occ_grid=(O.create(self.model.config.occupancy, self.device)
                       if self.model.config.sampler == "occupancy" else None),
         )
+
+    def _lr_to_device(self, opt: torch.optim.Optimizer) -> None:
+        for group in opt.param_groups:
+            if torch.is_tensor(group["lr"]):
+                group["lr"] = group["lr"].to(self.device)
 
     def camera_lr(self, step: int) -> float:
         """Exponential decay from camera_learning_rate to camera_lr_final
@@ -185,12 +232,115 @@ class MappingTrainer:
         field the dense proposal grids' refresh when ``step %
         proposal_refresh_every == 0`` (distilled dense grids only) or the
         occupancy refresh when ``step % occupancy.update_every == 0``,
-        then step + 1)."""
+        then step + 1). Where :meth:`eager_reason` finds none, the step up
+        to Adam is captured as CUDA graphs, or replays the graphs captured
+        before (see the module docstring)."""
         if draws is None:
             draws = self.draws(buffer, state)
-        metrics = self.gradients(state, buffer, draws)
-        self.update(state, draws)
+        if self.eager_reason(state, draws) is not None:
+            self.eager_steps += 1
+            metrics = self.gradients(state, buffer, draws)
+            self.update(state, draws)
+            return state, metrics
+        key = self.graph_key(state, buffer, draws)
+        if self.graphs is not None and self.graphs.key == key:
+            metrics = self._replay(draws)
+        else:
+            metrics = self._capture(state, buffer, draws, key)
+        with span("map.optimizer"):
+            self._refresh(state, draws)
         return state, metrics
+
+    def eager_reason(self, state: TrainState, draws: Dict,
+                     n_rays: Optional[int] = None) -> Optional[str]:
+        """Why a train step with these draws runs eagerly, or None where
+        its graphs are captured or replayed: ``"n_rays"`` (a parallel
+        step's share of the batch), ``"draws"`` (draws beyond
+        :data:`GRAPH_DRAWS`), ``"prefetch"``, ``"grad_phase"`` (phased
+        table gradients follow the step count), ``"first_step"`` (an
+        optimizer holds no state yet: its first step makes it) or
+        ``"device"`` (graphs need the card)."""
+        if n_rays is not None:
+            return "n_rays"
+        if not GRAPH_DRAWS.issuperset(draws):
+            return "draws"
+        if self.config.prefetch_batch:
+            return "prefetch"
+        if self.model.config.table_grad_phase:
+            return "grad_phase"
+        held = [p for p in state.params.values() if p not in state.opt.state]
+        if held or (self.config.optimize_extrinsics
+                    and state.pose_deltas not in state.cam_opt.state):
+            return "first_step"
+        if self.device.type != "cuda":
+            return "device"
+        return None
+
+    def graph_key(self, state: TrainState, buffer: kb.KeyframeBuffer,
+                  draws: Dict) -> tuple:
+        """What a captured step reads from outside its memory pool: the
+        keyframe buffer's tensors and sizes, the model's parameters and
+        buffers, the pose corrections, each optimizer's state and
+        learning rates, the occupancy grid; and the draws' shapes. The
+        graphs replay while it is unchanged."""
+        ts = [buffer.intrinsics, buffer.c2w, buffer.pixels, state.pose_deltas]
+        ts += list(self.model.parameters()) + list(self.model.buffers())
+        for opt in (state.opt, state.cam_opt):
+            for st in opt.state.values():
+                ts += [v for v in st.values() if torch.is_tensor(v)]
+            ts += [g["lr"] for g in opt.param_groups
+                   if torch.is_tensor(g["lr"])]
+        if state.occ_grid is not None:
+            ts.append(state.occ_grid)
+        picks = [draws[k] for k in ("frame", "py", "px")] + list(
+            draws["uniforms"])
+        return (buffer.hw, buffer.channels,
+                tuple((tuple(t.shape), t.dtype) for t in picks),
+                tuple((t.data_ptr(), tuple(t.shape), t.dtype,
+                       t.requires_grad) for t in ts))
+
+    def _capture(self, state: TrainState, buffer: kb.KeyframeBuffer,
+                 draws: Dict, key: tuple) -> Dict[str, torch.Tensor]:
+        """Capture this step (it trains as it is captured) and keep its
+        graphs; the step's metrics."""
+        if self.graphs is not None:
+            self.graphs.release()
+            self.graphs = None
+        graphs = sg.StepGraphs(self.device, key, sg.draw_buffers(draws))
+
+        def run(g: sg.StepGraphs):
+            d = g.draws
+            with g.segment("sample"):
+                batch = self._batch(state, buffer, d)
+            with g.segment("forward"):
+                loss, metrics = self._forward(state, batch, d, None)
+            with g.segment("backward"):
+                self._backward(state, loss)
+            g.eager("optimizer", lambda: self._set_camera_lr(state))
+            with g.segment("optimizer"):
+                self._adam(state)
+                packed = torch.stack(list(metrics.values()))
+            return list(metrics), packed
+
+        graphs.metrics = graphs.capture(run)
+        self.graphs = graphs
+        self.captures += 1
+        return self._metrics()
+
+    def _replay(self, draws: Dict) -> Dict[str, torch.Tensor]:
+        """This step by the captured graphs: its draws into their buffers,
+        then every graph and table-kernel call in order. The metrics are
+        copied out of the graphs' memory (one copy)."""
+        with span("map.sample"):
+            sg.fill_draws(self.graphs.draws, draws)
+        self.graphs.replay()
+        self.replays += 1
+        with span("map.replay"):
+            return self._metrics()
+
+    def _metrics(self) -> Dict[str, torch.Tensor]:
+        names, packed = self.graphs.metrics
+        return dict(zip(names, packed.clone().unbind(0)))
 
     def leaves(self, state: TrainState) -> List[torch.Tensor]:
         """The tensors a step differentiates: the trainable parameters,
@@ -212,14 +362,22 @@ class MappingTrainer:
         sampled without prefetch and the loss is taken without the train
         step (no phased table gradient), as the JAX package's parallel
         steps do."""
+        batch = self._batch(state, buffer, draws, n_rays)
+        loss, metrics = self._forward(state, batch, draws,
+                                      None if n_rays is not None
+                                      else state.step)
+        self._backward(state, loss)
+        return metrics
+
+    def _batch(self, state: TrainState, buffer: kb.KeyframeBuffer,
+               draws: Dict, n_rays: Optional[int] = None) -> Dict:
+        """The step's ray batch (see :meth:`gradients`)."""
         cfg = self.config
         deltas = state.pose_deltas if cfg.optimize_extrinsics else None
-        step = state.step
         with span("map.sample"):
             if n_rays is not None:
                 batch = kb.sample_ray_batch(buffer, deltas, n_rays,
                                             picks=draws)
-                step = None
             elif cfg.prefetch_batch:
                 R = cfg.rays_per_batch
                 if state.prefetch is None:  # the first call fills the buffer
@@ -232,40 +390,67 @@ class MappingTrainer:
             else:
                 batch = kb.sample_ray_batch(buffer, deltas,
                                             cfg.rays_per_batch, picks=draws)
+        return batch
+
+    def _forward(self, state: TrainState, batch: Dict, draws: Dict, step
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss and its terms (``step``: the phased table gradient's,
+        or None)."""
         with span("map.forward"):
-            loss, metrics = self.model.loss(
+            return self.model.loss(
                 batch, draws["uniforms"], occ_grid=state.occ_grid,
                 step=step, distill_points=draws.get("distill_points"))
 
+    def _backward(self, state: TrainState, loss: torch.Tensor) -> None:
+        """The loss's gradient into every leaf's ``.grad``."""
         with span("map.backward"):
             leaves = self.leaves(state)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             for p, g in zip(leaves, grads):
                 # a bf16 parameter steps in bf16, as optax keeps its dtype
                 p.grad = torch.zeros_like(p) if g is None else g.to(p.dtype)
-        return metrics
 
     def update(self, state: TrainState, draws: Dict) -> None:
         """Apply the leaves' ``.grad`` (Adam; keyframe 0's pose gradient
         zeroed first: the gauge anchor), clear them, run the step's
         refreshes, step + 1."""
-        cfg = self.config
         with span("map.optimizer"):
-            state.opt.step()
-            if cfg.optimize_extrinsics:
-                state.pose_deltas.grad[0] = 0.0  # keyframe 0: the gauge anchor
-                for group in state.cam_opt.param_groups:
-                    group["lr"] = self.camera_lr(state.step)
-                state.cam_opt.step()
-            for p in self.leaves(state):
-                p.grad = None
+            self._set_camera_lr(state)
+            self._adam(state)
+            self._refresh(state, draws)
 
-            if self.refreshes_proposals(state):
-                self.model.refresh_proposals(state.step)
-            if self._refreshes_occupancy(state):
-                state.occ_grid = self.model.refresh_occupancy(
-                    state.occ_grid, state.step, draws["occ_jitter"])
-            state.step += 1
+    def _set_camera_lr(self, state: TrainState) -> None:
+        """The camera learning rate of this step (in place where it is a
+        device tensor, which a capturable Adam reads)."""
+        if not self.config.optimize_extrinsics:
+            return
+        lr = self.camera_lr(state.step)
+        for group in state.cam_opt.param_groups:
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
+
+    def _adam(self, state: TrainState) -> None:
+        """Both Adam updates from the leaves' ``.grad``, which are then
+        cleared."""
+        state.opt.step()
+        if self.config.optimize_extrinsics:
+            state.pose_deltas.grad[0] = 0.0  # keyframe 0: the gauge anchor
+            state.cam_opt.step()
+        for p in self.leaves(state):
+            p.grad = None
+
+    def _refresh(self, state: TrainState, draws: Dict) -> None:
+        """The step's refreshes on the updated field, then step + 1. The
+        occupancy grid is refreshed in place (a replayed step reads it
+        where it was captured)."""
+        if self.refreshes_proposals(state):
+            self.model.refresh_proposals(state.step)
+        if self._refreshes_occupancy(state):
+            state.occ_grid.copy_(self.model.refresh_occupancy(
+                state.occ_grid, state.step, draws["occ_jitter"]))
+        state.step += 1
 
     # ------------------------------------------------------------------
 

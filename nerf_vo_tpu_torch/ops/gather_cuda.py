@@ -30,7 +30,12 @@ wrapper                function
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor
 and launches its kernel for a CUDA tensor, or raises; it counts its kernel
-launches in ``<wrapper>.launches``. ``bf16`` rounds to nearest even (the
+launches in ``<wrapper>.launches``. The four that the hash grid calls
+(``gather_interp``, ``gather_interp_mm``, ``scatter_cols_outer``,
+``gather_cols_dfrac``; and ``gather_interp_bf16``) take ``out=``, a
+contiguous f32 tensor of the result's shape on the inputs' device that
+receives the result in place of a new one (a replayed mapping step passes
+the buffers its CUDA graphs read). ``bf16`` rounds to nearest even (the
 JAX package's bf16 shadow of the table); weights, sums and outputs are f32.
 ``scatter_cols_outer`` launches :func:`sort_ids` and then its own kernel.
 ``gather_interp_mm`` and ``scatter_cols_accum`` take ``hot_rows``, the
@@ -205,6 +210,25 @@ def _cuda_device(t, fn):
     return t.device
 
 
+def _result(name, out, shape, dev):
+    """The result tensor of a call: ``out`` checked as a [shape] f32 tensor
+    on ``dev`` (contiguous, 16-byte aligned), or a new one."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    _check("out", out, torch.float32, len(shape), dev, align=16)
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError(f"{name}: out has shape {tuple(out.shape)}, "
+                         f"expected {tuple(shape)}")
+    return out
+
+
+def _plain(name, out, result):
+    """A plain version's ``result``, written into ``out`` where given."""
+    if out is None:
+        return result
+    return _result(name, out, result.shape, result.device).copy_(result)
+
+
 def _launched(fn, rc):
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: "
@@ -237,7 +261,7 @@ def gather_cols(tab, idx):
 
 
 def _interp(fn, name, tab, idx, w, features, *extra,
-            tab_dtype=torch.float32):
+            tab_dtype=torch.float32, out=None):
     dev = _cuda_device(tab, name)
     _check("tab", tab, tab_dtype, 2, dev, align=16)
     _check("idx", idx, torch.int32, 1, dev)
@@ -250,7 +274,7 @@ def _interp(fn, name, tab, idx, w, features, *extra,
     if tuple(w.shape) != (M, 32):
         raise ValueError(f"{name}: w has shape {tuple(w.shape)}, expected "
                          f"{(M, 32)}")
-    out = torch.empty(M, features, dtype=torch.float32, device=dev)
+    out = _result(name, out, (M, features), dev)
     if M:
         _launched(fn, getattr(_lib(), name)(
             tab.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), M,
@@ -258,7 +282,7 @@ def _interp(fn, name, tab, idx, w, features, *extra,
     return out
 
 
-def gather_interp(tab, idx, w, features: int):
+def gather_interp(tab, idx, w, features: int, out=None):
     """Fused gather + trilinear reduce: tab [n_bricks, 32F] f32, idx [M]
     int32, w [M, 32] f32 -> [M, F] f32.
 
@@ -271,13 +295,15 @@ def gather_interp(tab, idx, w, features: int):
     version and is skipped here. A bf16 table goes to
     :func:`gather_interp_bf16`."""
     if tab.device.type == "cpu":
-        return gather_interp_plain(tab, idx, w, features)
+        return _plain("gather_interp", out,
+                      gather_interp_plain(tab, idx, w, features))
     if tab.dtype == torch.bfloat16:
-        return gather_interp_bf16(tab, idx, w, features)
-    return _interp(gather_interp, "gather_interp", tab, idx, w, features)
+        return gather_interp_bf16(tab, idx, w, features, out=out)
+    return _interp(gather_interp, "gather_interp", tab, idx, w, features,
+                   out=out)
 
 
-def gather_interp_bf16(tab, idx, w, features: int):
+def gather_interp_bf16(tab, idx, w, features: int, out=None):
     """:func:`gather_interp` on a bf16 table [n_bricks, 32F]: the kernel
     reads the stored bf16 entries (half the f32 table's bytes), with the
     same live entries (at F = 1, groups of 4 entries read where any weight
@@ -285,12 +311,14 @@ def gather_interp_bf16(tab, idx, w, features: int):
     bitwise ``gather_interp(tab.float(), idx, w, features)``, the skipped
     zero-weight entries included."""
     if tab.device.type == "cpu":
-        return gather_interp_plain(tab, idx, w, features)
+        return _plain("gather_interp_bf16", out,
+                      gather_interp_plain(tab, idx, w, features))
     return _interp(gather_interp_bf16, "gather_interp_bf16", tab, idx, w,
-                   features, tab_dtype=torch.bfloat16)
+                   features, tab_dtype=torch.bfloat16, out=out)
 
 
-def gather_interp_mm(tab, idx, w, features: int, hot_rows: int = 0):
+def gather_interp_mm(tab, idx, w, features: int, hot_rows: int = 0,
+                     out=None):
     """:func:`gather_interp`'s function for the dense small-table levels.
 
     On the card the table's first ``hot_rows`` rows (at most what 227 KB of
@@ -301,9 +329,10 @@ def gather_interp_mm(tab, idx, w, features: int, hot_rows: int = 0):
     weight is non-zero, so the result is the plain version's for any
     finite table."""
     if tab.device.type == "cpu":
-        return gather_interp_mm_plain(tab, idx, w, features)
+        return _plain("gather_interp_mm", out,
+                      gather_interp_mm_plain(tab, idx, w, features))
     return _interp(gather_interp_mm, "gather_interp_mm", tab, idx, w,
-                   features, int(hot_rows))
+                   features, int(hot_rows), out=out)
 
 
 def scatter_cols_accum(g, idx, n_bricks: int, hot_rows: int = 0):
@@ -414,7 +443,7 @@ def sort_ids(idx, n_bricks: int):
     return keys, perm
 
 
-def scatter_cols_outer(W, cot, idx, n_bricks: int):
+def scatter_cols_outer(W, cot, idx, n_bricks: int, out=None):
     """The table adjoint of :func:`gather_interp`: W [M, 32] f32, cot [M, F]
     f32, idx [M] int32 -> [n_bricks, 32F] f32 with ``out[b, eF+f] = sum of
     W[t, e] cot[t, f] over idx[t] == b`` (F in 1, 2, 4, 8).
@@ -425,9 +454,11 @@ def scatter_cols_outer(W, cot, idx, n_bricks: int):
     is written or read. The ids are sorted first (:func:`sort_ids`), and
     each id's terms are summed in registers in sorted order with no
     atomics (the design noted at the top of ``csrc/gather.cu``): the
-    result is the same on every call. An id out of range is dropped."""
+    result is the same on every call. An id out of range is dropped.
+    ``out`` is zeroed first, as a new result is."""
     if W.device.type == "cpu":
-        return scatter_cols_outer_plain(W, cot, idx, n_bricks)
+        return _plain("scatter_cols_outer", out,
+                      scatter_cols_outer_plain(W, cot, idx, n_bricks))
     dev = _cuda_device(W, "scatter_cols_outer")
     _check("W", W, torch.float32, 2, dev, align=16)
     _check("idx", idx, torch.int32, 1, dev)
@@ -436,7 +467,8 @@ def scatter_cols_outer(W, cot, idx, n_bricks: int):
         raise ValueError(f"scatter_cols_outer: W has shape "
                          f"{tuple(W.shape)}, expected {(M, 32)}")
     F = _features("scatter_cols_outer", cot, M, dev)
-    out = torch.zeros(n_bricks, 32 * F, dtype=torch.float32, device=dev)
+    out = _result("scatter_cols_outer", out, (n_bricks, 32 * F),
+                  dev).zero_()
     if M:
         keys, perm = sort_ids(idx, n_bricks)
         slots = int(_lib().scatter_cols_outer_slots(M, F))
@@ -452,7 +484,8 @@ def scatter_cols_outer(W, cot, idx, n_bricks: int):
     return out
 
 
-def gather_cols_dfrac(tab, idx, cot, local, frac, level_first, res):
+def gather_cols_dfrac(tab, idx, cot, local, frac, level_first, res,
+                      out=None):
     """The position pullback of :func:`gather_interp` on trilinear weights:
     tab [n_bricks, 32F] f32, idx [M] int32, cot [M, F] f32, local [M, 3]
     int64 (a point's base corner in its brick, 0 or 1 an axis), frac [M, 3]
@@ -471,8 +504,8 @@ def gather_cols_dfrac(tab, idx, cot, local, frac, level_first, res):
     the same bits wherever it lies in the call. An id out of range gives
     zeros (for a finite ``cot``)."""
     if tab.device.type == "cpu":
-        return gather_cols_dfrac_plain(tab, idx, cot, local, frac,
-                                       level_first, res)
+        return _plain("gather_cols_dfrac", out, gather_cols_dfrac_plain(
+            tab, idx, cot, local, frac, level_first, res))
     dev = _cuda_device(tab, "gather_cols_dfrac")
     _check("tab", tab, torch.float32, 2, dev, align=16)
     _check("idx", idx, torch.int32, 1, dev)
@@ -492,7 +525,7 @@ def gather_cols_dfrac(tab, idx, cot, local, frac, level_first, res):
             a > b for a, b in zip(level_first, level_first[1:])):
         raise ValueError(f"gather_cols_dfrac: levels {list(level_first)} "
                          f"with resolutions {list(res)}")
-    out = torch.empty(M, 3, dtype=torch.float32, device=dev)
+    out = _result("gather_cols_dfrac", out, (M, 3), dev)
     if M:
         first = (ctypes.c_int * L)(*[int(v) for v in level_first])
         scale = (ctypes.c_float * L)(*[float(v) for v in res])

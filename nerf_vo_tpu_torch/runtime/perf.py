@@ -9,19 +9,28 @@ the first and last step (process_module.py:107-113); per-stage
 :func:`span` names a range of the program's work for a profiler: the
 parts of a mapping step (``map.*``) and the hash grid's encode and backward
 (``hash.*``), which ``scripts/profile_torch_mapping.py`` reduces the
-card's operations by. It costs one flag check unless a profiler is on.
+card's operations by. It costs two flag checks unless a profiler is on.
+While :func:`tracking` is on (the capture of a mapping step's CUDA
+graphs), each thread also keeps the names of its open spans
+(:func:`open_spans`), so that a replay can open them again around the
+work it makes outside its graphs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 from torch.autograd import _profiler_enabled
 from torch.profiler import record_function
 
 PREFIX = "nerf_vo."
+
+_tracking = False
+_open = threading.local()  # .names: this thread's open spans, while tracked
 
 
 def span(name: str):
@@ -30,9 +39,52 @@ def span(name: str):
     and device operations the profiler records; otherwise a shared no-op
     context (``record_function`` costs microseconds even with no profiler
     on)."""
+    if _tracking:
+        return _Tracked(name)
     if _profiler_enabled():
         return record_function(PREFIX + name)
     return _NULL
+
+
+def profiling() -> bool:
+    """Whether a profiler is on (so that :func:`span` records)."""
+    return _profiler_enabled()
+
+
+@contextlib.contextmanager
+def tracking():
+    """Keep each thread's open span names (:func:`open_spans`) inside."""
+    global _tracking
+    _tracking = True
+    try:
+        yield
+    finally:
+        _tracking = False
+
+
+def open_spans() -> Tuple[str, ...]:
+    """The names of this thread's open spans, outermost first (empty
+    outside :func:`tracking`)."""
+    return tuple(getattr(_open, "names", ()))
+
+
+class _Tracked:
+    """A span whose name this thread's stack holds while it is open."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.inner = (record_function(PREFIX + name) if _profiler_enabled()
+                      else _NULL)
+
+    def __enter__(self):
+        _open.__dict__.setdefault("names", []).append(self.name)
+        self.inner.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.inner.__exit__(*exc)
+        _open.names.pop()
+        return False
 
 
 class PerformanceTracker:

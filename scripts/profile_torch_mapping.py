@@ -7,22 +7,28 @@ Builds the cell as ``benchmark/run.py --workload vo.map`` does (its driver's
 ``setup``: the room's 192 keyframes, nerfacto at its published widths,
 weights from the seed, the compared steps and the warm-up), times
 ``--seconds`` of untraced steps, then profiles ``--steps`` steps inside one
-range, ``bench.window`` (``torch.profiler``; no other range is added). The
-window is reduced as the benchmark's readers reduce it
-(``yardstick/trace.py``: launches a step, the idle share) and by the
-program's own spans (``yardstick/parts.py``): each device operation goes to
-the span in which its launch began, three times over: the parts of the
-step (sample, forward, backward, optimizer), the forward's parts (the
-proposal passes, the final field, compositing and the loss terms), and
-the hash grid's encodes and backwards (``hash.encode``, ``hash.backward``),
-each with its device time (a union) and the window's idle time inside it.
-The ``CatArrayBatchedCopy`` copies' device time is given by span in each of
-the three. What the program's spans cost a profiled step is their count a
-step times the time of one empty span under the profiler (the mean of
-20,000). Prints one JSON line (and writes it to ``--out`` when given) with
-the card, its power limit, and per span: launches a step, device ms a
-step, idle share of the window, its top operations; the operations in no
-part and those whose launch the trace lacks, by name.
+range, ``bench.window`` (``torch.profiler``; no other range is added), twice:
+the steps as the window runs them (``train_step``, replayed as CUDA graphs
+where the trainer can), then steps driven through ``gradients`` +
+``update``, which are eager. Each window is reduced as the benchmark's
+readers reduce it (``yardstick/trace.py``: launches a step, the idle share)
+and by the program's own spans (``yardstick/parts.py``): each device
+operation goes to the span in which its launch began. The replayed window
+by the parts of the step with ``replay`` beside them (the graphs' work;
+the table-kernel calls stay in their parts); the eager window three times
+over: the parts of the step (sample, forward, backward, optimizer), the
+forward's parts (the proposal passes, the final field, compositing and the
+loss terms), and the hash grid's encodes and backwards (``hash.encode``,
+``hash.backward``), each with its device time (a union) and the window's
+idle time inside it. The ``CatArrayBatchedCopy`` copies' device time is
+given by span in each of the three. What the program's spans cost a
+profiled step is their count a step times the time of one empty span
+under the profiler (the mean of 20,000). Prints one JSON line (and writes
+it to ``--out`` when given) with the card, its power limit, the trainer's
+``captures`` / ``replays`` / ``eager_steps``, and per window and span:
+launches a step, device ms a step, idle share of the window, its top
+operations; the operations in no part and those whose launch the trace
+lacks, by name.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from benchmark.yardstick.trace import Trace, busy  # noqa: E402
 from nerf_vo_tpu_torch.runtime import perf  # noqa: E402
 
 WINDOW = "bench.window"
+REPLAYED = parts.PARTS + ("replay",)
 FORWARD = ("proposal", "field", "loss")
 HASH = ("encode", "backward")
 CAT = "CatArrayBatchedCopy"
@@ -79,6 +86,41 @@ def _ms_of(w, key: str, n: int):
     return {p: 1e3 * busy(v, lo, hi) * 1e-6 / n for p, v in by.items()}
 
 
+def _profile(step, n: int):
+    """``n`` calls of ``step()`` inside ``bench.window``, profiled: the
+    benchmark's trace of them and their ``parts.Window``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(WINDOW):
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+    return Trace.from_profiler(prof, WINDOW), parts.Window.from_profiler(
+        prof, WINDOW, REPLAYED)
+
+
+def _window(tr, w, n):
+    """The step-level numbers of one profiled window."""
+    win = tr.window_s()
+    r = w.reduce()
+    by_part = _per_part(r, n, win)
+    return r, {
+        "traced_step_ms": 1e3 * win / n,
+        "launches_per_step": tr.count() / n,
+        "device_ms_per_step": 1e3 * tr.busy_s() / n,
+        "idle_pct.map": 100.0 * (1.0 - tr.busy_s() / win),
+        "parts": by_part,
+        "outside_per_step": r["outside"] / n,
+        "unlinked": r["unlinked"], "unlinked_ops": r["unlinked_ops"],
+        "sum_launches_per_step": sum(v["launches_per_step"]
+                                     for v in by_part.values()),
+        "sum_idle_pct": sum(v["idle_pct"] for v in by_part.values()),
+        "spans_per_step": len(w.ranges) / n,
+    }
+
+
 def _span_s(n: int = 20000) -> float:
     """Seconds of one empty span under the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -101,49 +143,34 @@ def main():
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     cell = harness.Cell("vo.map")
     ctx = harness.context(cell, a.seed, "cuda:0")
     drv = cell.driver
     state = drv.setup(ctx)
     stage = state.stage
+    trainer = stage.trainer
     untraced = drv.window(ctx, state, a.seconds)
+    n = a.steps
+    _, replayed = _window(*_profile(stage.train_step, n), n)
+    counters = {k: getattr(trainer, k)
+                for k in ("captures", "replays", "eager_steps")}
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function(WINDOW):
-            for _ in range(a.steps):
-                stage.train_step()
-            torch.cuda.synchronize()
-    tr = Trace.from_profiler(prof, WINDOW)
-    w = parts.Window.from_profiler(prof, WINDOW)
-    del prof
-    r = w.reduce()
+    def eager():
+        d = trainer.draws(stage.buffer, stage.state)
+        trainer.gradients(stage.state, stage.buffer, d)
+        trainer.update(stage.state, d)
+
+    tr, w = _profile(eager, n)
+    r, line_eager = _window(tr, w, n)
+    del line_eager["parts"]["replay"]
     fw = parts.Window(w.device, w.launches, w.ranges, w.window, FORWARD)
     hw = parts.Window(w.device, w.launches, w.ranges, w.window, HASH,
                       parts.PREFIX + "hash.")
     fwd, hsh = fw.reduce(), hw.reduce()
-
-    n, win = a.steps, tr.window_s()
-    idle_pct = 100.0 * (1.0 - tr.busy_s() / win)
-    by_part = _per_part(r, n, win)
-    spans = len(w.ranges) / n
+    win = tr.window_s()
     span_s = _span_s()
-    line = {
-        "card": _card(), "seed": a.seed, "steps": n,
-        "untraced_step_ms": 1e3 * untraced["window_s"]
-        / max(untraced["steps"], 1),
-        "traced_step_ms": 1e3 * win / n,
-        "launches_per_step": tr.count() / n,
-        "device_ms_per_step": 1e3 * tr.busy_s() / n,
-        "idle_pct.map": idle_pct,
-        "parts": by_part,
-        "outside_per_step": r["outside"] / n,
-        "unlinked": r["unlinked"], "unlinked_ops": r["unlinked_ops"],
-        "sum_launches_per_step": sum(v["launches_per_step"]
-                                     for v in by_part.values()),
-        "sum_idle_pct": sum(v["idle_pct"] for v in by_part.values()),
+    line_eager.update({
         "forward_parts": _per_part(fwd, n, win),
         # the forward's launches in none of its parts (the first bins)
         "forward_rest_per_step": (r["parts"]["forward"]["launches"]
@@ -153,8 +180,18 @@ def main():
         "cat_ms_per_step": {"step": _ms_of(w, CAT, n),
                             "forward": _ms_of(fw, CAT, n),
                             "hash": _ms_of(hw, CAT, n)},
-        "spans_per_step": spans, "span_us": 1e6 * span_s,
-        "span_cost_ms_per_step": 1e3 * spans * span_s,
+    })
+    line = {
+        "card": _card(), "seed": a.seed, "steps": n,
+        "untraced_step_ms": 1e3 * untraced["window_s"]
+        / max(untraced["steps"], 1),
+        "counters": counters, "graphs": (trainer.graphs.counts()
+                                         if trainer.graphs else None),
+        "replayed": replayed, "eager": line_eager,
+        "span_us": 1e6 * span_s,
+        "span_cost_ms_per_step": {
+            k: 1e3 * v["spans_per_step"] * span_s
+            for k, v in (("replayed", replayed), ("eager", line_eager))},
     }
     if a.out:
         with open(a.out, "w") as f:
