@@ -2219,7 +2219,7 @@ def phase_slam_pipeline(dev, smi, tmp):
     """(g2) ``execute`` threaded with the nerf_slam replica keys, the cuts
     of (e) and (g1): DROID tracking, DROID depth, the Instant-NGP mapper.
     Returns the kernels' launches on this path and the mapping stage."""
-    from nerf_vo_tpu_torch.models import nerfacto
+    from nerf_vo_tpu_torch.mapping import trainer
     from nerf_vo_tpu_torch.ops import occupancy
     from nerf_vo_tpu_torch.runtime import pipeline, stages
 
@@ -2241,7 +2241,8 @@ def phase_slam_pipeline(dev, smi, tmp):
     every = stages.mapping_model_config(
         SimpleNamespace(**cfg)).occupancy.update_every
     finish = stages.MappingStage.finish
-    refresh = nerfacto.NerfactoModel.refresh_occupancy
+    # every refresh, eager or replayed as CUDA graphs, passes here
+    refresh = trainer.MappingTrainer._occupancy_step
 
     def timed_finish(self):  # observers: they count and time
         torch.cuda.synchronize()
@@ -2250,20 +2251,23 @@ def phase_slam_pipeline(dev, smi, tmp):
         torch.cuda.synchronize()
         marks["end"] = (time.perf_counter(), self.step_count)
 
-    def counted_refresh(self, occ_grid, step, jitter):
+    def counted_refresh(self, state, jitter):
+        step = state.step
         refreshes.append(step)
         if step + every < iters:
-            return refresh(self, occ_grid, step, jitter)
+            return refresh(self, state, jitter)
         # the last refresh: its rows 3 and 4 inputs are kept for (g2)'s
-        # check of those launches against their plain versions
-        grid, calls = record_calls(
-            lambda: refresh(self, occ_grid, step, jitter),
+        # check of those launches against their plain versions (a
+        # replayed call's output buffer left out)
+        _, calls = record_calls(
+            lambda: refresh(self, state, jitter),
             ("gather_interp", "gather_interp_mm"))
-        refresh_calls[:] = calls
-        return grid
+        refresh_calls[:] = [(n, a, {k: v for k, v in kw.items()
+                                    if k != "out"}) for n, a, kw in calls]
+        return None
 
     stages.MappingStage.finish = timed_finish
-    nerfacto.NerfactoModel.refresh_occupancy = counted_refresh
+    trainer.MappingTrainer._occupancy_step = counted_refresh
     kernels = kernel_launches()
     for k in kernels.values():
         k.launches = 0
@@ -2274,7 +2278,7 @@ def phase_slam_pipeline(dev, smi, tmp):
         torch.cuda.synchronize()
     finally:
         stages.MappingStage.finish = finish
-        nerfacto.NerfactoModel.refresh_occupancy = refresh
+        trainer.MappingTrainer._occupancy_step = refresh
     wall = time.perf_counter() - t0
     counts = {name: k.launches for name, k in kernels.items()}
     (t_start, s_start), (t_end, s_end) = marks["start"], marks["end"]

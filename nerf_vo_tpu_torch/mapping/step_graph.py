@@ -7,7 +7,9 @@ them is captured once and replayed. :class:`StepGraphs` holds one step as
 an ordered list of items:
 
 - a graph: one segment of the step, replayed inside the span
-  ``map.replay``;
+  ``map.replay``, or, where it was captured inside a segment span
+  (``span(name, segment=True)``, ``runtime/perf.py``), inside the spans
+  open at its capture up to the innermost such span;
 - a call: one table-kernel call, made again at replay through the
   module attribute ``gather_cuda.<name>`` with the inputs it had at
   capture and ``out=`` the buffer its result went to (which the next
@@ -21,7 +23,9 @@ the table kernels' module functions replaced by breakers: each ends the
 open segment, replays it (so the kernel gets real inputs and the step
 trains as an eager step would), makes the call and begins the next
 segment. The caller opens a segment per part of the step
-(:meth:`StepGraphs.segment`). Autograd's device thread makes the
+(:meth:`StepGraphs.segment`); a segment span that opens or closes inside
+one ends it and begins the next too, so that the span's work is a graph
+of its own. Autograd's device thread makes the
 backward's calls, so a segment may begin on one thread and end on
 another: the capture runs in CUDA's relaxed mode. Every segment allocates
 from one shared memory pool and is replayed in the order it was captured,
@@ -80,7 +84,7 @@ class StepGraphs:
         self.items: List[tuple] = []
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)
-        self._open = None  # (part, graph) being captured
+        self._open = None  # (part, graph, spans) being captured
         self._empty: List[torch.cuda.CUDAGraph] = []  # captured, not replayed
 
     # -- capture -------------------------------------------------------------
@@ -98,7 +102,8 @@ class StepGraphs:
         for k, b in breakers.items():
             setattr(gc, k, b)
         try:
-            with torch.cuda.stream(self.stream), perf.tracking():
+            with torch.cuda.stream(self.stream), \
+                    perf.tracking(self._edge):
                 try:
                     out = run(self)
                 finally:
@@ -128,12 +133,15 @@ class StepGraphs:
         self.items.append(("eager", part, fn))
 
     def _begin(self, part: str) -> None:
+        # inside a segment span the graph replays inside the spans open
+        # now, up to the innermost one; elsewhere inside map.replay
+        spans = perf.segment_spans()
         g = torch.cuda.CUDAGraph()
         g.capture_begin(pool=self.pool, capture_error_mode="relaxed")
-        self._open = (part, g)
+        self._open = (part, g, spans)
 
     def _end(self) -> None:
-        part, g = self._open
+        part, g, spans = self._open
         self._open = None
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -148,7 +156,14 @@ class StepGraphs:
             self._empty.append(g)  # its allocations stay the pool's
             return
         g.replay()
-        self.items.append(("graph", part, g))
+        self.items.append(("graph", part, (g, spans)))
+
+    def _edge(self) -> None:
+        """A segment span opened or closed: a new segment begins."""
+        if self._open is not None and torch.cuda.is_current_stream_capturing():
+            part = self._open[0]
+            self._end()
+            self._begin(part)
 
     def _breaker(self, name: str, fn: Callable):
         def call(*args, **kwargs):
@@ -169,20 +184,25 @@ class StepGraphs:
 
     def replay(self) -> None:
         """Every item in order, on the current stream."""
-        spans = perf.profiling()
+        profiling = perf.profiling()
         for item in self.items:
             if item[0] == "graph":
-                with span("map.replay"):
-                    item[2].replay()
+                g, spans = item[2]
+                if spans is None:
+                    with span("map.replay"):
+                        g.replay()
+                elif not profiling:
+                    g.replay()
+                else:
+                    with _spans(spans):
+                        g.replay()
             elif item[0] == "eager":
                 with span("map." + item[1]):
                     item[2]()
-            elif not spans:
+            elif not profiling:
                 item[1]()
             else:
-                with contextlib.ExitStack() as open_:
-                    for name in item[1].spans:
-                        open_.enter_context(span(name))
+                with _spans(item[1].spans):
                     item[1]()
 
     def counts(self) -> dict:
@@ -200,6 +220,15 @@ class StepGraphs:
         self.draws = self.metrics = None
 
 
+@contextlib.contextmanager
+def _spans(names):
+    """The spans ``names``, outermost first, open inside."""
+    with contextlib.ExitStack() as open_:
+        for name in names:
+            open_.enter_context(span(name))
+        yield
+
+
 def draw_buffers(draws) -> dict:
     """Static copies of a step's draws ({"frame", "py", "px", "uniforms"})."""
     return {k: ([u.clone() for u in v] if k == "uniforms" else v.clone())
@@ -207,10 +236,11 @@ def draw_buffers(draws) -> dict:
 
 
 def fill_draws(static, draws) -> None:
-    """Copy a step's draws into the static buffers."""
-    for k, v in draws.items():
+    """Copy a step's draws into the static buffers (each draw the buffers
+    hold)."""
+    for k, buf in static.items():
         if k == "uniforms":
-            for s, u in zip(static[k], v):
+            for s, u in zip(buf, draws[k]):
                 s.copy_(u)
         else:
-            static[k].copy_(v)
+            buf.copy_(draws[k])

@@ -39,27 +39,37 @@ the same draws, forward, gradients, Adam updates and kernels, with no
 Python forward, autograd or optimizer on the host. A step stays eager where
 its own state or inputs say the graphs cannot hold it
 (:meth:`MappingTrainer.eager_reason`): a parallel step's share of the batch,
-draws other than ``frame`` / ``py`` / ``px`` / ``uniforms`` (an occupancy
-refresh's jitter, the MLP proposals' distillation points, prefetch's first
-fill), prefetch, phased table gradients. The list is captured
+draws other than ``frame`` / ``py`` / ``px`` / ``uniforms`` (the MLP
+proposals' distillation points, prefetch's first fill; an occupancy
+refresh's ``occ_jitter`` where the state has no grid), prefetch, phased
+table gradients. The list is captured
 again when a tensor it reads from outside its memory pool has another
 address or shape (:meth:`MappingTrainer.graph_key`: the keyframe buffer,
 the model's tensors, the optimizers' state, the occupancy grid, the draws'
 shapes); the keyframe inserts, the dense proposal refresh and the
-occupancy refresh write their tensors in place, so they keep it. The
-refreshes after Adam run eagerly after a replay. On the card both Adams
-are ``capturable`` (their step counts on the device) and the camera
-learning rate is a device tensor set before each step's Adam. Counters:
-``captures``, ``replays``, ``eager_steps`` (train steps by how they ran).
+occupancy refresh write their tensors in place, so they keep it. After a
+graphed step the dense proposal refresh runs eagerly. The occupancy
+refresh has graphs of its own on the card, whether its step was graphed
+or eager (:meth:`MappingTrainer._occupancy_step`): captured at the first
+refresh step, they read the step and the slab's jitter from their own
+buffers, so one capture serves every slab, and are replayed at each later
+refresh step; they are captured again where a tensor they read has
+moved (:meth:`MappingTrainer.occupancy_key`). On the card both Adams are
+``capturable`` (their step counts on the device) and the camera learning
+rate is a device tensor set before each step's Adam. Counters: ``captures``, ``replays``,
+``eager_steps`` (train steps by how they ran) and ``occ_refreshes``
+(occupancy refreshes, eager or replayed).
 
 Spans (``runtime/perf.py``; open only under a profiler): a step's parts
 are ``map.sample`` (the draws, and the ray batch), ``map.forward`` (the
 loss, with the model's ``map.proposal`` / ``map.field`` / ``map.loss``
 inside), ``map.backward`` (the gradient into each leaf's ``.grad``) and
-``map.optimizer`` (:meth:`MappingTrainer.update`). A replayed step opens
-``map.replay`` around each graph it replays, and around each table-kernel
-call the spans open at it when it was captured (its part, the hash grid's
-span).
+``map.optimizer`` (:meth:`MappingTrainer.update`, with the occupancy
+refresh's ``map.occ_refresh`` inside). A replayed step opens ``map.replay``
+around each graph it replays, and around each table-kernel call, and each
+graph of the occupancy sampler's ``map.occupancy`` and ``map.occ_refresh``,
+the spans open at it when it was captured (its part, the model's span, the
+hash grid's span).
 """
 
 from __future__ import annotations
@@ -82,8 +92,15 @@ def _prefetch_default() -> bool:
     return os.environ.get("NERF_VO_PREFETCH_BATCH", "0") == "1"
 
 
-# the draws a replayed step takes (its static buffers hold these)
+# the draws a replayed step takes (its static buffers hold these); a
+# replayed occupancy refresh takes "occ_jitter" into buffers of its own
 GRAPH_DRAWS = frozenset({"frame", "py", "px", "uniforms"})
+
+
+def _addresses(ts) -> tuple:
+    """Where tensors ``ts`` are, as a graph reads them."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.requires_grad)
+                 for t in ts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +141,9 @@ class MappingTrainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.captures = self.replays = self.eager_steps = 0
+        self.occ_refreshes = 0
         self.graphs: Optional[sg.StepGraphs] = None
+        self.occ_graphs: Optional[sg.StepGraphs] = None
 
     def init(self) -> TrainState:
         """Optimizer state for the model's current parameters. Distilled
@@ -256,13 +275,16 @@ class MappingTrainer:
         """Why a train step with these draws runs eagerly, or None where
         its graphs are captured or replayed: ``"n_rays"`` (a parallel
         step's share of the batch), ``"draws"`` (draws beyond
-        :data:`GRAPH_DRAWS`), ``"prefetch"``, ``"grad_phase"`` (phased
+        :data:`GRAPH_DRAWS` and, where the state has an occupancy grid, the
+        refresh's ``occ_jitter``), ``"prefetch"``, ``"grad_phase"`` (phased
         table gradients follow the step count), ``"first_step"`` (an
         optimizer holds no state yet: its first step makes it) or
         ``"device"`` (graphs need the card)."""
         if n_rays is not None:
             return "n_rays"
-        if not GRAPH_DRAWS.issuperset(draws):
+        held = GRAPH_DRAWS if state.occ_grid is None else GRAPH_DRAWS | {
+            "occ_jitter"}
+        if not held.issuperset(draws):
             return "draws"
         if self.config.prefetch_batch:
             return "prefetch"
@@ -284,20 +306,24 @@ class MappingTrainer:
         learning rates, the occupancy grid; and the draws' shapes. The
         graphs replay while it is unchanged."""
         ts = [buffer.intrinsics, buffer.c2w, buffer.pixels, state.pose_deltas]
-        ts += list(self.model.parameters()) + list(self.model.buffers())
         for opt in (state.opt, state.cam_opt):
             for st in opt.state.values():
                 ts += [v for v in st.values() if torch.is_tensor(v)]
             ts += [g["lr"] for g in opt.param_groups
                    if torch.is_tensor(g["lr"])]
-        if state.occ_grid is not None:
-            ts.append(state.occ_grid)
         picks = [draws[k] for k in ("frame", "py", "px")] + list(
             draws["uniforms"])
         return (buffer.hw, buffer.channels,
                 tuple((tuple(t.shape), t.dtype) for t in picks),
-                tuple((t.data_ptr(), tuple(t.shape), t.dtype,
-                       t.requires_grad) for t in ts))
+                _addresses(ts) + self.occupancy_key(state))
+
+    def occupancy_key(self, state: TrainState) -> tuple:
+        """What the occupancy refresh's graphs read from outside their
+        memory pool: the model's parameters and buffers and the grid."""
+        ts = list(self.model.parameters()) + list(self.model.buffers())
+        if state.occ_grid is not None:
+            ts.append(state.occ_grid)
+        return _addresses(ts)
 
     def _capture(self, state: TrainState, buffer: kb.KeyframeBuffer,
                  draws: Dict, key: tuple) -> Dict[str, torch.Tensor]:
@@ -306,7 +332,8 @@ class MappingTrainer:
         if self.graphs is not None:
             self.graphs.release()
             self.graphs = None
-        graphs = sg.StepGraphs(self.device, key, sg.draw_buffers(draws))
+        graphs = sg.StepGraphs(self.device, key, sg.draw_buffers(
+            {k: draws[k] for k in GRAPH_DRAWS}))
 
         def run(g: sg.StepGraphs):
             d = g.draws
@@ -337,6 +364,40 @@ class MappingTrainer:
         self.replays += 1
         with span("map.replay"):
             return self._metrics()
+
+    def _occupancy_step(self, state: TrainState,
+                        jitter: torch.Tensor) -> None:
+        """This step's occupancy refresh. On the card by its graphs,
+        captured (and so made) where none are held for
+        :meth:`occupancy_key`, else replayed; they read the step and the
+        slab's jitter from their own buffers, filled first. Eager on the
+        CPU, and under a model axis (its encodes exchange rows between
+        ranks, which a graph cannot hold)."""
+        self.occ_refreshes += 1
+        if self.device.type != "cuda" or self.model.model_axis is not None:
+            self._refresh_occupancy(state, state.step, jitter)
+            return
+        key = self.occupancy_key(state)
+        if self.occ_graphs is not None and self.occ_graphs.key == key:
+            self.occ_graphs.draws["step"].fill_(state.step)
+            self.occ_graphs.draws["occ_jitter"].copy_(jitter)
+            self.occ_graphs.replay()
+            return
+        if self.occ_graphs is not None:
+            self.occ_graphs.release()
+        graphs = sg.StepGraphs(self.device, key, {
+            "step": torch.tensor(state.step, device=self.device),
+            "occ_jitter": jitter.clone()})
+
+        def run(g: sg.StepGraphs):
+            # its graphs and calls replay inside map.occ_refresh, which
+            # the caller's map.optimizer holds
+            with g.segment("occ_refresh"):
+                self._refresh_occupancy(state, g.draws["step"],
+                                        g.draws["occ_jitter"])
+
+        graphs.capture(run)
+        self.occ_graphs = graphs
 
     def _metrics(self) -> Dict[str, torch.Tensor]:
         names, packed = self.graphs.metrics
@@ -442,15 +503,21 @@ class MappingTrainer:
             p.grad = None
 
     def _refresh(self, state: TrainState, draws: Dict) -> None:
-        """The step's refreshes on the updated field, then step + 1. The
-        occupancy grid is refreshed in place (a replayed step reads it
-        where it was captured)."""
+        """The step's refreshes on the updated field, then step + 1."""
         if self.refreshes_proposals(state):
             self.model.refresh_proposals(state.step)
         if self._refreshes_occupancy(state):
-            state.occ_grid.copy_(self.model.refresh_occupancy(
-                state.occ_grid, state.step, draws["occ_jitter"]))
+            self._occupancy_step(state, draws["occ_jitter"])
         state.step += 1
+
+    def _refresh_occupancy(self, state: TrainState, step,
+                           jitter: torch.Tensor) -> None:
+        """The occupancy grid refreshed in place (a replayed step reads it
+        where it was captured) at ``step``, an int or a 0-dim device
+        tensor."""
+        with span("map.occ_refresh", segment=True):
+            state.occ_grid.copy_(self.model.refresh_occupancy(
+                state.occ_grid, step, jitter))
 
     # ------------------------------------------------------------------
 

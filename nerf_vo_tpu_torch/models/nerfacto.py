@@ -226,17 +226,19 @@ class NerfactoModel(nn.Module):
         if cfg.sampler == "occupancy":
             # empty-space skipping: occupancy at coarse bin centres weights
             # the PDF resampler
-            s_edges = R.uniform_bins(n_rays, cfg.num_occ_bins, u[0],
-                                     device=origins.device)
-            t_edges = self._s_to_t(s_edges, cfg.near, cfg.far)
-            t_mid = 0.5 * (t_edges[..., 1:] + t_edges[..., :-1])
-            if occ_grid is not None:
-                unit = self.field._to_unit(
-                    self._positions(origins, directions, t_mid))
-                w = O.bin_weights(occ_grid, unit, cfg.occupancy)
-            else:
-                w = torch.ones_like(t_mid)
-            s_edges = R.sample_pdf(s_edges, w, cfg.num_nerf_samples, u[-1])
+            with span("map.occupancy", segment=True):
+                s_edges = R.uniform_bins(n_rays, cfg.num_occ_bins, u[0],
+                                         device=origins.device)
+                t_edges = self._s_to_t(s_edges, cfg.near, cfg.far)
+                t_mid = 0.5 * (t_edges[..., 1:] + t_edges[..., :-1])
+                if occ_grid is not None:
+                    unit = self.field._to_unit(
+                        self._positions(origins, directions, t_mid))
+                    w = O.bin_weights(occ_grid, unit, cfg.occupancy)
+                else:
+                    w = torch.ones_like(t_mid)
+                s_edges = R.sample_pdf(s_edges, w, cfg.num_nerf_samples,
+                                       u[-1])
         else:
             s_edges = R.uniform_bins(n_rays, cfg.num_proposal_samples[0],
                                      u[0], device=origins.device)
@@ -491,10 +493,12 @@ class NerfactoModel(nn.Module):
     # -- occupancy maintenance ----------------------------------------------
 
     @torch.no_grad()
-    def refresh_occupancy(self, occ_grid, step: int, jitter):
+    def refresh_occupancy(self, occ_grid, step, jitter):
         """One occupancy-grid refresh: this step's rotating cell slab
-        re-evaluated against the current field and max-merged. ``jitter``:
-        the slab's [res^3 / slab_div, 3] uniforms. Returns the new grid."""
+        re-evaluated against the current field and max-merged. ``step``: an
+        int or a 0-dim integer tensor on the grid's device (see
+        ``ops/occupancy.py``); ``jitter``: the slab's [res^3 / slab_div, 3]
+        uniforms. Returns the new grid."""
         cfg = self.config.occupancy
         unit, start = O.slab_cell_centers(step, jitter, cfg)
         return O.refresh(occ_grid, self.field.density_unit(unit), start, cfg)

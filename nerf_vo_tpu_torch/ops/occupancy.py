@@ -14,7 +14,10 @@ occupancy-grid ray marching with a fixed sample budget:
     refreshes.
 
 Random numbers come in as arguments: :func:`slab_cell_centers` takes the
-slab's jitter uniforms, where the JAX module draws them from a key.
+slab's jitter uniforms, where the JAX module draws them from a key. The
+step a refresh is made at may be a Python int or a 0-dim integer tensor on
+the grid's device: the slab's place is then computed there, so that a CUDA
+graph of the refresh serves every slab.
 """
 
 from __future__ import annotations
@@ -61,11 +64,11 @@ def bin_weights(grid: torch.Tensor, unit_pos: torch.Tensor,
     return (occ > config.occ_threshold).float() + config.base_weight
 
 
-def slab_cell_centers(step: int, jitter: torch.Tensor,
-                      config: OccupancyConfig):
+def slab_cell_centers(step, jitter: torch.Tensor, config: OccupancyConfig):
     """Unit-cube positions (jittered cell centres) of this refresh's slab
-    and the slab's flat start. ``jitter``: [slab_size, 3] uniforms in
-    [0, 1). The slab rotates with the refresh count."""
+    and the slab's flat start (an int, or a 0-dim tensor where ``step`` is
+    one). ``jitter``: [slab_size, 3] uniforms in [0, 1). The slab rotates
+    with the refresh count."""
     r = config.resolution
     slab = slab_size(config)
     start = ((step // config.update_every) % config.slab_div) * slab
@@ -74,12 +77,12 @@ def slab_cell_centers(step: int, jitter: torch.Tensor,
     return (xyz.float() + jitter) / r, start
 
 
-def refresh(grid: torch.Tensor, density_slab: torch.Tensor, start: int,
+def refresh(grid: torch.Tensor, density_slab: torch.Tensor, start,
             config: OccupancyConfig) -> torch.Tensor:
     """One refresh: whole-grid decay, then max-merge of the slab's
-    densities (evaluated at :func:`slab_cell_centers`). Returns a new grid."""
+    densities (evaluated at :func:`slab_cell_centers`) into the cells from
+    ``start`` (an int or a 0-dim tensor). Returns a new grid."""
     grid = grid * config.decay
-    n = density_slab.shape[0]
-    grid[start:start + n] = torch.maximum(grid[start:start + n],
-                                          density_slab.to(grid.dtype))
-    return grid
+    cells = start + torch.arange(density_slab.shape[0], device=grid.device)
+    return grid.index_copy_(0, cells, torch.maximum(
+        grid.index_select(0, cells), density_slab.to(grid.dtype)))

@@ -13,7 +13,9 @@ card's operations by. It costs two flag checks unless a profiler is on.
 While :func:`tracking` is on (the capture of a mapping step's CUDA
 graphs), each thread also keeps the names of its open spans
 (:func:`open_spans`), so that a replay can open them again around the
-work it makes outside its graphs.
+work it makes outside its graphs, and the capture is told when a span
+opened with ``segment=True`` opens or closes, so that its work is a graph
+of its own (:func:`segment_spans`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import contextlib
 import os
 import threading
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from torch.autograd import _profiler_enabled
 from torch.profiler import record_function
@@ -30,17 +32,19 @@ from torch.profiler import record_function
 PREFIX = "nerf_vo."
 
 _tracking = False
-_open = threading.local()  # .names: this thread's open spans, while tracked
+_edge = None  # while tracked: called as a segment span opens and closes
+_open = threading.local()  # .stack: this thread's open (span, segment)
 
 
-def span(name: str):
+def span(name: str, segment: bool = False):
     """The range ``nerf_vo.<name>``: under an active ``torch.profiler`` (or
     autograd profiler) a ``record_function``, on the clock of the launches
     and device operations the profiler records; otherwise a shared no-op
     context (``record_function`` costs microseconds even with no profiler
-    on)."""
+    on). ``segment``: a capture of CUDA graphs (``mapping/step_graph.py``)
+    makes the span's work a graph of its own, replayed inside it."""
     if _tracking:
-        return _Tracked(name)
+        return _Tracked(name, segment)
     if _profiler_enabled():
         return record_function(PREFIX + name)
     return _NULL
@@ -52,38 +56,53 @@ def profiling() -> bool:
 
 
 @contextlib.contextmanager
-def tracking():
-    """Keep each thread's open span names (:func:`open_spans`) inside."""
-    global _tracking
-    _tracking = True
+def tracking(edge=None):
+    """Keep each thread's open span names (:func:`open_spans`) inside;
+    ``edge()`` is called after each segment span opens and after it
+    closes."""
+    global _tracking, _edge
+    _tracking, _edge = True, edge
     try:
         yield
     finally:
-        _tracking = False
+        _tracking, _edge = False, None
 
 
 def open_spans() -> Tuple[str, ...]:
     """The names of this thread's open spans, outermost first (empty
     outside :func:`tracking`)."""
-    return tuple(getattr(_open, "names", ()))
+    return tuple(n for n, _ in getattr(_open, "stack", ()))
+
+
+def segment_spans() -> Optional[Tuple[str, ...]]:
+    """This thread's open spans up to its innermost open segment span,
+    outermost first; None where none is open."""
+    stack = getattr(_open, "stack", ())
+    inner = [i for i, (_, seg) in enumerate(stack) if seg]
+    return tuple(n for n, _ in stack[:inner[-1] + 1]) if inner else None
 
 
 class _Tracked:
     """A span whose name this thread's stack holds while it is open."""
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, name: str, segment: bool):
+        self.name, self.segment = name, segment
         self.inner = (record_function(PREFIX + name) if _profiler_enabled()
                       else _NULL)
 
     def __enter__(self):
-        _open.__dict__.setdefault("names", []).append(self.name)
+        _open.__dict__.setdefault("stack", []).append(
+            (self.name, self.segment))
         self.inner.__enter__()
+        if self.segment and _edge is not None:
+            _edge()
         return self
 
     def __exit__(self, *exc):
         self.inner.__exit__(*exc)
-        _open.names.pop()
+        _open.stack.pop()
+        if self.segment and _edge is not None and exc[0] is None:
+            _edge()
         return False
 
 

@@ -1,11 +1,14 @@
-"""Where the port's mapping step spends its time, part by part, in the
-benchmark's ``vo.map`` cell on one NVIDIA GPU.
+"""Where the port's mapping step spends its time, part by part, in a
+mapping cell of the benchmark on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_mapping.py [--seed 7] [--steps 16] [--seconds 20] [--out FILE]
+    python3 scripts/profile_torch_mapping.py [--config nerf_vo_replica] [--seed 7] [--steps 16] [--seconds 20] [--out FILE]
 
-Builds the cell as ``benchmark/run.py --workload vo.map`` does (its driver's
-``setup``: the room's 192 keyframes, nerfacto at its published widths,
-weights from the seed, the compared steps and the warm-up), times
+``--config`` names the configuration whose mapping cell is profiled:
+``nerf_vo_replica`` (``vo.map``: nerfacto) or ``nerf_slam_replica``
+(``slam.map``: the Instant-NGP mapper). Builds the cell as
+``benchmark/run.py --workload <cell>`` does (its driver's ``setup``: the
+room's 192 keyframes, the mapper at its published widths, weights from the
+seed, the compared steps and the warm-up), times
 ``--seconds`` of untraced steps, then profiles ``--steps`` steps inside one
 range, ``bench.window`` (``torch.profiler``; no other range is added), twice:
 the steps as the window runs them (``train_step``, replayed as CUDA graphs
@@ -17,15 +20,18 @@ operation goes to the span in which its launch began. The replayed window
 by the parts of the step with ``replay`` beside them (the graphs' work;
 the table-kernel calls stay in their parts); the eager window three times
 over: the parts of the step (sample, forward, backward, optimizer), the
-forward's parts (the proposal passes, the final field, compositing and the
-loss terms), and the hash grid's encodes and backwards (``hash.encode``,
-``hash.backward``), each with its device time (a union) and the window's
-idle time inside it. The ``CatArrayBatchedCopy`` copies' device time is
+forward's parts (the occupancy sampler's bins and resampling or the
+proposal passes, the final field, compositing and the loss terms), and the
+hash grid's encodes and backwards (``hash.encode``, ``hash.backward``),
+each with its device time (a union) and the window's idle time inside it.
+Both windows are also reduced by the occupancy sampler's spans
+(``map.occupancy``, ``map.occ_refresh``; empty for nerfacto). The ``CatArrayBatchedCopy`` copies' device time is
 given by span in each of the three. What the program's spans cost a
 profiled step is their count a step times the time of one empty span
 under the profiler (the mean of 20,000). Prints one JSON line (and writes
 it to ``--out`` when given) with the card, its power limit, the trainer's
-``captures`` / ``replays`` / ``eager_steps``, and per window and span:
+``captures`` / ``replays`` / ``eager_steps`` / ``occ_refreshes``, and per
+window and span:
 launches a step, device ms a step, idle share of the window, its top
 operations; the operations in no part and those whose launch the trace
 lacks, by name.
@@ -52,7 +58,8 @@ from nerf_vo_tpu_torch.runtime import perf  # noqa: E402
 
 WINDOW = "bench.window"
 REPLAYED = parts.PARTS + ("replay",)
-FORWARD = ("proposal", "field", "loss")
+FORWARD = ("occupancy", "proposal", "field", "loss")
+OCCUPANCY = ("occupancy", "occ_refresh")
 HASH = ("encode", "backward")
 CAT = "CatArrayBatchedCopy"
 
@@ -101,11 +108,22 @@ def _profile(step, n: int):
         prof, WINDOW, REPLAYED)
 
 
+def _cell(config: str) -> str:
+    """The benchmark's mapping cell of ``config``."""
+    spec = json.loads(open(os.path.join(ROOT, "BENCHMARK.json")).read())
+    cells = [w["name"] for w in spec["workloads"]
+             if w["config"] == config and w["traffic"] == "map"]
+    if not cells:
+        raise SystemExit(f"no mapping cell of {config!r} in BENCHMARK.json")
+    return cells[0]
+
+
 def _window(tr, w, n):
     """The step-level numbers of one profiled window."""
     win = tr.window_s()
     r = w.reduce()
     by_part = _per_part(r, n, win)
+    occ = parts.Window(w.device, w.launches, w.ranges, w.window, OCCUPANCY)
     return r, {
         "traced_step_ms": 1e3 * win / n,
         "launches_per_step": tr.count() / n,
@@ -118,6 +136,7 @@ def _window(tr, w, n):
                                      for v in by_part.values()),
         "sum_idle_pct": sum(v["idle_pct"] for v in by_part.values()),
         "spans_per_step": len(w.ranges) / n,
+        "occupancy_parts": _per_part(occ.reduce(), n, win),
     }
 
 
@@ -136,6 +155,9 @@ def _span_s(n: int = 20000) -> float:
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="nerf_vo_replica",
+                    help="nerf_vo_replica (vo.map) or nerf_slam_replica "
+                    "(slam.map)")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--seconds", type=float, default=20.0)
@@ -144,7 +166,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
 
-    cell = harness.Cell("vo.map")
+    cell = harness.Cell(_cell(a.config))
     ctx = harness.context(cell, a.seed, "cuda:0")
     drv = cell.driver
     state = drv.setup(ctx)
@@ -153,8 +175,8 @@ def main():
     untraced = drv.window(ctx, state, a.seconds)
     n = a.steps
     _, replayed = _window(*_profile(stage.train_step, n), n)
-    counters = {k: getattr(trainer, k)
-                for k in ("captures", "replays", "eager_steps")}
+    counters = {k: getattr(trainer, k) for k in (
+        "captures", "replays", "eager_steps", "occ_refreshes")}
 
     def eager():
         d = trainer.draws(stage.buffer, stage.state)
@@ -182,7 +204,7 @@ def main():
                             "hash": _ms_of(hw, CAT, n)},
     })
     line = {
-        "card": _card(), "seed": a.seed, "steps": n,
+        "card": _card(), "cell": cell.name, "seed": a.seed, "steps": n,
         "untraced_step_ms": 1e3 * untraced["window_s"]
         / max(untraced["steps"], 1),
         "counters": counters, "graphs": (trainer.graphs.counts()

@@ -4,8 +4,9 @@
 On the CPU: the table wrappers' ``out=`` (the plain versions' values in the
 given tensor; a wrong shape or dtype refused), the rule that decides when a
 step is graphed (``MappingTrainer.eager_reason``: never on the CPU; a
-parallel share of the batch, draws beyond the picks and uniforms,
-prefetch, phased table gradients and a first step stay eager), the
+parallel share of the batch, draws beyond the picks, uniforms and an
+occupancy refresh's jitter, prefetch, phased table gradients and a first
+step stay eager), the
 occupancy refresh in place, and the span names a capture keeps per thread.
 
 On the card (skipped elsewhere; the file imports nothing of JAX, so it
@@ -152,21 +153,31 @@ def test_cpu_steps_are_eager():
 @pytest.mark.parametrize("case, reason", [
     ("n_rays", "n_rays"), ("occ_jitter", "draws"),
     ("distill_points", "draws"), ("prefetch", "prefetch"),
-    ("grad_phase", "grad_phase"), ("first_step", "first_step")])
+    ("grad_phase", "grad_phase"), ("first_step", "first_step"),
+    ("occupancy", "device")])
 def test_when_a_step_stays_eager(case, reason):
+    """``occupancy``: a refresh's jitter where the state has an occupancy
+    grid is graphed (with no grid, ``occ_jitter``, it is not)."""
     dev = torch.device("cpu")
     buf = _buffer(dev)
     over = {"table_grad_phase": True} if case == "grad_phase" else {}
+    if case == "occupancy":
+        over = dict(sampler="occupancy", spacing="linear",
+                    use_contraction=False, proposal_training="distill",
+                    occupancy=O.OccupancyConfig(resolution=16, slab_div=4))
     tr, st = _trainer(dev, **over)
     if case == "prefetch":
         tr.config = TrainerConfig(rays_per_batch=64, max_iterations=64,
                                   prefetch_batch=True)
     d = _draws(tr, 0, 64, dev)
+    if case == "occupancy":  # step 0 refreshes the grid
+        d["occ_jitter"] = torch.rand(O.slab_size(tr.model.config.occupancy),
+                                     3)
     if case != "first_step":
         tr.gradients(st, buf, d)
         tr.update(st, d)
-    if case in ("occ_jitter", "distill_points"):
-        d[case] = torch.rand(8, 3)
+    if case in ("occ_jitter", "distill_points", "occupancy"):
+        d["occ_jitter" if case == "occupancy" else case] = torch.rand(8, 3)
     n_rays = 32 if case == "n_rays" else None
     assert tr.eager_reason(st, d, n_rays=n_rays) == reason
 
