@@ -22,7 +22,10 @@ exit:
       product, on the ids sorted by ``sort_ids``), each timed beside the
       chain it replaced (``gather_cols_dot`` then ``dfrac``; the
       materialized rows then row 5), the sort beside ``torch.sort``;
-      ``gather_cols_dot`` held as row 2's earlier fused form;
+      ``gather_cols_dot`` held as row 2's earlier fused form; and
+      ``hash_descriptors``, every encode's descriptors in one launch,
+      bitwise its plain chain and timed beside it, at the benchmark's four
+      encodes (vo.map's field and two hash proposals, slam.map's field);
   (b) tracking: ``TrackingStage`` at the full replica configuration
       (DPVO fdim 128 / cdim 384, 96 patches, 32768 edge slots, 32-frame
       ring) on synthetic 360x640 frames, random weights from a seed;
@@ -51,7 +54,7 @@ exit:
       frames, TSDF meshes from them and from the GT frames (fused on the
       card, held once against the CPU), the NeRF's density-grid mesh, and
       every metric, which must be finite; only the two forward table
-      kernels may launch;
+      kernels and ``hash_descriptors`` may launch;
   (g) the nerf_slam pipeline at ``configs/nerf_slam_replica.yaml``'s full
       width (360x640, 192 keyframes, 48 factors, frontend window 25, global
       BA and covariances on): (g1) ``TrackingStage(droid-slam)`` alone on
@@ -188,6 +191,17 @@ SORT = "sort_ids"
 # fused form (dW, which the position pullback no longer writes): held in
 # phase (a), launched on no path
 UNFUSED = ("gather_cols", "scatter_cols_accum", "gather_cols_dot")
+# every encode's descriptors: captured inside a replayed step's graphs, so
+# counted at eager steps and captures only
+DESCRIPTORS = "hash_descriptors"
+# the encodes (a) makes descriptors for: vo.map's field and hash proposals
+# 0 and 1, slam.map's field (grid, samples a ray; benchmark/configs)
+DESCRIPTOR_ENCODES = (
+    ("vo.map field", (16, 2, 19, 16, 2048), 48),
+    ("vo.map proposal 0", (5, 2, 17, 16, 128), 256),
+    ("vo.map proposal 1", (5, 2, 17, 16, 256), 96),
+    ("slam.map field", (16, 2, 19, 16, 2048), 64),
+)
 
 
 def log(*a):
@@ -464,7 +478,8 @@ def kernel_launches():
 
     return {"corr_level": correlation_cuda.corr_level,
             "corr_two_level": correlation_cuda.corr_two_level,
-            **{k.__name__: k for k in gather_cuda.KERNELS}}
+            **{k.__name__: k for k in gather_cuda.KERNELS},
+            DESCRIPTORS: gather_cuda.hash_descriptors}
 
 
 def reset_launches():
@@ -559,12 +574,12 @@ def corner_table_bytes(t, i, local, F):
     descriptors: of each touched brick, once, the 32-byte sectors that hold
     one of a descriptor's 8 cell corners (the entries with a non-zero
     weight or weight derivative)."""
-    from nerf_vo_tpu_torch.ops import hash_grid as hg
+    from nerf_vo_tpu_torch.ops import gather_cuda as gc
 
     i3 = torch.arange(3, device=local.device)
     ax = [((i3 == lo[:, None]) | (i3 == lo[:, None] + 1)).float()
           for lo in local.T]
-    corners = torch.cat([hg._trilinear(*ax),
+    corners = torch.cat([gc.trilinear(*ax),
                          ax[0].new_zeros(local.shape[0], 5)], 1)
     live = live_groups(t, i, corners, F, 32)
     G = live.shape[1]
@@ -989,6 +1004,55 @@ def phase_gather(dev):
     return out
 
 
+def phase_descriptors(dev):
+    """``hash_descriptors`` at the benchmark's encodes (4096 rays, points
+    uniform in the cube): its five tensors bitwise the plain chain's on the
+    same card, the kernel timed as the other rows are, its bound the bytes
+    it must move (x read once; 168 bytes written a descriptor, 3 a point),
+    and the plain chain timed back to back, queued and cold."""
+    from nerf_vo_tpu_torch.ops import gather_cuda as gc
+    from nerf_vo_tpu_torch.ops import hash_grid as hg
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    out = []
+    for label, grid, samples in DESCRIPTOR_ENCODES:
+        cfg = hg.HashGridConfig(*grid)
+        n, L = RAYS * samples, cfg.n_levels
+        x = torch.rand(n, 3, generator=gen, device=dev)
+        args = (x, cfg.resolutions, cfg.bricks_per_level)
+        got = gc.hash_descriptors(*args)
+        want = gc.hash_descriptors_plain(*args)
+        for name, a, b in zip(("idx", "local", "frac", "W", "inside"), got,
+                              want):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"hash_descriptors ({label}): {name} differs from the "
+                     "plain chain's")
+        del got, want
+        nbytes = n * 12 + L * n * (4 + 24 + 12 + 128) + n * 3
+        timing = time_kernel(
+            f"hash_descriptors {label} N={n} L={L} (M={L * n})",
+            lambda: gc.hash_descriptors(*args),
+            lambda: gc.hash_descriptors_plain(*args), None, nbytes, 0, 0.0)
+        plain_queued = cuda_ms(lambda: gc.hash_descriptors_plain(*args), 3,
+                               queued=True)
+        plain_cold = cuda_ms_cold(lambda: gc.hash_descriptors_plain(*args), 3)
+        print(f"(a) hash_descriptors {label}: bitwise the plain chain; "
+              f"plain chain queued {plain_queued:.4f} ms, cold "
+              f"{plain_cold:.4f} ms; {nbytes / 1e6:.1f} MB moved", flush=True)
+        out.append(dict(name=DESCRIPTORS, route="cuda",
+                        source="nerf_vo_tpu_torch/csrc/gather.cu",
+                        replaces="nerf_vo_tpu_torch/ops/hash_grid.py "
+                        "_descriptors' plain chain", launches=None,
+                        shape=label, M=L * n, plain_queued_ms=plain_queued,
+                        plain_cold_ms=plain_cold, **timing))
+        del x, args
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # (b) tracking, (c) enhancement, (d) mapping
 # ---------------------------------------------------------------------------
@@ -1298,7 +1362,7 @@ def phase_variants(dev, smi, enhanced, frame_of):
         fail("(h1) non-finite losses")
     if "interlevel_loss" not in history[-1]:
         fail("(h1) the loss has no interlevel term")
-    for name in TABLE_ROWS:
+    for name in TABLE_ROWS + (DESCRIPTORS,):
         if not counts[name]:
             fail(f"(h1) nerfstudio's mapper never launched {name}")
     for name, most in H1_STEP_LAUNCHES.items():
@@ -1522,7 +1586,7 @@ def phase_pipeline(dev, smi, tracking_fps, tmp):
     stages.MappingStage.finish = timed_finish
     correlation_cuda.corr_level.launches = 0
     correlation_cuda.corr_two_level.launches = 0
-    for k in gather_cuda.KERNELS:
+    for k in gather_cuda.KERNELS + (gather_cuda.hash_descriptors,):
         k.launches = 0
     t0 = time.perf_counter()
     try:
@@ -1532,7 +1596,8 @@ def phase_pipeline(dev, smi, tracking_fps, tmp):
         stages.MappingStage.finish = finish
     wall = time.perf_counter() - t0
     counts = {"corr_two_level": correlation_cuda.corr_two_level.launches,
-              **{k.__name__: k.launches for k in gather_cuda.KERNELS}}
+              **{k.__name__: k.launches for k in gather_cuda.KERNELS
+                 + (gather_cuda.hash_descriptors,)}}
     print(f"(e) launches on the pipeline's path: {counts}; one-level "
           f"corr_level: {correlation_cuda.corr_level.launches}",
           flush=True)
@@ -2304,7 +2369,7 @@ def phase_slam_pipeline(dev, smi, tmp):
           f"{cov.min().item():.4g}..{cov.max().item():.4g}; launches "
           f"{counts}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    for name in TABLE_ROWS:
+    for name in TABLE_ROWS + (DESCRIPTORS,):
         if not counts[name]:
             fail(f"the nerf_slam pipeline never launched {name}")
     check_unfused(counts, "the nerf_slam pipeline")
@@ -3549,7 +3614,7 @@ def run_phases(jtmp):
     for name, rep in reports.items():
         log(f"--- nvcc {name}:\n{rep}")
 
-    kernels = phase_corr(dev) + phase_gather(dev)
+    kernels = phase_corr(dev) + phase_gather(dev) + phase_descriptors(dev)
     correlation_cuda.corr_level.launches = 0
     correlation_cuda.corr_two_level.launches = 0
     packets, frame_of, fps, updates = phase_tracking(dev)
@@ -3567,10 +3632,11 @@ def run_phases(jtmp):
           " GiB", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    for k in gather_cuda.KERNELS:
+    for k in gather_cuda.KERNELS + (gather_cuda.hash_descriptors,):
         k.launches = 0
     map_ms, held_d = phase_mapping(dev, enhanced, frame_of)
-    counts = {k.__name__: k.launches for k in gather_cuda.KERNELS}
+    counts = {k.__name__: k.launches
+              for k in gather_cuda.KERNELS + (gather_cuda.hash_descriptors,)}
     print(f"(d) launches on the mapping path: {counts}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     for name, n in counts.items():

@@ -40,6 +40,13 @@
 // so no [M, 32F] tensor is written on a path (at the field's shape the
 // bf16 rows were 302 MB and the W x cot rows 604 MB a pass), nor dW.
 //
+// Every encode's inputs to those kernels come from one more:
+//
+//   hash_descriptors   the descriptors of points x [N, 3] on every level,
+//       level-major: brick ids, base corners (int64), offsets, the
+//       trilinear weights [M, 32] and the [N, 3] mask of x in [0, 1],
+//       bitwise hash_grid's plain chain (about 20 launches a level before)
+//
 // bf16(.) is round-to-nearest-even, done in registers on the f32 parameter
 // table: no bf16 copy of the table is made. gather_interp_bf16 reads a bf16
 // table as it is stored: bf16(.) is then exact, and it gives bitwise the
@@ -278,6 +285,28 @@
 // flushed once at the end with global vector atomics; every other id adds
 // straight into the table with sm_90's 16-byte atomicAdd on float4 (4x
 // fewer atomic operations than scalar adds).
+//
+// hash_descriptors writes 168 bytes a descriptor (id 4, base corner 24,
+// offsets 12, weights 128) from 12 bytes a point, so it is bound by its
+// writes: at vo.map's three encodes (M ~10.35 M a step) ~1.74 GB, ~0.52
+// ms. One thread computes one (level, point); a block's 256 points share a
+// level (blockIdx.y), so the level's constants are uniform. Each store
+// instruction of a warp covers whole 32-byte sectors: the weight rows go
+// out two lanes a sector, 16 rows a store, each lane's 4 weights formed
+// from the row's 9 axis weights, taken by shuffle from the lane that
+// computed them; base corners and offsets go out as the warp's 96
+// consecutive elements. Every store streams (st.global.cs): the weights
+// of one encode exceed L2. Bitwise the plain chain: x res, floor and the
+// offset are each rounded alone (__fmul_rn, __fsub_rn: no FMA), the cell
+// is clamped after the int64 cast, the hash is Instant-NGP's in uint32
+// (the plain chain masks int64 products to 32 bits), each axis weight is
+// (i == lo) (1 - f) + (i == lo + 1) f and each weight (w0 w1) w2, every
+// operation rounded as the plain chain's elementwise kernels round it.
+// Queued behind a device sleep (NVIDIA H100 80GB HBM3, 700 W, 4096 rays):
+// vo.map's field (M 3,145,728) 0.164 ms, 96.6% of its 0.159 ms bound,
+// against 3.10 ms for the chain; its proposals 0 / 1 (M 5,242,880 /
+// 1,966,080) 0.313 / 0.104 ms, 85.6% / 96.7%; slam.map's field (M
+// 4,194,304) 0.219 ms, 96.8%.
 //
 // Plain C interface, bound with ctypes (nerf_vo_tpu_torch/ops/gather_cuda.py).
 
@@ -771,6 +800,159 @@ int launch_dfrac(const float* tab, const int* idx, const float* cot,
   kernel<<<static_cast<unsigned int>(blocks), kDfThreads, 0, stream>>>(
       tab, idx, cot, local, frac, out, M, n_bricks, lv);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// hash_descriptors: an encode's descriptors, one thread a (level, point),
+// every store a whole sector
+// ---------------------------------------------------------------------------
+
+constexpr int kHdThreads = 256;
+constexpr unsigned int kHashPrime1 = 2654435761u;  // Instant-NGP's primes
+constexpr unsigned int kHashPrime2 = 805459861u;   // (the first is 1)
+
+// The grid's levels: level l's resolution, its bricks per axis and whether
+// its whole brick lattice fits its n_bricks rows (dense) or is hashed;
+// level l's rows start at l * n_bricks.
+struct GridLevels {
+  int n_bricks;
+  int res[kMaxLevels];
+  int bpa[kMaxLevels];
+  int dense[kMaxLevels];
+};
+
+// (i == lo) (1 - f) + (i == lo + 1) f, with each product and the sum
+// rounded on its own, as the plain chain forms it (omf = 1 - f): 1 - f, f
+// or +0 for a finite f in [0, 1].
+__device__ __forceinline__ float axis_weight(int i, int lo, float f,
+                                             float omf) {
+  return __fadd_rn(__fmul_rn(i == lo ? 1.f : 0.f, omf),
+                   __fmul_rn(i == lo + 1 ? 1.f : 0.f, f));
+}
+
+// Entry c of a brick's weight row from the 3 x 3 axis weights ws (w0 at
+// 0..2, w1 at 3..5, w2 at 6..8): (w0[i] w1[j]) w2[k] at c = (3i + j) 3 + k,
+// 0 on the padding entries 27..31.
+__device__ __forceinline__ float brick_weight(const float* ws, int c) {
+  if (c >= kEntries) return 0.f;
+  return __fmul_rn(__fmul_rn(ws[c / 9], ws[3 + (c / 3) % 3]), ws[6 + c % 3]);
+}
+
+// Block (x, l) serves level l of points [256 x, 256 x + 256): thread p
+// computes descriptor l N + p, and each warp writes its 32 consecutive
+// descriptors' rows with stores that cover whole 32-byte sectors: the ids
+// one 128-byte store; the base corners (int64) and offsets as the warp's
+// 96 consecutive elements, lane j elements j, j + 32, j + 64 (taken from
+// their descriptor's lane by shuffle); a weight row as 4 sectors, two
+// lanes a sector and 16 rows a store (the axis weights of the row's
+// descriptor taken by shuffle). The blocks of level 0 also write `inside`.
+__global__ void __launch_bounds__(kHdThreads) hash_descriptors_kernel(
+    const float* __restrict__ x, int* __restrict__ idx,
+    long long* __restrict__ local, float* __restrict__ frac,
+    float* __restrict__ W, unsigned char* __restrict__ inside, int N,
+    const __grid_constant__ GridLevels lv) {
+  constexpr unsigned int kAll = 0xffffffffu;
+  const int l = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const long long p0 = static_cast<long long>(blockIdx.x) * kHdThreads +
+                       (threadIdx.x & ~31);
+  if (p0 >= N) return;  // the whole warp
+  const int nv = N - p0 < 32 ? static_cast<int>(N - p0) : 32;
+  const bool ok = lane < nv;
+  const long long p = p0 + lane;
+  float xv[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) xv[a] = ok ? __ldg(x + 3 * p + a) : 0.f;
+
+  if (l == 0) {  // inside: x in [0, 1], per coordinate
+    int in = 0;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) in |= (xv[a] >= 0.f && xv[a] <= 1.f) << a;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int e = lane + 32 * k;
+      const int d = e / 3;
+      const int v = __shfl_sync(kAll, in, d);
+      if (d < nv) inside[3 * p0 + e] = (v >> (e - 3 * d)) & 1;
+    }
+  }
+
+  // scale, floor, subtract, each rounded on its own (no FMA); the cell
+  // clamped to [0, res - 1] after the cast, so x = 1 takes cell res - 1
+  // with offset 0
+  const int res = lv.res[l];
+  const float rf = static_cast<float>(res);
+  float f[3], omf[3];
+  int cb[3];
+  int lo = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float v = xv[a];
+    const float xt = isnan(v) ? v : fminf(fmaxf(v, 0.f), 1.f);
+    const float xs = __fmul_rn(xt, rf);
+    const float fl = floorf(xs);
+    f[a] = __fsub_rn(xs, fl);
+    omf[a] = __fsub_rn(1.f, f[a]);
+    long long c = static_cast<long long>(fl);
+    c = c < 0 ? 0 : (c > res - 1 ? res - 1 : c);
+    cb[a] = static_cast<int>(c) >> 1;
+    lo |= (static_cast<int>(c) & 1) << a;
+  }
+  unsigned int bid;
+  if (lv.dense[l]) {
+    const int bpa = lv.bpa[l];
+    bid = static_cast<unsigned int>((cb[0] * bpa + cb[1]) * bpa + cb[2]);
+  } else {  // 32-bit products, wrapping
+    const unsigned int h = static_cast<unsigned int>(cb[0]) ^
+                           static_cast<unsigned int>(cb[1]) * kHashPrime1 ^
+                           static_cast<unsigned int>(cb[2]) * kHashPrime2;
+    bid = h % static_cast<unsigned int>(lv.n_bricks);
+  }
+  const long long t0 = static_cast<long long>(l) * N + p0;
+  if (ok) __stcs(idx + t0 + lane, static_cast<int>(bid) + l * lv.n_bricks);
+
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int e = lane + 32 * k;
+    const int d = e / 3;
+    const int a = e - 3 * d;
+    const int bits = __shfl_sync(kAll, lo, d);
+    const float f0 = __shfl_sync(kAll, f[0], d);
+    const float f1 = __shfl_sync(kAll, f[1], d);
+    const float f2 = __shfl_sync(kAll, f[2], d);
+    if (d < nv) {
+      __stcs(local + 3 * t0 + e, static_cast<long long>((bits >> a) & 1));
+      __stcs(frac + 3 * t0 + e, a == 0 ? f0 : (a == 1 ? f1 : f2));
+    }
+  }
+
+  float w[9];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      w[3 * a + i] = axis_weight(i, (lo >> a) & 1, f[a], omf[a]);
+  const int half = lane & 1;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int src = (lane >> 1) + 16 * h;
+    float ws[9];
+#pragma unroll
+    for (int q = 0; q < 9; ++q) ws[q] = __shfl_sync(kAll, w[q], src);
+    if (src < nv) {
+      float* row = W + (t0 + src) * 32 + 4 * half;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = half ? brick_weight(ws, 8 * s + 4 + e)
+                      : brick_weight(ws, 8 * s + e);
+        __stcs(reinterpret_cast<float4*>(row + 8 * s),
+               make_float4(v[0], v[1], v[2], v[3]));
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -2217,6 +2399,39 @@ extern "C" int gather_cols_dfrac(const void* tab, const void* idx,
     case 8: return launch_dfrac<8>(tb, ix, c, lc, fr, o, M, n_bricks, lv, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// x [N, 3] f32 -> the n_levels-level grid's descriptors, level-major (M =
+// n_levels N): idx [M] int32 (global rows, level l's from l n_bricks),
+// local [M, 3] int64, frac [M, 3] f32, W [M, 32] f32 and inside [N, 3]
+// bool, bitwise hash_grid's plain chain. res[], bpa[] and dense[] are each
+// level's resolution, bricks per axis and whether it is dense (host
+// arrays, n_levels <= 32); n_levels n_bricks < 2^31.
+extern "C" int hash_descriptors(const void* x, void* idx, void* local,
+                                void* frac, void* W, void* inside, int N,
+                                int n_levels, const int* res, const int* bpa,
+                                const int* dense, int n_bricks,
+                                void* stream) {
+  if (N == 0) return 0;
+  if (n_levels < 1 || n_levels > kMaxLevels || n_bricks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GridLevels lv{};
+  lv.n_bricks = n_bricks;
+  for (int l = 0; l < n_levels; ++l) {
+    lv.res[l] = res[l];
+    lv.bpa[l] = bpa[l];
+    lv.dense[l] = dense[l];
+  }
+  const dim3 grid(
+      static_cast<unsigned int>((static_cast<long long>(N) + kHdThreads - 1) /
+                                kHdThreads),
+      static_cast<unsigned int>(n_levels));
+  hash_descriptors_kernel<<<grid, kHdThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<int*>(idx),
+      static_cast<long long*>(local), static_cast<float*>(frac),
+      static_cast<float*>(W), static_cast<unsigned char*>(inside), N, lv);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // idx [M] int32 -> keys [M] int32, perm [M] int32: the keys (an id in [0,

@@ -26,6 +26,9 @@ wrapper                function
                        cot[t]> / dfrac[t]``, [M, 3] f32, W the trilinear
                        weights of (local, frac)
 :func:`sort_ids`       the ids sorted stably, and their positions (int32)
+:func:`hash_descriptors`  the inputs of the others: a grid's brick ids,
+                       base corners, offsets and trilinear weights of
+                       points x, every level in one launch
 =====================  ===================================================
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor
@@ -57,6 +60,8 @@ import torch
 from nerf_vo_tpu_torch.ops import cuda_build
 
 FEATURES = (1, 2, 4, 8)  # the F the kernels are built for
+MAX_LEVELS = 32  # the grid levels a launch takes (gather_cols_dfrac's too)
+PRIMES = (1, 2654435761, 805459861)  # Instant-NGP spatial hash primes
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +166,60 @@ def sort_ids_plain(idx, n_bricks: int):
     return keys, perm.to(torch.int32)
 
 
+def brick_lattice(res: int, n_bricks: int):
+    """(bricks per axis, dense) of a level at resolution ``res`` with
+    ``n_bricks`` table rows: dense when its whole brick lattice fits the
+    rows, hashed otherwise."""
+    bpa = ((res - 1) >> 1) + 1
+    return bpa, bpa**3 <= n_bricks
+
+
+def brick_ids(c_brick, res: int, n_bricks: int, level: int):
+    """Brick index per sample for one level: dense when the brick lattice
+    fits the table, the spatial hash otherwise. c_brick: [3, N] integer.
+
+    The hash wraps at 32 bits like the JAX package's uint32 arithmetic: it
+    is computed in int64 and masked to the low 32 bits, so the ids agree bit
+    for bit. Returns int64 [N] global row ids (level offset included).
+    """
+    c = c_brick.long()
+    bpa, dense = brick_lattice(res, n_bricks)
+    if dense:
+        bid = (c[0] * bpa + c[1]) * bpa + c[2]
+    else:
+        mask = 0xFFFFFFFF
+        h = ((c[0] * PRIMES[0]) & mask) ^ ((c[1] * PRIMES[1]) & mask) \
+            ^ ((c[2] * PRIMES[2]) & mask)
+        bid = h % n_bricks
+    return bid + level * n_bricks
+
+
+def trilinear(w0, w1, w2):
+    """[M, 3] x 3 -> [M, 27]: W[(i*3+j)*3+k] = w0[i] w1[j] w2[k]."""
+    M = w0.shape[0]
+    return (w0[:, :, None, None] * w1[:, None, :, None]
+            * w2[:, None, None, :]).reshape(M, 27)
+
+
+def hash_descriptors_plain(x, resolutions, n_bricks: int):
+    inside = (x >= 0.0) & (x <= 1.0)
+    xt = x.clamp(0.0, 1.0)
+    ids, fr, loc = [], [], []
+    for l, res in enumerate(resolutions):
+        xs = xt * float(res)
+        fl = torch.floor(xs)
+        c = fl.long().clamp(0, res - 1)
+        fr.append(xs - fl)
+        loc.append(c & 1)
+        ids.append(brick_ids((c >> 1).T, res, n_bricks, l))
+    idx = torch.cat(ids).to(torch.int32)
+    frac = torch.cat(fr)
+    local = torch.cat(loc)
+    W = trilinear(*(axis_weights(local[:, a], frac[:, a]) for a in range(3)))
+    W = torch.cat([W, W.new_zeros(W.shape[0], 32 - 27)], 1)
+    return idx, local, frac, W, inside
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -180,12 +239,13 @@ def _lib():
     lib.scatter_cols_outer_slots.restype = ctypes.c_longlong
     lib.gather_cols_dfrac.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p]
     lib.sort_ids.argtypes = [p, p, p, p, i, i, p]
+    lib.hash_descriptors.argtypes = [p, p, p, p, p, p, i, i, p, p, p, i, p]
     lib.sort_ids_scratch.argtypes = [i]
     lib.sort_ids_scratch.restype = ctypes.c_longlong
     for fn in (lib.gather_cols, lib.gather_interp, lib.gather_interp_bf16,
                lib.gather_interp_mm, lib.scatter_cols_accum,
                lib.gather_cols_dot, lib.scatter_cols_outer,
-               lib.gather_cols_dfrac, lib.sort_ids):
+               lib.gather_cols_dfrac, lib.sort_ids, lib.hash_descriptors):
         fn.restype = ctypes.c_int
     return lib
 
@@ -521,7 +581,7 @@ def gather_cols_dfrac(tab, idx, cot, local, frac, level_first, res,
         raise ValueError(f"gather_cols_dfrac: local {tuple(local.shape)} and "
                          f"frac {tuple(frac.shape)}, expected {(M, 3)}")
     L = len(level_first)
-    if not 1 <= L <= 32 or len(res) != L or any(
+    if not 1 <= L <= MAX_LEVELS or len(res) != L or any(
             a > b for a, b in zip(level_first, level_first[1:])):
         raise ValueError(f"gather_cols_dfrac: levels {list(level_first)} "
                          f"with resolutions {list(res)}")
@@ -536,8 +596,74 @@ def gather_cols_dfrac(tab, idx, cot, local, frac, level_first, res,
     return out
 
 
+def hash_descriptors(x, resolutions, n_bricks: int):
+    """The descriptors of points on every level of a brick grid: x [N, 3]
+    f32 (contiguous), ``resolutions`` each level's (at most 32), n_bricks
+    table rows a level (level l's rows from ``l * n_bricks``) ->
+
+    - idx [L*N] int32: each (level, point)'s brick row, level-major;
+    - local [L*N, 3] int64: its cell's base corner in the brick (0 or 1);
+    - frac [L*N, 3] f32: its offsets in the cell;
+    - W [L*N, 32] f32: the trilinear weights of its brick's 27 corners
+      (entries 27..31 zero);
+    - inside [N, 3] bool: x in [0, 1], where the clamp passes a gradient.
+
+    Points are clamped to [0, 1]; level l's cell is ``floor(x res)``
+    clamped to ``[0, res - 1]`` (x = 1 takes the last cell at offset 0), its
+    brick the cell halved, dense or hashed by :func:`brick_ids`. The plain
+    version is the chain of elementwise operations per level and
+    concatenations the hash grid ran (about 20 launches a level on the
+    card).
+
+    On the card one kernel writes all five, bitwise the plain version's
+    on the same card (each multiply, subtraction and sum rounded on its
+    own, as the chain's elementwise kernels round them; the hash in 32-bit
+    arithmetic). It reads nothing from the host, so a CUDA graph captures
+    it with the work around it."""
+    if not torch.is_tensor(x) or x.dtype != torch.float32:
+        raise TypeError(f"hash_descriptors: x must be a float32 tensor, "
+                        f"not {getattr(x, 'dtype', type(x))}")
+    if x.dim() != 2 or x.shape[1] != 3:
+        raise ValueError(f"hash_descriptors: x has shape {tuple(x.shape)}, "
+                         "expected [N, 3]")
+    res = [int(r) for r in resolutions]
+    L = len(res)
+    if not 1 <= L <= MAX_LEVELS or not all(1 <= r <= 1 << 24 for r in res):
+        raise ValueError(f"hash_descriptors: {L} levels at resolutions "
+                         f"{res}; the kernel takes 1 to {MAX_LEVELS} levels "
+                         "at 1 to 2^24")
+    if n_bricks < 1 or L * n_bricks >= 2**31:
+        raise ValueError(f"hash_descriptors: {L} levels of {n_bricks} "
+                         "bricks; the ids are int32")
+    if x.device.type == "cpu":
+        return hash_descriptors_plain(x, res, n_bricks)
+    dev = _cuda_device(x, "hash_descriptors")
+    _check("x", x, torch.float32, 2, dev)
+    N = x.shape[0]
+    if N >= 2**31:
+        raise ValueError(f"hash_descriptors: {N} points")
+    M = L * N
+    idx = torch.empty(M, dtype=torch.int32, device=dev)
+    local = torch.empty(M, 3, dtype=torch.int64, device=dev)
+    frac = torch.empty(M, 3, dtype=torch.float32, device=dev)
+    W = torch.empty(M, 32, dtype=torch.float32, device=dev)
+    inside = torch.empty(N, 3, dtype=torch.bool, device=dev)
+    if N:
+        bpa, dense = zip(*(brick_lattice(r, n_bricks) for r in res))
+        ints = lambda v: (ctypes.c_int * L)(*[int(a) for a in v])
+        _launched(hash_descriptors, _lib().hash_descriptors(
+            x.data_ptr(), idx.data_ptr(), local.data_ptr(), frac.data_ptr(),
+            W.data_ptr(), inside.data_ptr(), N, L, ints(res), ints(bpa),
+            ints(dense), n_bricks, _stream(dev)))
+    return idx, local, frac, W, inside
+
+
+# the kernels a replayed mapping step launches as calls of their own (or
+# no path does): a replayed step counts their launches as an eager one.
+# hash_descriptors is captured inside the step's graphs, so its counter
+# advances at eager steps and captures only.
 KERNELS = (gather_cols, gather_interp, gather_interp_bf16, gather_interp_mm,
            scatter_cols_accum, gather_cols_dot, scatter_cols_outer,
            gather_cols_dfrac, sort_ids)
-for _fn in KERNELS:
+for _fn in KERNELS + (hash_descriptors,):
     _fn.launches = 0

@@ -15,6 +15,9 @@ package's feature-major ``[32F, L * NB]``; :func:`tables_from_jax` converts.
 table and the positions. Its table operations are the kernels of
 ``ops/gather_cuda.py`` (their plain versions on CPU tensors):
 
+- descriptors: ``hash_descriptors`` makes every level's brick ids, base
+  corners, offsets and trilinear weights of an encode's points in one
+  launch, the inputs of every kernel below (and of the model-axis routes);
 - forward: ``gather_interp_mm`` on the dense prefix levels with at most 512
   bricks (the JAX package's one-hot matmul levels), ``gather_interp`` on the
   rest, all those levels stacked level-major into one launch (a bf16 table:
@@ -54,8 +57,6 @@ from nerf_vo_tpu_torch.ops import gather_cuda as gc
 from nerf_vo_tpu_torch.parallel import dist as pdist
 from nerf_vo_tpu_torch.runtime.perf import span
 
-_PRIMES = (1, 2654435761, 805459861)  # Instant-NGP spatial hash primes
-_BRICK = 27  # 3x3x3 corner lattice of a 2x2x2-cell region
 _BRICK_PAD = 32  # padded brick height per feature
 # dense prefix levels with at most this many bricks take the one-hot route
 # (the JAX package's MXU matmul levels; here gather_interp_mm)
@@ -118,26 +119,6 @@ def tables_from_jax(tables_np):
     return torch.from_numpy(a)
 
 
-def _brick_ids(c_brick, res: int, n_bricks: int, level: int):
-    """Brick index per sample for one level: dense when the brick lattice
-    fits the table, the spatial hash otherwise. c_brick: [3, N] integer.
-
-    The hash wraps at 32 bits like the JAX package's uint32 arithmetic: it
-    is computed in int64 and masked to the low 32 bits, so the ids agree bit
-    for bit. Returns int64 [N] global row ids (level offset included).
-    """
-    c = c_brick.long()
-    bpa = ((res - 1) >> 1) + 1  # bricks per axis
-    if bpa**3 <= n_bricks:
-        bid = (c[0] * bpa + c[1]) * bpa + c[2]
-    else:
-        mask = 0xFFFFFFFF
-        h = ((c[0] * _PRIMES[0]) & mask) ^ ((c[1] * _PRIMES[1]) & mask) \
-            ^ ((c[2] * _PRIMES[2]) & mask)
-        bid = h % n_bricks
-    return bid + level * n_bricks
-
-
 def _n_onehot(config: HashGridConfig) -> int:
     """Number of dense prefix levels on the one-hot route."""
     NB = config.bricks_per_level
@@ -162,37 +143,14 @@ def _hot_rows(config: HashGridConfig) -> int:
     return (n - 1) * config.bricks_per_level + bpa**3
 
 
-def _trilinear(w0, w1, w2):
-    """[M, 3] x 3 -> [M, 27]: W[(i*3+j)*3+k] = w0[i] w1[j] w2[k]."""
-    M = w0.shape[0]
-    return (w0[:, :, None, None] * w1[:, None, :, None]
-            * w2[:, None, None, :]).reshape(M, _BRICK)
-
-
 def _descriptors(x, config: HashGridConfig):
     """Per (level, sample), level-major: brick ids [L*N] int32, in-brick
     base corners [L*N, 3] int64, fractional offsets [L*N, 3] f32, and the
     trilinear weights [L*N, 32] f32 (rows 27..31 zero). Also the [N, 3]
-    mask of coordinates inside [0, 1] (the clamp passes gradient there)."""
-    xt = x.reshape(-1, 3).float()
-    inside = (xt >= 0.0) & (xt <= 1.0)
-    xt = xt.clamp(0.0, 1.0)
-    NB = config.bricks_per_level
-    ids, fr, loc = [], [], []
-    for l, res in enumerate(config.resolutions):
-        xs = xt * float(res)
-        fl = torch.floor(xs)
-        c = fl.long().clamp(0, res - 1)
-        fr.append(xs - fl)
-        loc.append(c & 1)
-        ids.append(_brick_ids((c >> 1).T, res, NB, l))
-    idx = torch.cat(ids).to(torch.int32)
-    frac = torch.cat(fr)
-    local = torch.cat(loc)
-    W = _trilinear(*(gc.axis_weights(local[:, a], frac[:, a])
-                     for a in range(3)))
-    W = torch.cat([W, W.new_zeros(W.shape[0], _BRICK_PAD - _BRICK)], 1)
-    return idx, local, frac, W, inside
+    mask of coordinates inside [0, 1] (the clamp passes gradient there).
+    ``gather_cuda.hash_descriptors``: one launch on the card."""
+    return gc.hash_descriptors(x.reshape(-1, 3).float().contiguous(),
+                               config.resolutions, config.bricks_per_level)
 
 
 def _dfrac_res(tables, idx, cot, local, frac, level_first, res):

@@ -25,7 +25,11 @@ proposal passes, the final field, compositing and the loss terms), and the
 hash grid's encodes and backwards (``hash.encode``, ``hash.backward``),
 each with its device time (a union) and the window's idle time inside it.
 Both windows are also reduced by the occupancy sampler's spans
-(``map.occupancy``, ``map.occ_refresh``; empty for nerfacto). The ``CatArrayBatchedCopy`` copies' device time is
+(``map.occupancy``, ``map.occ_refresh``; empty for nerfacto). The eager
+window's ``hash.encode`` (launches and device ms a step) is printed apart,
+beside ``gather_cuda.hash_descriptors.launches``, the descriptor kernel's
+launches in each window (a replayed step runs it inside its graphs, so
+counts it only where it captures). The ``CatArrayBatchedCopy`` copies' device time is
 given by span in each of the three. What the program's spans cost a
 profiled step is their count a step times the time of one empty span
 under the profiler (the mean of 20,000). Prints one JSON line (and writes
@@ -54,6 +58,7 @@ sys.path.insert(0, ROOT)
 from benchmark import harness  # noqa: E402
 from benchmark.yardstick import parts  # noqa: E402
 from benchmark.yardstick.trace import Trace, busy  # noqa: E402
+from nerf_vo_tpu_torch.ops import gather_cuda as gc  # noqa: E402
 from nerf_vo_tpu_torch.runtime import perf  # noqa: E402
 
 WINDOW = "bench.window"
@@ -174,7 +179,10 @@ def main():
     trainer = stage.trainer
     untraced = drv.window(ctx, state, a.seconds)
     n = a.steps
+    descriptors = {"setup_and_untraced": gc.hash_descriptors.launches}
     _, replayed = _window(*_profile(stage.train_step, n), n)
+    descriptors["replayed"] = (gc.hash_descriptors.launches
+                               - descriptors["setup_and_untraced"])
     counters = {k: getattr(trainer, k) for k in (
         "captures", "replays", "eager_steps", "occ_refreshes")}
 
@@ -183,7 +191,9 @@ def main():
         trainer.gradients(stage.state, stage.buffer, d)
         trainer.update(stage.state, d)
 
+    before = gc.hash_descriptors.launches
     tr, w = _profile(eager, n)
+    descriptors["eager"] = gc.hash_descriptors.launches - before
     r, line_eager = _window(tr, w, n)
     del line_eager["parts"]["replay"]
     fw = parts.Window(w.device, w.launches, w.ranges, w.window, FORWARD)
@@ -192,13 +202,17 @@ def main():
     fwd, hsh = fw.reduce(), hw.reduce()
     win = tr.window_s()
     span_s = _span_s()
+    hash_parts = _per_part(hsh, n, win)
     line_eager.update({
         "forward_parts": _per_part(fwd, n, win),
         # the forward's launches in none of its parts (the first bins)
         "forward_rest_per_step": (r["parts"]["forward"]["launches"]
                                   - sum(v["launches"] for v in
                                         fwd["parts"].values())) / n,
-        "hash_parts": _per_part(hsh, n, win),
+        "hash_parts": hash_parts,
+        "hash_encode": {k: hash_parts.get("encode", {}).get(k)
+                        for k in ("launches_per_step",
+                                  "device_ms_per_step")},
         "cat_ms_per_step": {"step": _ms_of(w, CAT, n),
                             "forward": _ms_of(fw, CAT, n),
                             "hash": _ms_of(hw, CAT, n)},
@@ -207,8 +221,8 @@ def main():
         "card": _card(), "cell": cell.name, "seed": a.seed, "steps": n,
         "untraced_step_ms": 1e3 * untraced["window_s"]
         / max(untraced["steps"], 1),
-        "counters": counters, "graphs": (trainer.graphs.counts()
-                                         if trainer.graphs else None),
+        "counters": counters, "hash_descriptors_launches": descriptors,
+        "graphs": (trainer.graphs.counts() if trainer.graphs else None),
         "replayed": replayed, "eager": line_eager,
         "span_us": 1e6 * span_s,
         "span_cost_ms_per_step": {

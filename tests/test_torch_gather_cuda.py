@@ -1077,3 +1077,189 @@ def test_launches_are_traced_inside_their_spans(dev):
         assert len(ops) == 1 and len(spans) == 1, kernel
         t = launches[ops[0].correlation_id()]
         assert spans[0].start_ns() <= t < spans[0].end_ns(), kernel
+
+
+# ---------------------------------------------------------------------------
+# hash_descriptors: every encode's descriptors in one launch
+# ---------------------------------------------------------------------------
+
+# the benchmark's grids: nerfacto's field and hash proposals (vo.map), the
+# Instant-NGP field (slam.map; nerfacto's field's grid over a box's
+# points), and a one-level dense grid (the dense proposals')
+DESC_GRIDS = {
+    "nerfacto_field": (16, 2, 19, 16, 2048),
+    "proposal128": (5, 2, 17, 16, 128),
+    "proposal256": (5, 2, 17, 16, 256),
+    "ngp_field": (16, 2, 19, 16, 2048),
+    "dense128": None,
+}
+
+
+def _desc_grid(case):
+    from nerf_vo_tpu_torch.models.nerf_field import dense_grid
+
+    g = DESC_GRIDS[case]
+    return dense_grid(128) if g is None else hg.HashGridConfig(*g)
+
+
+def _desc_points(case, kind, n=3001):
+    """Points of one kind for a grid (made on the CPU, so both routes get
+    the same bits): uniform in the cube (normalized from the box for the
+    NGP field), exactly on the cell faces and corners of every level, at
+    0 and 1 and one ulp inside or outside them, outside [0, 1] on every
+    side, or none."""
+    g = torch.Generator().manual_seed(11)
+    if kind == "none":
+        return torch.empty(0, 3)
+    if kind == "uniform":
+        if case == "ngp_field":
+            return hg.normalize_to_unit_cube(
+                torch.rand(n, 3, generator=g) * 9.0 - 4.5, -4.0, 4.0)
+        return torch.rand(n, 3, generator=g)
+    if kind == "faces":
+        res = torch.tensor(_desc_grid(case).resolutions)
+        lvl = torch.randint(0, len(res), (n, 3), generator=g)
+        k = (torch.rand(n, 3, generator=g) * (res[lvl] + 1)).floor()
+        return (k / res[lvl]).float()
+    if kind == "bounds":
+        v = torch.tensor([0.0, -0.0, 1.0, 1e-45, 1.0 - 2**-24, 1.0 + 2**-23,
+                          -1e-45, 0.5])
+        return v[torch.randint(0, len(v), (n, 3), generator=g)]
+    # outside: each coordinate below 0, in [0, 1] or above 1
+    x = torch.rand(n, 3, generator=g)
+    side = torch.randint(0, 3, (n, 3), generator=g)
+    return torch.where(side == 0, -x * 3.0, torch.where(side == 2, 1.0 + x,
+                                                        x))
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "faces", "bounds", "outside",
+                                  "none"])
+@pytest.mark.parametrize("case", list(DESC_GRIDS))
+def test_hash_descriptors_equal_the_plain_chain(dev, case, kind):
+    """The kernel's five tensors are the plain chain's on the card bit for
+    bit (offsets and weights compared as their bits); one launch, none for
+    no points."""
+    cfg = _desc_grid(case)
+    x = _desc_points(case, kind).to(dev)
+    res, nb = cfg.resolutions, cfg.bricks_per_level
+    before = gc.hash_descriptors.launches
+    got = gc.hash_descriptors(x, res, nb)
+    torch.cuda.synchronize()
+    assert gc.hash_descriptors.launches == before + (1 if len(x) else 0)
+    want = gc.hash_descriptors_plain(x, res, nb)
+    for name, a, b in zip(("idx", "local", "frac", "W", "inside"), got,
+                          want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(_bits(a), _bits(b)), name
+    assert torch.equal(hg._descriptors(x, cfg)[3], got[3])
+
+
+# the mappers of the benchmark's cells, at their published grid widths and
+# samples, over a few rays of a small keyframe buffer
+DESC_H, DESC_W, DESC_K, DESC_RAYS = 24, 32, 6, 512
+VO_MAP = dict(num_grid_levels=16, grid_features_per_level=2,
+              log2_hashmap_size=19, max_res=2048, proposal_type="hash",
+              proposal_training="interlevel", grad_normal_mode="samples",
+              num_proposal_samples=(256, 96), num_nerf_samples=48)
+SLAM_MAP = dict(num_grid_levels=16, grid_features_per_level=2,
+                log2_hashmap_size=19, max_res=2048, num_occ_bins=128,
+                num_nerf_samples=64, predict_normals=False,
+                sampler="occupancy", spacing="linear", use_contraction=False,
+                depth_loss_type="l2")
+
+
+def _desc_step(dev, mapper):
+    """One eager step's loss terms and the gradients of every leaf, from a
+    trainer and draws made from fixed seeds."""
+    import numpy as np
+
+    from nerf_vo_tpu_torch.mapping import keyframe_buffer as kb
+    from nerf_vo_tpu_torch.mapping.trainer import (MappingTrainer,
+                                                   TrainerConfig)
+    from nerf_vo_tpu_torch.models.nerfacto import (NerfactoConfig,
+                                                   NerfactoModel)
+
+    H, W, K = DESC_H, DESC_W, DESC_K
+    rng = np.random.default_rng(0)
+    c2w = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    c2w[:, :3, 3] = rng.normal(0, 0.3, (K, 3))
+    yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W),
+                         indexing="ij")
+    depth = 2.5 + np.cos(3 * xx - yy)[None] * rng.uniform(0.5, 1, (K, 1, 1))
+    packet = {
+        "intrinsics": torch.tensor([[20.0, 20.0, W / 2, H / 2]]).repeat(K,
+                                                                        1),
+        "c2w": torch.tensor(c2w),
+        "color": torch.tensor(np.clip(
+            rng.uniform(0.1, 0.9, (K, 1, 1, 3))
+            + 0.3 * np.sin(6 * xx + 4 * yy)[None, ..., None], 0, 1),
+            dtype=torch.float32),
+        "depth": torch.tensor(depth, dtype=torch.float32)}
+    ngp = mapper is SLAM_MAP
+    if ngp:
+        packet["depth_cov"] = torch.tensor(
+            (0.02 * depth) ** 2 * np.exp(rng.normal(size=depth.shape)),
+            dtype=torch.float32)
+    else:
+        nrm = rng.normal(size=(K, H, W, 3)) + [0, 0, 3.0]
+        packet["normal"] = torch.tensor(
+            nrm / np.linalg.norm(nrm, axis=-1, keepdims=True),
+            dtype=torch.float32)
+    buf = kb.create(K, H, W, use_normals=not ngp, use_depth_cov=ngp,
+                    device=dev)
+    kb.insert(buf, list(range(K)), packet)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        model = NerfactoModel(NerfactoConfig(
+            near=0.05, far=20.0, num_images=K, aabb_min=-4.0, aabb_max=4.0,
+            **mapper))
+    tr = MappingTrainer(model, TrainerConfig(
+        rays_per_batch=DESC_RAYS, max_iterations=64, prefetch_batch=False),
+        num_keyframes=K, device=dev)
+    st = tr.init()
+    g = torch.Generator(device=dev)
+    g.manual_seed(1000)
+    kw = dict(generator=g, device=dev)
+    d = {"frame": torch.randint(0, K, (DESC_RAYS,), **kw),
+         "py": torch.randint(0, H, (DESC_RAYS,), **kw),
+         "px": torch.randint(0, W, (DESC_RAYS,), **kw),
+         "uniforms": [torch.rand(s, **kw)
+                      for s in tr.model.uniform_shapes(DESC_RAYS)]}
+    metrics = tr.gradients(st, buf, d)
+    torch.cuda.synchronize()
+    return metrics, [p.grad.detach().clone() for p in tr.leaves(st)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mapper", ["vo_map", "slam_map"])
+def test_eager_step_equals_the_plain_chain_step(dev, mapper, monkeypatch):
+    """A mapping step on descriptors from the kernel gives bitwise the loss
+    terms and the table, MLP and pose gradients of the same step on the
+    plain chain's (installed as ``_descriptors``): nerfacto's mapper of
+    vo.map (three encodes a pass, the normals' pullback) and the
+    Instant-NGP mapper of slam.map, at their grids' published widths."""
+    cfg = {"vo_map": VO_MAP, "slam_map": SLAM_MAP}[mapper]
+    before = gc.hash_descriptors.launches
+    m_kernel, g_kernel = _desc_step(dev, cfg)
+    assert gc.hash_descriptors.launches > before
+
+    def plain(x, config):
+        return gc.hash_descriptors_plain(
+            x.reshape(-1, 3).float().contiguous(), config.resolutions,
+            config.bricks_per_level)
+
+    monkeypatch.setattr(hg, "_descriptors", plain)
+    before = gc.hash_descriptors.launches
+    m_plain, g_plain = _desc_step(dev, cfg)
+    assert gc.hash_descriptors.launches == before
+    assert list(m_kernel) == list(m_plain)
+    for k in m_plain:
+        assert torch.equal(_bits(m_kernel[k]), _bits(m_plain[k])), k
+    assert len(g_kernel) == len(g_plain) > 10
+    for i, (a, b) in enumerate(zip(g_kernel, g_plain)):
+        assert torch.equal(_bits(a), _bits(b)), i

@@ -41,18 +41,136 @@ def _rel(got, want):
         np.linalg.norm(want), 1e-30)
 
 
-@pytest.mark.parametrize("res,n_bricks", [(64, 512), (2048, 16384),
-                                          (1 << 22, 16384)])
-def test_brick_ids_bit_exact(res, n_bricks):
-    """Dense and hashed levels; the last has brick coordinates up to 2^21,
-    so the prime products wrap 32 bits."""
+# the grids of the benchmark's mappers, by the points they encode: nerfacto's
+# field and its two hash proposals (contracted points), the Instant-NGP
+# field (the same grid, over a box's points) and a one-level dense grid
+GRIDS = {
+    "nerfacto_field": (16, 2, 19, 16, 2048),
+    "proposal128": (5, 2, 17, 16, 128),
+    "proposal256": (5, 2, 17, 16, 256),
+    "ngp_field": (16, 2, 19, 16, 2048),
+    "dense128": "dense",
+}
+
+
+def _grid(case):
+    if GRIDS[case] == "dense":
+        return tfield.dense_grid(128)
+    return thg.HashGridConfig(*GRIDS[case])
+
+
+def _points(case, n=3000, seed=5):
+    """Points a grid's encode sees, and the ones its arithmetic treats
+    apart: uniform draws (contracted, or normalized from the box), then
+    coordinates exactly on cell faces and corners of every level, at 0 and
+    at 1, and outside [0, 1] on every side."""
+    rng = np.random.default_rng(seed)
+    if case == "ngp_field":
+        x = thg.normalize_to_unit_cube(
+            torch.tensor(rng.uniform(-4.5, 4.5, (n, 3)), dtype=torch.float32),
+            -4.0, 4.0)
+    else:
+        x = thg.contract_to_unit_cube(
+            torch.tensor(rng.normal(0, 1.5, (n, 3)), dtype=torch.float32))
+    res = np.array(_grid(case).resolutions)
+    faces = rng.integers(0, res[:, None] + 1, (len(res), 600)) / res[:, None]
+    special = np.concatenate([faces.reshape(-1), [0.0, 1.0, -0.0, -1e-7,
+                                                  1 + 1e-7, -3.0, 7.0]])
+    edge = rng.choice(special, (600, 3)).astype(np.float32)
+    return torch.cat([x, torch.tensor(edge)])
+
+
+def _jax_ids(x, jcfg):
+    """The JAX package's brick ids of points x, level-major, as its
+    ``hash_encode`` makes them."""
+    xt = jnp.clip(jnp.asarray(x.numpy()), 0.0, 1.0).T
+    ids = []
+    for l, res in enumerate(jcfg.resolutions):
+        c = jnp.clip(jnp.floor(xt * float(res)).astype(jnp.int32), 0,
+                     res - 1)
+        ids.append(jhg._brick_ids(c >> 1, res, jcfg.bricks_per_level, l))
+    return np.concatenate([np.asarray(i) for i in ids])
+
+
+@pytest.mark.parametrize("case", [(64, 512), (2048, 16384), (1 << 22, 16384),
+                                  *GRIDS],
+                         ids=["64-512", "2048-16384", "4194304-16384",
+                              *GRIDS])
+def test_brick_ids_bit_exact(case):
+    """Dense and hashed levels; the third has brick coordinates up to 2^21,
+    so the prime products wrap 32 bits. The named grids: the plain
+    descriptor chain's ids of their points (``_points``), every level,
+    against the JAX package's."""
+    if case in GRIDS:
+        tcfg = _grid(case)
+        jcfg = jhg.HashGridConfig(**vars(tcfg))
+        assert tuple(jcfg.resolutions) == tuple(tcfg.resolutions)
+        x = _points(case)
+        idx = tgc.hash_descriptors_plain(x, tcfg.resolutions,
+                                         tcfg.bricks_per_level)[0]
+        np.testing.assert_array_equal(idx.numpy(), _jax_ids(x, jcfg))
+        return
+    res, n_bricks = case
     rng = np.random.default_rng(0)
     bpa = ((res - 1) >> 1) + 1
     c = rng.integers(0, bpa, size=(3, 4096)).astype(np.int32)
     c[:, 0] = bpa - 1
     want = np.asarray(jhg._brick_ids(jnp.asarray(c), res, n_bricks, 2))
-    got = thg._brick_ids(torch.tensor(c), res, n_bricks, 2)
+    got = tgc.brick_ids(torch.tensor(c), res, n_bricks, 2)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", sorted(GRIDS))
+def test_descriptor_wrapper_takes_the_plain_chain_on_the_cpu(case,
+                                                             monkeypatch):
+    """``hash_descriptors`` (and so ``_descriptors``) on a CPU tensor is
+    the plain chain, called once, with no launch counted; the plain
+    chain's shapes, dtypes and the weights' padding."""
+    cfg = _grid(case)
+    x = _points(case, n=500)
+    calls = []
+    plain = tgc.hash_descriptors_plain
+
+    def spy(*a):
+        calls.append(a)
+        return plain(*a)
+
+    monkeypatch.setattr(tgc, "hash_descriptors_plain", spy)
+    before = tgc.hash_descriptors.launches
+    got = thg._descriptors(x.reshape(25, -1, 3), cfg)
+    want = plain(x, cfg.resolutions, cfg.bricks_per_level)
+    assert len(calls) == 1 and tgc.hash_descriptors.launches == before
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    idx, local, frac, W, inside = got
+    M = cfg.n_levels * x.shape[0]
+    assert (idx.dtype, local.dtype, frac.dtype, W.dtype, inside.dtype) == (
+        torch.int32, torch.int64, torch.float32, torch.float32, torch.bool)
+    assert (idx.shape, local.shape, frac.shape, W.shape, inside.shape) == (
+        (M,), (M, 3), (M, 3), (M, 32), (x.shape[0], 3))
+    assert not W[:, 27:].any() and torch.allclose(W.sum(1), torch.ones(M))
+    assert ((idx >= 0) & (idx < cfg.n_levels * cfg.bricks_per_level)).all()
+
+
+@pytest.mark.parametrize("case, error", [
+    ("float64", TypeError), ("bfloat16", TypeError), ("not_a_tensor",
+                                                       TypeError),
+    ("N_by_2", ValueError), ("three_dims", ValueError),
+    ("33_levels", ValueError), ("no_levels", ValueError),
+    ("ids_past_int32", ValueError), ("meta", ValueError)])
+def test_descriptor_wrapper_refuses(case, error):
+    """A non-f32 or non-[N, 3] x, more than 32 levels (or none), ids that
+    int32 cannot hold, and a device with no kernel."""
+    x = torch.rand(10, 3)
+    res, nb = [16, 32], 1 << 14
+    x = {"float64": x.double(), "bfloat16": x.bfloat16(),
+         "not_a_tensor": x.numpy(), "N_by_2": x[:, :2],
+         "three_dims": x[None], "meta": x.to("meta")}.get(case, x)
+    res = {"33_levels": [16] * 33, "no_levels": []}.get(case, res)
+    nb = 1 << 30 if case == "ids_past_int32" else nb
+    with pytest.raises(error):
+        tgc.hash_descriptors(x, res, nb)
+    assert tgc.hash_descriptors.launches == 0
 
 
 def _grid_cases():
