@@ -20,9 +20,8 @@ exit:
       contraction through the trilinear weights' derivatives, 8 corners a
       descriptor) and ``scatter_cols_outer`` (row 5 with the outer
       product, on the ids sorted by ``sort_ids``), each timed beside the
-      chain it replaced (``gather_cols_dot`` then ``dfrac``; the
-      materialized rows then row 5), the sort beside ``torch.sort``;
-      ``gather_cols_dot`` held as row 2's earlier fused form; and
+      chain it replaced (row 2, then the contraction and ``dfrac``; the
+      materialized rows then row 5), the sort beside ``torch.sort``; and
       ``hash_descriptors``, every encode's descriptors in one launch,
       bitwise its plain chain and timed beside it, at the benchmark's four
       encodes (vo.map's field and two hash proposals, slam.map's field);
@@ -37,8 +36,8 @@ exit:
       with train steps interleaved as the serial pipeline does, 64 steps in
       all, then one full-frame render; the last step's calls of the fused
       adjoints held and timed, the field scatter's id runs per level
-      printed; rows 2 and 5 with their plain row sink and source, and
-      ``gather_cols_dot``, launch on no path (here or in any later phase);
+      printed; rows 2 and 5 with their plain row sink and source launch
+      on no path (here or in any later phase);
   (e) the pipeline: ``runtime.pipeline.execute`` at the replica
       configuration's full width and its own threaded mode, fed the
       synthetic frames through ``DataStage`` (the card has no OpenCV to
@@ -187,10 +186,9 @@ TABLE_ROWS = ("gather_cols_dfrac", "gather_interp", "gather_interp_mm",
               "scatter_cols_outer")
 # the table adjoint's sort: launched by scatter_cols_outer, once a call
 SORT = "sort_ids"
-# rows 2 and 5 with their plain row source and sink, and row 2's earlier
-# fused form (dW, which the position pullback no longer writes): held in
-# phase (a), launched on no path
-UNFUSED = ("gather_cols", "scatter_cols_accum", "gather_cols_dot")
+# rows 2 and 5 with their plain row source and sink: held in phase (a),
+# launched on no path
+UNFUSED = ("gather_cols", "scatter_cols_accum")
 # every encode's descriptors: captured inside a replayed step's graphs, so
 # counted at eager steps and captures only
 DESCRIPTORS = "hash_descriptors"
@@ -530,10 +528,10 @@ def check_sums(name, got, want, abs_sum, terms, tag):
 
 
 def check_unfused(counts, where):
-    """Rows 2 and 5 with their plain row sink and source, and
-    ``gather_cols_dot``, launch on no path: the hash grid's backward takes
-    ``gather_cols_dfrac`` and ``scatter_cols_outer``; and the scatter
-    sorts with ``sort_ids``, once a call."""
+    """Rows 2 and 5 with their plain row sink and source launch on no
+    path: the hash grid's backward takes ``gather_cols_dfrac`` and
+    ``scatter_cols_outer``; and the scatter sorts with ``sort_ids``, once a
+    call."""
     for name in UNFUSED:
         if counts.get(name):
             fail(f"{where} launched {name} {counts[name]} times; the hash "
@@ -548,25 +546,11 @@ def call_shape(name, a):
     """(M, F) of a recorded table-kernel call."""
     if name == "scatter_cols_outer":
         return a[0].shape[0], a[1].shape[1]
-    if name in ("gather_cols_dot", "gather_cols_dfrac"):
+    if name == "gather_cols_dfrac":
         return a[1].shape[0], a[2].shape[1]
     if name in UNFUSED:
         return a[1].shape[0], a[0].shape[1] // 32
     return a[1].shape[0], a[3]
-
-
-def chain_hot_rows(nb, F):
-    """The leading rows the hash grid asked row 5 to keep on chip before
-    the table adjoint was fused, for a scatter into nb rows: the field's
-    one-hot rows (level 0's 512 bricks) on the field's whole table and on
-    the table-sharded slab of those bricks; 0 elsewhere (the
-    table-sharded local rows had none, and row 5 at F <= 2 reads none)."""
-    from nerf_vo_tpu_torch.ops import hash_grid as hg
-
-    cfg = hg.HashGridConfig(3, 8, 19, 16, 2048)
-    hot = hg._hot_rows(cfg)
-    field = (FIELD_LEVELS * cfg.bricks_per_level, hot)
-    return hot if F == 8 and nb in field else 0
 
 
 def corner_table_bytes(t, i, local, F):
@@ -632,12 +616,11 @@ def adjoint_timing(name, a, label, tag):
     """One fused adjoint on its inputs: held elementwise within the f32
     summation bound of its terms against its plain version, timed as phase
     (a) times a kernel, and the chain it replaced on the same inputs timed
-    in the same call: for ``gather_cols_dfrac`` ``gather_cols_dot``, then
-    ``dfrac`` and the resolution's product; for ``gather_cols_dot`` row 2
-    then the cast, product and sum; for ``scatter_cols_outer`` the
-    materialized W (x) cot rows then row 5, given the hot rows it was given
-    then (:func:`chain_hot_rows`), and its ids' sort (:func:`sort_timing`,
-    under ``sort``). Returns the timing."""
+    in the same call: for ``gather_cols_dfrac`` row 2, then the cast,
+    product and sum into dW, ``dfrac`` and the resolution's product; for
+    ``scatter_cols_outer`` the materialized W (x) cot rows then row 5 (its
+    sort included), and its ids' sort (:func:`sort_timing`, under
+    ``sort``). Returns the timing."""
     from nerf_vo_tpu_torch.ops import gather_cuda as gc
 
     kernel = getattr(gc, name)
@@ -658,31 +641,17 @@ def adjoint_timing(name, a, label, tag):
             gc.id_levels(i, first)][:, None]
 
         def chain():
-            return gc.dfrac(gc.gather_cols_dot(t, i, c), local, frac) * scale
+            g = gc.gather_cols(t, i).float().reshape(m, 32, F)
+            dW = torch.sum(g * c[:, None, :], dim=-1)
+            return gc.dfrac(dW, local, frac) * scale
 
         nbytes = corner_table_bytes(t, i, local, F) + m * (4 + 4 * F + 24
                                                            + 12 + 12)
         flops = m * (8 * 2 * F + 40)
         what = f"M={m} F={F} over {t.shape[0]} bricks"
-    elif name == "gather_cols_dot":
-        t, i, c = a
-        m, F = c.shape
-        err = check_sums(f"{name} at {label}", got,
-                         gc.gather_cols_dot_plain(t, i, c),
-                         gc.gather_cols_dot_plain(t.abs(), i, c.abs()), F,
-                         tag)
-
-        def chain():
-            g = gc.gather_cols(t, i).float().reshape(m, 32, F)
-            return torch.sum(g * c[:, None, :], dim=-1)
-
-        nbytes = table_bytes(t, i) + m * (4 + 4 * F + 32 * 4)
-        flops = 2 * m * 32 * F
-        what = f"M={m} F={F} over {t.shape[0]} bricks"
     else:
         W, c, i, nb = a[:4]
         m, F = c.shape
-        hot = chain_hot_rows(nb, F)
         il = i.long()
         live = (il >= 0) & (il < nb)
         terms = torch.zeros(nb, device=W.device).index_add_(
@@ -699,12 +668,11 @@ def adjoint_timing(name, a, label, tag):
 
         def chain():
             rows = (W[:, :, None] * c[:, None, :]).reshape(m, 32 * F)
-            return gc.scatter_cols_accum(rows, i, nb, hot_rows=hot)
+            return gc.scatter_cols_accum(rows, i, nb)
 
         nbytes = m * (32 * 4 + 4 * F + 4) + nb * 32 * F * 4
         flops = 2 * m * 32 * F
-        what = (f"M={m} F={F} into {nb} bricks"
-                f"{f' (the chain with hot rows {hot})' if hot else ''}")
+        what = f"M={m} F={F} into {nb} bricks"
         extra["sort"] = sort_timing(i, nb, label, tag)
     timing = time_kernel(f"{name} at {label}: {what}",
                          lambda: kernel(*a), lambda: getattr(
@@ -722,10 +690,11 @@ def adjoint_timing(name, a, label, tag):
 
 def stress_checks(tab, hot):
     """gather_interp_mm and scatter_cols_accum against their plain versions
-    on adversarial ids: every id on one brick (inside and beyond the hot
-    rows), ids out of range (the plain reference drops them), ids on both
-    sides of the hot-row boundary; non-zero padding weights (entries
-    27..31) throughout. Same tolerances as the main checks."""
+    on adversarial ids: every id on one brick (inside and beyond
+    gather_interp_mm's hot rows), ids out of range (the plain reference
+    drops them), ids on both sides of the hot-row boundary; non-zero
+    padding weights (entries 27..31) throughout. Same tolerances as the
+    main checks."""
     from nerf_vo_tpu_torch.ops import gather_cuda as gc
 
     dev = tab.device
@@ -756,7 +725,7 @@ def stress_checks(tab, hot):
         want = gc.gather_interp_mm_plain(tab, safe, w, F) * ok[:, None]
         got = gc.gather_interp_mm(tab, i, w, F, hot_rows=hot)
         want_s = gc.scatter_cols_accum_plain(rows[ok], i[ok], n_bricks)
-        got_s = gc.scatter_cols_accum(rows, i, n_bricks, hot_rows=hot)
+        got_s = gc.scatter_cols_accum(rows, i, n_bricks)
         torch.cuda.synchronize()
         e1 = check_close(f"gather_interp_mm ({name})", got, want, 1e-5)
         e2 = check_close(f"scatter_cols_accum ({name})", got_s, want_s, 1e-5)
@@ -836,11 +805,9 @@ def phase_gather(dev):
     """Kernels 2-5 at the field's shapes; gather_interp also at the two
     proposal grids' (F = 1). Tolerances against the plain versions:
     gather_cols bitwise (the same bf16 rounding); the others 1e-5 of
-    max(|plain|, 1) (f32 sums in another order, atomics in an order that
-    changes from run to run). gather_interp_mm and scatter_cols_accum are
-    timed with the hash grid's hot rows (level 0 kept on chip) and, for
-    comparison, with none; the scatter also on level 0's descriptors alone
-    and on the hashed levels' alone."""
+    max(|plain|, 1) (f32 sums in another order). gather_interp_mm is timed
+    with the hash grid's hot rows (level 0 kept on chip) and, for
+    comparison, with none."""
     import torch.nn.functional as Fn
 
     from nerf_vo_tpu_torch.ops import gather_cuda as gc
@@ -932,47 +899,31 @@ def phase_gather(dev):
               f"none staged {none_ms:.4f} ms", flush=True)
 
     # 5: scatter_cols_accum, the table gradient of every level (held
-    # here: the paths take its scatter_cols_outer instantiation)
+    # here: the paths take its scatter_cols_outer instantiation), sorted,
+    # the same bits every call
     rows = (W[:, :, None] * cot[:, None, :]).reshape(M, R)
     nb = tab.shape[0]
-    got = gc.scatter_cols_accum(rows, idx, nb, hot_rows=hot)
+    got = gc.scatter_cols_accum(rows, idx, nb)
+    again = gc.scatter_cols_accum(rows, idx, nb)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail("scatter_cols_accum gave other bits on a second call")
     err = check_close("scatter_cols_accum", got,
                       gc.scatter_cols_accum_plain(rows, idx, nb), 1e-5)
-    got0 = gc.scatter_cols_accum(rows, idx, nb)
-    torch.cuda.synchronize()
-    err = max(err, check_close("scatter_cols_accum (no hot rows)", got0,
-                               gc.scatter_cols_accum_plain(rows, idx, nb),
-                               1e-5))
     acc = torch.zeros_like(tab)
-
-    def scatter_entry(label, r, i, h):
-        m = i.shape[0]
-        il = i.long()
-        return time_kernel(
-            f"scatter_cols_accum {label} M={m} R={R} into {nb} bricks",
-            lambda: gc.scatter_cols_accum(r, i, nb, hot_rows=h),
-            lambda: gc.scatter_cols_accum_plain(r, i, nb),
-            lambda: acc.index_add_(0, il, r),
-            m * R * 4 + m * 4 + tab.numel() * 4, m * R, err)
-
     out.append(dict(name="scatter_cols_accum", route="cuda", source=src,
                     replaces=f"{pallas}:297", launches=None,
-                    **scatter_entry(f"(hot rows {hot} on chip)", rows, idx,
-                                    hot)))
-    scatter_entry("(no hot rows)", rows, idx, 0)
-    scatter_entry(f"level 0 alone (hot rows {hot})", rows[:n], idx[:n], hot)
-    scatter_entry("level 0 alone (no hot rows)", rows[:n], idx[:n], 0)
-    scatter_entry("hashed levels alone", rows[n:], idx[n:], hot)
+                    **time_kernel(
+                        f"scatter_cols_accum M={M} R={R} into {nb} bricks",
+                        lambda: gc.scatter_cols_accum(rows, idx, nb),
+                        lambda: gc.scatter_cols_accum_plain(rows, idx, nb),
+                        lambda: acc.index_add_(0, idx_l, rows),
+                        M * R * 4 + M * 4 + tab.numel() * 4, M * R, err)))
 
     # rows 2 and 5 as the paths run them: the position pullback and the
     # table adjoint of row 3 over every level of the field, the contraction
     # or the product in registers, each beside the chain it replaced, and
-    # the scatter's sort; row 2's earlier fused form (dW), on no path
-    out.append(dict(name="gather_cols_dot", route="cuda", source=src,
-                    replaces=f"{pallas}:79", launches=None,
-                    **adjoint_timing("gather_cols_dot", (tab, idx, cot),
-                                     "the field shape", "(a)")))
+    # the scatter's sort
     cfg = hg.HashGridConfig(3, 8, 19, 16, 2048)
     levels = ([l * cfg.bricks_per_level for l in range(3)],
               cfg.resolutions)
@@ -1853,15 +1804,14 @@ def print_id_runs(idx, levels, label):
 def hold_calls(calls, label, tag):
     """Each recorded call, launched again on its own inputs, held against
     its plain version and timed as phase (a) times it: ``gather_cols``
-    bitwise; rows 3-4 and the scatter elementwise within the f32
-    summation bound of their terms (``check_sums``: scaled to the terms'
-    own size, which for a gradient lies far below 1); a
-    bf16-table ``gather_interp_bf16`` also bitwise against the f32 kernel
-    on the table's values in f32 (its library call, ``embedding_bag``,
-    runs on that f32 copy: it takes no bf16 table with f32 weights); the
-    fused adjoints ``gather_cols_dfrac``, ``gather_cols_dot`` and
-    ``scatter_cols_outer`` within the f32 summation bound, with the chain
-    each replaced timed beside them and the scatter's sort timed
+    bitwise; rows 3-4 elementwise within the f32 summation bound of their
+    terms (``check_sums``: scaled to the terms' own size, which for a
+    gradient lies far below 1); a bf16-table ``gather_interp_bf16`` also
+    bitwise against the f32 kernel on the table's values in f32 (its
+    library call, ``embedding_bag``, runs on that f32 copy: it takes no
+    bf16 table with f32 weights); the fused adjoints ``gather_cols_dfrac``
+    and ``scatter_cols_outer`` within the f32 summation bound, with the
+    chain each replaced timed beside them and the scatter's sort timed
     (:func:`adjoint_timing`). The launches made here are not counted:
     every kernel's count is as it was before the call. Returns (name,
     timing with the call's M) for each call."""
@@ -1876,7 +1826,7 @@ def hold_calls(calls, label, tag):
     counted = read_launches()
     held = []
     for name, a, kw in calls:
-        if name in ADJOINTS + ("gather_cols_dot",):
+        if name in ADJOINTS:
             timing = adjoint_timing(name, a, label, tag)
             held.append((name, dict(timing, M=call_shape(name, a)[0])))
             continue
@@ -1895,24 +1845,6 @@ def hold_calls(calls, label, tag):
                 lambda: kernel(t, i), lambda: gc.gather_cols_plain(t, i),
                 lambda: torch.index_select(t, 0, il),
                 table_bytes(t, i) + m * 4 + m * R * 2, 0, 0.0, tag=tag)
-        elif name == "scatter_cols_accum":
-            g, i, nb = a[:3]
-            m, R = g.shape
-            il = i.long()
-            live = (il >= 0) & (il < nb)
-            terms = torch.zeros(nb, device=g.device).index_add_(
-                0, il[live], torch.ones(int(live.sum()), device=g.device))
-            err = check_sums(f"{name} at {label}", got,
-                             gc.scatter_cols_accum_plain(g, i, nb),
-                             gc.scatter_cols_accum_plain(g.abs(), i, nb),
-                             terms[:, None], tag)
-            acc = torch.zeros(nb, R, device=g.device)
-            timing = time_kernel(
-                f"{name} at {label}: M={m} R={R} into {nb} bricks{hot}",
-                lambda: kernel(*a, **kw),
-                lambda: gc.scatter_cols_accum_plain(g, i, nb),
-                lambda: acc.index_add_(0, il, g),
-                m * R * 4 + m * 4 + nb * R * 4, m * R, err, tag=tag)
         else:
             t, i, w, F = a[:4]
             m = i.shape[0]

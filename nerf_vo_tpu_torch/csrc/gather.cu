@@ -17,7 +17,9 @@
 //       the same function, for the dense small-table levels (the TPU kernel
 //       pinned the whole level in VMEM and contracted with one-hot matmuls)
 //   scatter_cols_accum <- scatter_cols_accum (:297, kernel :252)
-//       out[b, :] += g[t, :] for every t with idx[t] == b     f32
+//       out[b, :] += g[t, :] for every t with idx[t] == b     f32: the
+//       scatter kernel below with the Rows source, on the ids sorted by
+//       sort_ids, the same bits every call
 //
 // and the hash grid's backward runs rows 2 and 5 fused with what consumed
 // or fed them, the two adjoints of gather_interp:
@@ -26,16 +28,11 @@
 //       res[level] d<gather_interp(tab, idx, W, F)[t], cot[t]> / dfrac[t]
 //       [M, 3] f32, W the trilinear weights of (local[t], frac[t]): the 8
 //       corners of each cell read and contracted in registers
-//   scatter_cols_outer <- scatter_cols_accum (:297): the runs kernel
-//       with the Outer row source and the OwnRuns sink, on the ids sorted
-//       by sort_ids, out[b, e*F + f] += W[t, e] * cot[t, f] (the table
-//       gradient), each product one f32 multiply in registers, the same
-//       bits every call
+//   scatter_cols_outer <- scatter_cols_accum (:297): row 5's kernel with
+//       the Outer row source, out[b, e*F + f] += W[t, e] * cot[t, f] (the
+//       table gradient), each product one f32 multiply in registers
 //   sort_ids           the ids sorted stably (int32 keys and positions),
-//       the scatter's first launch
-//   gather_cols_dot    <- gather_cols (:79): gather_cols_kernel with the
-//       DotCot sink,  dW[t, e] = sum_f bf16(tab[idx[t], e*F + f]) * cot[t, f]
-//       [M, 32] f32; the position pullback's earlier form, on no path
+//       both scatters' first launch
 //
 // so no [M, 32F] tensor is written on a path (at the field's shape the
 // bf16 rows were 302 MB and the W x cot rows 604 MB a pass), nor dW.
@@ -54,12 +51,12 @@
 // the same products summed in the same order). Weights, sums and outputs of the
 // interpolation are f32 (the Pallas contract had bf16 w and out). A
 // descriptor whose id lies outside [0, n_bricks) reads zeros (gathers) or is
-// dropped (scatter).
+// dropped (scatters).
 //
 // What bounds them on an H100, at the replica configuration's mapping step
 // (field: 4096 rays x 48 samples = 196,608 descriptors per level; F = 8, R =
 // 256; hash proposals, nerfstudio's mapper: 5 levels x 4096 rays x 96 / 48
-// samples, F = 2, R = 64; dense proposals F = 1, R = 32): all four move
+// samples, F = 2, R = 64; dense proposals F = 1, R = 32): all of them move
 // bytes and do next to no arithmetic (at most 32F multiply-adds per
 // descriptor), so the bound is bytes over 3.35 TB/s. Per descriptor,
 // gather_interp reads its w row (128 B) and the 8 live entries of one
@@ -73,8 +70,6 @@
 //   gather_interp_mm   M 196,608, F 8 (level 0, 512 bricks): ~33 MB ~0.010 ms
 //   scatter_cols_accum M 589,824 x 256 into 49,152 bricks: 657 MB ~0.20 ms
 //                      M 1,966,080 x 64 into 20,480 bricks: 516 MB ~0.154 ms
-//   gather_cols_dot    M 589,824, F 8: touched rows + 18.9 MB cot + 75.5 MB
-//                      dW + ids                                ~0.039 ms
 //   gather_cols_dfrac  M 589,824, F 8: the corners' sectors of the
 //                      touched rows + ids 2.4 MB + cot 18.9 + local 14.2
 //                      + frac 7.1 + out 7.1                    ~0.022 ms
@@ -140,16 +135,9 @@
 // global memory where their weight is non-zero (the hash grid's descriptors
 // give them weight 0), so any input is computed right.
 //
-// gather_cols_dot: gather_cols' warps, lanes and batches, with a sink
-// that contracts each lane's 8 gathered floats (8 / F entries) with the
-// descriptor's cotangent in registers and writes 4 * 8 / F bytes a lane
-// (128 B a descriptor) in place of 16 bytes of bf16. The batch's cotangent
-// rows are contiguous and are loaded once, coalesced, and handed out by
-// shuffle (DotCot). It reads whole brick rows through L2, as row 2 does,
-// since dW has all 32 entries.
-//
-// gather_cols_dfrac (the paths' position pullback; it replaced
-// gather_cols_dot and the ~10 elementwise launches of hash_grid's dfrac
+// gather_cols_dfrac (the paths' position pullback; it replaced a kernel
+// that wrote dW [M, 32], gather_cols' lanes contracting each row with the
+// cotangent, and the ~10 elementwise launches of hash_grid's dfrac
 // contraction that consumed dW): only the 8 corners of a point's cell have
 // a non-zero trilinear weight or weight derivative, so one thread serves a
 // descriptor and reads those 8 entries (F floats each, a 32-byte sector at
@@ -165,10 +153,10 @@
 // its owner, local ids) gets the one-rank route's bits. In one call of
 // scripts/exp_torch_table_adjoints.py (NVIDIA H100 80GB HBM3, 700 W): at
 // (d)'s field call (M 589,824, F 8) 0.0479 ms queued, 44% of its ~0.022
-// ms bound, against 0.859 for gather_cols_dot then dfrac; at (h1)'s
+// ms bound, against 0.859 for the dW kernel then dfrac; at (h1)'s
 // proposal 0 (M 1,966,080, F 2) 0.0384, 93% of its bound, against 2.32.
 //
-// sort_ids (the scatter's sort; it replaced torch.sort, which sorted all
+// sort_ids (the scatters' sort; it replaced torch.sort, which sorted all
 // 32 bits of the ids and gave int64 positions): an LSD radix sort with
 // 8-bit digits, as many passes as n_bricks has bits (two below 65,536
 // rows, three at the dense proposal grids), in one cooperative launch of
@@ -186,105 +174,56 @@
 // proposal 0, 0.029 against 0.057 at an (i2)-shaped M 48,206 (queued, one
 // call of the script above).
 //
-// The scatters (scatter_cols_accum, scatter_cols_outer). One runs body
-// (scatter_runs) takes the row from a template source (Rows loads g[t];
-// Outer<F> forms W[r] x cot[r] from W's 128 B and cot's 4F bytes, at F = 8
-// 160 B a descriptor for the row's 1 KB) and hands each run's sum to a
-// template sink (AddRuns adds it with float4 atomics; OwnRuns stores it).
-// scatter_cols_accum takes runs with AddRuns at F <= 2 and the slabs
-// (scatter_cols_accum_kernel) at F >= 4; both leave out a zero 16-byte
-// piece (+0 changes no sum; a point's zero trilinear weights and the
-// padding entries 27..31 make 24 of a brick's 32 entries zero), and both
-// sum in an order that changes from call to call.
-//
-// scatter_cols_outer, which the paths run, is deterministic: sort_ids
-// sorts the ids and the runs walk them in sorted order through the
-// positions (Outer reads W[perm[t]], cot[perm[t]]), so each id's
-// descriptors are contiguous. A run that neither continues from the
-// previous lane group's range nor into the next is the id's whole sum and
-// is stored with plain stores; a run that does is written to a partial row
-// of its range. In the same cooperative launch (scatter_owned_kernel),
-// after a grid barrier, each id that spans ranges gets its partials summed
-// in range order: by one warp where they end within 32 slots of its first
-// (lane l adds columns l, l + 32, ... slot by slot), else by the block (a
-// fixed strided split over its threads, then a fixed tree). No atomics:
-// the same inputs give the same bits on every call. Why: with atomics
-// (runs or slabs) the order of a brick's adds changed from call to call,
+// The scatters (scatter_cols_accum, scatter_cols_outer) are one kernel,
+// scatter_owned_kernel, after sort_ids. It walks the ids in sorted order
+// and takes row t of that order from a template source, through the
+// positions r = perm[t]: Rows loads g[r]; Outer<F> forms W[r] x cot[r]
+// from W's 128 B and cot's 4F bytes (at F = 8 160 B a descriptor for the
+// row's 1 KB). Sorted, each id's descriptors are contiguous. R / 8 lanes
+// serve a descriptor, 8 floats a lane; each lane group owns a contiguous
+// range of the sorted order (a block's groups consecutive ranges), loads
+// the ids of 8 descriptors at once (broadcast by shuffle) and their rows,
+// then walks them, summing in registers while the id repeats. A run that
+// neither continues from the previous lane group's range nor into the
+// next is the id's whole sum and is stored with plain stores; a run that
+// does is written to a partial row of its range. In the same cooperative
+// launch, after a grid barrier, each id that spans ranges gets its
+// partials summed in range order: by one warp where they end within 32
+// slots of its first (lane l adds columns l, l + 32, ... slot by slot),
+// else by the block (a fixed strided split over its threads, then a fixed
+// tree). No atomics: the same inputs give the same bits on every call.
+// Why: with atomics the order of a brick's adds changed from call to call,
 // and over 8 Adam steps the normal MLP's near-zero gradients turned that
 // into differences above 2.5 lr: chip_smoke.py (i2)'s descriptor-sharded
 // step failed its check against DP(4) in two runs of the script, and in 1
-// of 6 of scripts/exp_torch_ds_repeats.py --scatter atomic, with DP(4)
-// itself never repeating; sorted, 0 of 6, every DP(4) run the same bits
-// (NVIDIA H100 80GB HBM3, 700 W). Queued times, one call of
-// scripts/exp_torch_table_adjoints.py: at (d)'s field scatter (M 589,824,
-// F 8) 0.203 ms against the earlier design's 0.232 (torch.sort, the runs
-// kernel, a separate combine launch after three memsets of scratch;
-// scripts/exp_torch_table_adjoints_prior.cu) and atomic runs' 0.167; at
-// (h1)'s proposal 0 (M 1,966,080, F 2) 0.240 against 0.328 and 0.111. The
-// same kernels as the earlier design on sort_ids' order (the combine a
-// launch of its own) took 0.198 at (d), 0.240 at (h1)'s proposal 0 and
-// 0.067 against 0.059 at the (i2)-shaped call: folding the combine in
-// saves four launches a call and wins where a call is small. Forming each
-// W[r, e] from the descriptor's offsets and base corner (36 bytes, read by
-// every lane of the descriptor) in place of reading W's row was slower at
-// every shape (0.3075 against 0.2028 ms at (d)): built in
-// scripts/exp_torch_table_adjoints_variants.cu, on no path.
+// of 6 runs of scripts/exp_torch_ds_repeats.py with the table gradient
+// added by atomic runs, with DP(4) itself never repeating; sorted, 0 of 6,
+// every DP(4) run the same bits (NVIDIA H100 80GB HBM3, 700 W).
 //
-// Which atomic design would serve F = 8, from the field scatter of
-// chip_smoke.py phase (d)'s last step (replica mapper, M 589,824, 3 levels
-// ray-major; NVIDIA H100 80GB HBM3, 700 W): per level id runs 26,332 /
-// 163,179 / 196,595 (mean length 7.47 / 1.20 / 1.00), distinct ids 154 /
-// 15,262 / 16,384, most descriptors on one id 22,291 / 2,160 / 35. Level
-// 0's runs cut its adds 7.5x: on the same ids recorded again, that level
-// alone took 0.050 ms by atomic runs against 0.143 by slabs (its 512 rows
-// on chip, shared-memory adds as CAS loops). At levels 1-2, where runs
-// have length ~1, slabs were 10-20% faster (0.064 / 0.063 against 0.078 /
-// 0.069 ms). The whole call: atomic runs 0.162 ms, slabs 0.233; at phase
-// (a)'s uniform points (no runs) 0.166 against 0.197 (one call of
-// scripts/exp_torch_table_adjoints.py as it stood then, both designs
-// built beside the port's). scatter_cols_accum at
-// F = 8 keeps slabs: phase (a) holds it on uniform points, and no path
-// runs it.
-//
-// Atomic runs (row 5 at F <= 2: the hash proposals' F = 2 grids, F = 1):
-// what held the F = 2 scatter
-// back was same-address atomics, which serialize in L2 (~4.8 ns each on an
-// H100). The descriptors come level-major, and within a level ray-major
-// with a ray's samples adjacent (hash_grid._descriptors over positions
-// [rays, samples, 3]), so equal ids come in runs (mean length 17.5 / 10.7
-// / 7.8 / 6.6 / 4.9 over proposal 0's levels in chip_smoke.py (h1)), and
-// the rays meet in few bricks: one brick took 292,632 of level 1's 393,216
-// descriptors, and its slice alone 1.40 of the 2.16 ms that one float4
-// atomic per 16 bytes a descriptor cost. So runs are summed in registers
-// before any atomic: R / 8 lanes serve a descriptor (two 16-byte streaming
-// loads a lane), each lane group owns a contiguous range of descriptors
-// (a block's groups consecutive ranges), loads the ids of 8 descriptors at
-// once (broadcast by shuffle) and their rows, then walks them in order,
-// summing while the id repeats and adding the sum into the table with two
-// float4 atomics a lane where it changes. Zero 16-byte pieces are not
-// added (+0 changes no sum; a point's zero trilinear weights and the
-// padding entries 27..31 give many). On (h1)'s ids the row adds fall from
-// 1,966,080 to ~256,000 and the most on one row from ~290,000 to ~5,300
-// (scripts/model_scatter_runs.py). A second stage, a per-block table in
-// shared memory keyed by brick id, was built and measured slower than runs
-// alone at both proposals' shapes (its shared-memory f32 adds are CAS
-// loops, and after the runs the global atomics no longer set the pace), so
-// there is none; nor are the `hot` rows kept on chip: runs do not read
-// `hot`.
-//
-// Slabs (row 5 at F >= 4): level 0's 512
-// bricks take ~384 adds each at phase (a)'s uniform points, which a block
-// keeps on chip only as 32-column slabs (768 whole rows of 1 KB do not fit
-// in shared memory): a block owns one 32-column slab of the table and a
-// strided share of the descriptors: 8 lanes take one descriptor's 128 B of the
-// slab as one 16-byte load each (4 loads in flight per lane); the id is
-// loaded once per descriptor batch and broadcast by shuffle. Ids
-// below `hot` (level 0's 512 bricks, where ~384 descriptors hit each
-// brick) accumulate in the block's shared-memory copy of those rows' slab
-// (shared f32 atomics; rows rotated by their index to spread banks),
-// flushed once at the end with global vector atomics; every other id adds
-// straight into the table with sm_90's 16-byte atomicAdd on float4 (4x
-// fewer atomic operations than scalar adds).
+// What the sorted design costs against the atomic ones. scatter_cols_outer,
+// queued, one call of scripts/exp_torch_table_adjoints.py: at (d)'s field
+// scatter (M 589,824, F 8) 0.203 ms against the earlier design's 0.232
+// (torch.sort, the runs kernel, a separate combine launch after three
+// memsets of scratch; scripts/exp_torch_table_adjoints_prior.cu) and
+// atomic runs' 0.167; at (h1)'s proposal 0 (M 1,966,080, F 2) 0.240
+// against 0.328 and 0.111. The same kernels as the earlier design on
+// sort_ids' order (the combine a launch of its own) took 0.198 at (d),
+// 0.240 at (h1)'s proposal 0 and 0.067 against 0.059 at the (i2)-shaped
+// call: folding the combine in saves four launches a call and wins where
+// a call is small. Forming each W[r, e] from the descriptor's offsets and
+// base corner (36 bytes, read by every lane of the descriptor) in place of
+// reading W's row was slower at every shape (0.3075 against 0.2028 ms at
+// (d)): built in scripts/exp_torch_table_adjoints_variants.cu, on no path.
+// scatter_cols_accum had atomic designs of its own: float4 atomics of runs
+// summed in registers at F <= 2, and at F >= 4 32-column slabs of the
+// table with level 0's 512 rows accumulated in shared memory. On W x cot
+// rows of (d)'s field scatter they took 0.162 (runs) and 0.233 ms (slabs),
+// at phase (a)'s uniform points 0.166 and 0.197 (one call each); row 5 at
+// (h1)'s proposal 0, by runs, 0.1846 ms, and at phase (a) (M 589,824 rows
+// of 256) by slabs 0.2623 queued. Sorted, row 5 takes 0.3152 ms queued at
+// phase (a), 62% of its ~0.196 ms bound, the sort 0.047 of it (NVIDIA
+// H100 80GB HBM3, 700 W): slower, on no path, and the same bits every
+// call.
 //
 // hash_descriptors writes 168 bytes a descriptor (id 4, base corner 24,
 // offsets 12, weights 128) from 12 bytes a point, so it is bound by its
@@ -542,108 +481,17 @@ __global__ void __launch_bounds__(kThreads) gather_cols_any_kernel(
   }
 }
 
-// What gather_cols_kernel does with lane j's piece of a gathered row,
-// floats 8j..8j+7 of tab[idx[t]] in a and b (f32 as stored). A warp serves
-// a batch of B descriptors t0..t0+B-1 in rounds u of DPW = 32 / L
-// (descriptor t = t0 + u DPW + q); fetch() issues the batch's other loads
-// beside its row loads, and every lane of the warp calls put() for every
-// round (shuffles need all 32), which writes only where `in` (t < M).
-//
-// Bf16Rows (gather_cols, row 2): store the piece as one 16-byte streaming
-// bf16 store into out[t] [M, R].
-struct Bf16Rows {
-  __nv_bfloat16* out;
-  struct Batch {};
-  template <int B>
-  __device__ __forceinline__ Batch fetch(long long, int, int) const {
-    return {};
-  }
-  template <int R>
-  __device__ __forceinline__ void put(int, int, int j, long long t, bool in,
-                                      float4 a, float4 b,
-                                      const Batch&) const {
-    if (in)
-      __stcs(reinterpret_cast<uint4*>(out + t * R) + j,
-             make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w),
-                        pack_bf16x2(b.x, b.y), pack_bf16x2(b.z, b.w)));
-  }
-};
-
-// DotCot<F> (gather_cols_dot, the W adjoint of row 3): the piece holds
-// entries 8j / F .. 8j / F + 8 / F - 1 of the brick, all F features each;
-// contract each entry's bf16-rounded features with cot[t] [M, F] and store
-// the 8 / F sums into dW[t] [M, 32] (the lanes of a descriptor write its
-// 128 B row together). The batch's cot rows are contiguous (B F <= 64
-// floats): the warp loads them with one or two coalesced 4-byte loads a
-// lane, and each round takes its descriptor's F values by shuffle (in
-// round u, feature f of the warp's descriptor q sits at float 8u + qF + f
-// of the block, since DPW F = 8). Prefetching each descriptor's F floats
-// a lane instead held 160 registers at F = 8 (one block an SM) and took
-// 0.18 ms at the field's shape against row 2's 0.15.
-template <int F>
-struct DotCot {
-  const float* cot;
-  float* dW;
-  struct Batch {
-    float c[2];
-  };
-  template <int B>
-  __device__ __forceinline__ Batch fetch(long long t0, int lane,
-                                         int M) const {
-    static_assert(B * F <= 64, "a batch's cot block is two words a lane");
-    Batch x;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const long long i = t0 * F + k * 32 + lane;
-      const bool live = k * 32 < B * F && i < static_cast<long long>(M) * F;
-      x.c[k] = ldcs_f1_if(cot + i, live);
-    }
-    return x;
-  }
-  template <int R>
-  __device__ __forceinline__ void put(int u, int q, int j, long long t,
-                                      bool in, float4 a, float4 b,
-                                      const Batch& x) const {
-    constexpr int E = 8 / F;  // entries of the lane's 8 floats
-    float c[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f)
-      c[f] = __shfl_sync(0xffffffffu, x.c[u / 4], 8 * (u % 4) + q * F + f);
-    if (!in) return;
-    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-    float d[E];
-#pragma unroll
-    for (int k = 0; k < E; ++k) {
-      float acc = bf16_round(v[k * F]) * c[0];
-#pragma unroll
-      for (int f = 1; f < F; ++f)
-        acc = fmaf(bf16_round(v[k * F + f]), c[f], acc);
-      d[k] = acc;
-    }
-    float* o = dW + t * 32 + j * E;
-    if constexpr (E == 1) {
-      *o = d[0];
-    } else if constexpr (E == 2) {
-      *reinterpret_cast<float2*>(o) = make_float2(d[0], d[1]);
-    } else {
-#pragma unroll
-      for (int h = 0; h < E / 4; ++h)
-        reinterpret_cast<float4*>(o)[h] =
-            make_float4(d[4 * h], d[4 * h + 1], d[4 * h + 2], d[4 * h + 3]);
-    }
-  }
-};
-
 // R = 8L: lane j of a descriptor's L reads floats 8j..8j+7 of its row (two
-// 16-byte loads) and hands them to the sink. A warp serves batches of 32 /
-// L x U descriptors (U = kGcUnroll, at most L): it loads their ids at once
-// (one a lane) and serves them in U rounds of 32 / L descriptors, the ids
-// broadcast by shuffle, with the row loads of all U rounds (and the sink's
-// batch loads) issued (predicated) before any is consumed.
-template <int L, typename Sink>
+// 16-byte loads) and stores them as one 16-byte streaming bf16 store into
+// out[t] [M, R]. A warp serves batches of 32 / L x U descriptors (U =
+// kGcUnroll, at most L): it loads their ids at once (one a lane) and serves
+// them in U rounds of 32 / L descriptors, the ids broadcast by shuffle,
+// with the row loads of all U rounds issued (predicated) before any is
+// stored.
+template <int L>
 __global__ void __launch_bounds__(kThreads) gather_cols_kernel(
-    const float* __restrict__ tab, const int* __restrict__ idx, Sink sink,
-    int M, int n_bricks) {
+    const float* __restrict__ tab, const int* __restrict__ idx,
+    __nv_bfloat16* __restrict__ out, int M, int n_bricks) {
   constexpr int R = 8 * L;
   constexpr int DPW = 32 / L;  // descriptors a round
   constexpr int U = L < kGcUnroll ? L : kGcUnroll;
@@ -667,20 +515,24 @@ __global__ void __launch_bounds__(kThreads) gather_cols_kernel(
       a[u] = ldg_f4_if(src, ok);
       b[u] = ldg_f4_if(src + 4, ok);
     }
-    const typename Sink::Batch x = sink.template fetch<B>(t0, lane, M);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long long t = t0 + u * DPW + q;
-      sink.template put<R>(u, q, j, t, t < M, a[u], b[u], x);
+      if (t < M)
+        __stcs(reinterpret_cast<uint4*>(out + t * R) + j,
+               make_uint4(pack_bf16x2(a[u].x, a[u].y),
+                          pack_bf16x2(a[u].z, a[u].w),
+                          pack_bf16x2(b[u].x, b[u].y),
+                          pack_bf16x2(b[u].z, b[u].w)));
     }
   }
 }
 
-template <int L, typename Sink>
-int launch_gather_cols(const float* tab, const int* idx, Sink sink, int M,
-                       int n_bricks, cudaStream_t stream) {
+template <int L>
+int launch_gather_cols(const float* tab, const int* idx, __nv_bfloat16* out,
+                       int M, int n_bricks, cudaStream_t stream) {
   static KernelFacts facts[kMaxDevices];
-  auto kernel = gather_cols_kernel<L, Sink>;
+  auto kernel = gather_cols_kernel<L>;
   long long blocks = 0;
   cudaError_t err = resident_grid(kernel, facts, kThreads, 0, 0, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -689,7 +541,7 @@ int launch_gather_cols(const float* tab, const int* idx, Sink sink, int M,
   const long long need = (M + per_block - 1) / per_block;
   if (blocks > need) blocks = need;
   kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
-      tab, idx, sink, M, n_bricks);
+      tab, idx, out, M, n_bricks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1384,30 +1236,34 @@ int launch_interp(const T* tab, const int* idx, const float* w,
 }
 
 // ---------------------------------------------------------------------------
-// the scatters' row sources: a row loaded from memory, or formed in
-// registers as W (x) cot
+// the scatters: ids sorted, runs of equal ids summed in registers, each
+// id's sum stored once, in one cooperative launch
 // ---------------------------------------------------------------------------
 
-// Rows (scatter_cols_accum, row 5): row t is g[t] [M, R], loaded with
-// streaming loads (each row is read once).
+// The row sources: row t of the id-sorted order is descriptor r = perm[t]'s
+// row; load() gives its floats col..col+7 (col a multiple of 8), zeros
+// where !ok.
+//
+// Rows (scatter_cols_accum, row 5): g[r] [M, R], loaded with streaming
+// loads (each row is read once).
 struct Rows {
   const float* g;
-  // floats col..col+7 of row t, zeros where !ok
+  const int* perm;
   template <int R>
   __device__ __forceinline__ void load(long long t, int col, bool ok,
                                        float (&v)[8]) const {
-    ld_floats_if<8, true>(g + t * R + col, ok, v);
+    const long long r = ok ? __ldg(perm + t) : 0;
+    ld_floats_if<8, true>(g + r * R + col, ok, v);
   }
 };
 
-// Outer<F> (scatter_cols_outer, the table adjoint of row 3): row t of the
-// id-sorted order is W[r] (x) cot[r] with r = perm[t], column e F + f =
-// W[r, e] * cot[r, f] (W [M, 32], cot [M, F]): one f32 multiply each, the
-// value the materialized row held. The 8 columns from col (col a multiple
-// of 8) span one entry's 8 features (F = 8) or 8 / F whole entries (F <
-// 8): the lane loads those W values (streaming: each is read by one lane)
-// and cot[r]'s features (read-only path: the other lanes of the
-// descriptor read them too).
+// Outer<F> (scatter_cols_outer, the table adjoint of row 3): W[r] (x)
+// cot[r], column e F + f = W[r, e] * cot[r, f] (W [M, 32], cot [M, F]):
+// one f32 multiply each, the value the materialized row held. The 8
+// columns from col span one entry's 8 features (F = 8) or 8 / F whole
+// entries (F < 8): the lane loads those W values (streaming: each is read
+// by one lane) and cot[r]'s features (read-only path: the other lanes of
+// the descriptor read them too).
 template <int F>
 struct Outer {
   const float* W;
@@ -1426,163 +1282,18 @@ struct Outer {
   }
 };
 
-__device__ __forceinline__ bool nonzero(float4 v) {
-  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
-}
-
-// ---------------------------------------------------------------------------
-// scatter slabs: 32-column slabs, hot rows in shared memory, vector atomics
-// ---------------------------------------------------------------------------
-
-constexpr int kScThreads = 512;
-constexpr int kScWarps = kScThreads / 32;
-constexpr int kSlab = 32;         // columns of one block's slab
-constexpr int kScHotMax = 768;    // rows accumulated on chip: 96 KB a block
-
-// position of column c of hot row r in the shared slab
-__device__ __forceinline__ int slab_pos(int r, int c) {
-  return r * kSlab + ((c + r) & (kSlab - 1));
-}
-
-template <int F>
-__global__ void __launch_bounds__(kScThreads) scatter_cols_accum_kernel(
-    const float* __restrict__ g, const int* __restrict__ idx,
-    float* __restrict__ out, int M, int n_bricks, int hot) {
-  constexpr int R = 32 * F;  // F slabs of 32 columns
-  extern __shared__ __align__(16) float sc_smem[];
-  const int s = blockIdx.x % F;
-  const int chunk = blockIdx.x / F;
-  const int n_chunks = gridDim.x / F;
-  for (int i = threadIdx.x; i < hot * kSlab; i += kScThreads) sc_smem[i] = 0.f;
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int q = lane >> 3;  // descriptor of the 4 served at once
-  const int c4 = lane & 7;  // columns 4*c4..4*c4+3 of the slab
-  const float4* g4 = reinterpret_cast<const float4*>(g) + s * 8 + c4;
-  float* out_s = out + s * kSlab + 4 * c4;
-  const long long batch0 =
-      static_cast<long long>(chunk) * kScWarps + (threadIdx.x >> 5);
-  const long long bstep = static_cast<long long>(n_chunks) * kScWarps;
-  for (long long bt = batch0 * 32; bt < M; bt += bstep * 32) {
-    const long long tl = bt + lane;
-    const int my_id = tl < M ? __ldg(idx + tl) : -1;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float4 v[4];
-      int b[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int d = h * 16 + k * 4 + q;
-        b[k] = __shfl_sync(0xffffffffu, my_id, d);
-        v[k] = (b[k] >= 0 && b[k] < n_bricks)
-                   ? __ldcs(g4 + (bt + d) * (R / 4))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int bk = b[k];
-        // +0 changes no sum: a point's zero trilinear weights and the
-        // padding entries 27..31 give many zero pieces
-        if (bk < 0 || bk >= n_bricks || !nonzero(v[k])) continue;
-        if (bk < hot) {
-          atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 0), v[k].x);
-          atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 1), v[k].y);
-          atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 2), v[k].z);
-          atomicAdd(sc_smem + slab_pos(bk, 4 * c4 + 3), v[k].w);
-        } else {
-          atomicAdd(reinterpret_cast<float4*>(
-                        out_s + static_cast<long long>(bk) * R), v[k]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // flush the hot rows' slab: one vector atomic per non-zero 16 bytes
-  for (int i = threadIdx.x; i < hot * 8; i += kScThreads) {
-    const int r = i >> 3;
-    const int c = (i & 7) * 4;
-    const float4 v = make_float4(
-        sc_smem[slab_pos(r, c + 0)], sc_smem[slab_pos(r, c + 1)],
-        sc_smem[slab_pos(r, c + 2)], sc_smem[slab_pos(r, c + 3)]);
-    if (nonzero(v))
-      atomicAdd(reinterpret_cast<float4*>(
-                    out + static_cast<long long>(r) * R + s * kSlab + c), v);
-  }
-}
-
-template <int F>
-int launch_scatter_slabs(const float* g, const int* idx, float* out, int M,
-                         int n_bricks, int hot, cudaStream_t stream) {
-  static KernelFacts facts[kMaxDevices];
-  hot = hot < 0 ? 0 : hot;
-  if (hot > n_bricks) hot = n_bricks;
-  if (hot > kScHotMax) hot = kScHotMax;
-  const int smem = hot * kSlab * 4;
-  auto kernel = scatter_cols_accum_kernel<F>;
-  long long chunks = 0;
-  cudaError_t err = resident_grid(kernel, facts, kScThreads,
-                                  kScHotMax * kSlab * 4, smem, &chunks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chunks /= F;
-  const long long need = (M + kScWarps * 32 - 1) / (kScWarps * 32);
-  if (chunks > need) chunks = need;
-  if (chunks < 1) chunks = 1;
-  kernel<<<static_cast<unsigned int>(chunks * F), kScThreads, smem, stream>>>(
-      g, idx, out, M, n_bricks, hot);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// scatter runs: contiguous ranges, runs of equal ids summed in registers
-// ---------------------------------------------------------------------------
-
 constexpr int kRunThreads = 512;
 constexpr int kRunWarps = kRunThreads / 32;
 constexpr int kRunTile = 8;  // descriptors whose rows load at once
 
-// One lane's share of a run's sum, floats 8j..8j+7 of row b: two vector
-// atomics, each left out where its 16 bytes are zero (+0 changes no sum).
-template <int R>
-__device__ __forceinline__ void add_run(float* out, int b, int j,
-                                        const float (&acc)[8]) {
-  float4* o =
-      reinterpret_cast<float4*>(out + static_cast<long long>(b) * R + 8 * j);
-  const float4 a = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  const float4 c = make_float4(acc[4], acc[5], acc[6], acc[7]);
-  if (nonzero(a)) atomicAdd(o, a);
-  if (nonzero(c)) atomicAdd(o + 1, c);
-}
-
-// Where a run's sum goes: the sink. AddRuns (scatter_cols_accum, row 5)
-// adds it into the table (add_run): runs of one id in other ranges add to
-// the same row, in an order that changes from run to run. OwnRuns
-// (scatter_cols_outer) takes the ids sorted, so that each id's descriptors
-// are contiguous: a run that neither continues from the previous range nor
+// Where a run's sum goes. The ids are sorted, so each id's descriptors are
+// contiguous: a run that neither continues from the previous range nor
 // into the next is the id's whole sum and is stored; a run that does is
 // written to a partial row of its range (slot 2g for the range's first
 // run, 2g + 1 for its last), which the kernel's second phase sums in range
-// order. No atomics: the result is the same on every call.
-struct AddRuns {
-  float* out;
-  struct Range {};
-  __device__ __forceinline__ Range range(long long, long long, long long,
-                                         const int*, int) const {
-    return {};
-  }
-  template <int R>
-  __device__ __forceinline__ void clear(const Range&, int) const {}
-  template <int R>
-  __device__ __forceinline__ void put(const Range&, int b, int j,
-                                      const float (&acc)[8]) const {
-    add_run<R>(out, b, j, acc);
-  }
-};
-
-// A partial's code: 2 b + 1 for the first part of id b's sum (the run
-// that starts it), 2 b for a later part; -1 for an empty slot, whose row
-// holds zeros. A lane group clears its two slots before its first run.
+// order. A partial's code: 2 b + 1 for the first part of id b's sum (the
+// run that starts it), 2 b for a later part; -1 for an empty slot, whose
+// row holds zeros. A lane group clears its two slots before its first run.
 struct OwnRuns {
   float* out;
   float* part;   // [2 * groups, R]
@@ -1638,11 +1349,11 @@ struct OwnRuns {
 // their rows, then walks them in order, summing in registers while the id
 // repeats and handing the sum to the sink where it changes. An id outside
 // [0, n_bricks) is skipped (it neither adds nor ends a run).
-template <int F, typename Src, typename Sink>
+template <int F, typename Src>
 __device__ __forceinline__ void scatter_runs(Src src,
                                              const int* __restrict__ idx,
-                                             Sink sink, int M, int n_bricks,
-                                             long long span) {
+                                             OwnRuns sink, int M,
+                                             int n_bricks, long long span) {
   constexpr int R = 32 * F;
   constexpr int L = R / 8;
   constexpr int G = 32 / L;
@@ -1655,8 +1366,8 @@ __device__ __forceinline__ void scatter_runs(Src src,
           G + q;
   const long long lo = g * span;
   const long long hi = lo + span < M ? lo + span : M;
-  const typename Sink::Range rg = sink.range(g, lo, hi, idx, M);
-  sink.template clear<R>(rg, j);
+  const OwnRuns::Range rg = sink.range(g, lo, hi, idx, M);
+  sink.clear<R>(rg, j);
   float acc[8] = {};
   int cur = -1;
   // every group of the warp takes the same number of tiles, so that the
@@ -1681,7 +1392,7 @@ __device__ __forceinline__ void scatter_runs(Src src,
     for (int u = 0; u < kRunTile; ++u) {
       if (b[u] < 0) continue;
       if (b[u] != cur) {
-        if (cur >= 0) sink.template put<R>(rg, cur, j, acc);
+        if (cur >= 0) sink.put<R>(rg, cur, j, acc);
         cur = b[u];
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc[i] = v[u][i];
@@ -1691,14 +1402,7 @@ __device__ __forceinline__ void scatter_runs(Src src,
       }
     }
   }
-  if (cur >= 0) sink.template put<R>(rg, cur, j, acc);
-}
-
-template <int F, typename Src, typename Sink>
-__global__ void __launch_bounds__(kRunThreads, 1) scatter_runs_kernel(
-    Src src, const int* __restrict__ idx, Sink sink, int M, int n_bricks,
-    long long span) {
-  scatter_runs<F>(src, idx, sink, M, n_bricks, span);
+  if (cur >= 0) sink.put<R>(rg, cur, j, acc);
 }
 
 constexpr int kCombUnroll = 4;  // slots a thread loads at once
@@ -1809,8 +1513,8 @@ __device__ __forceinline__ bool combine_head_warp(const float* part,
   return true;
 }
 
-// scatter_cols_outer in one cooperative launch: the runs on the sorted ids
-// with the OwnRuns sink, a grid-wide barrier, then the ids that span
+// A scatter in one cooperative launch: the runs on the sorted ids with the
+// OwnRuns sink, a grid-wide barrier, then the ids that span
 // ranges: each block reads the codes of its share of the slots at once;
 // its warps combine the heads among them whose parts end within 32 slots
 // (combine_head_warp), one warp a head, and the block combines the rest
@@ -1857,41 +1561,22 @@ __global__ void __launch_bounds__(kRunThreads, 1) scatter_owned_kernel(
   }
 }
 
-// The grid of a runs kernel for M descriptors: blocks (at most those
-// resident at once) and descriptors a lane group (span).
-template <int F, typename Kernel>
-cudaError_t runs_grid(Kernel kernel, KernelFacts* facts, int M,
-                      long long* blocks, long long* span) {
+// scatter_owned_kernel's grid for M descriptors: blocks (at most those
+// resident at once, which depends on the row source's registers) and
+// descriptors a lane group (span); its scratch slots (two a lane group)
+// and its launch.
+template <int F, typename Src>
+cudaError_t owned_grid(int M, long long* blocks, long long* span) {
+  static KernelFacts facts[kMaxDevices];
   constexpr int groups = kRunWarps * (32 / (32 * F / 8));  // a block's
-  cudaError_t err =
-      resident_grid(kernel, facts, kRunThreads, 0, 0, blocks);
+  cudaError_t err = resident_grid(scatter_owned_kernel<F, Src>, facts,
+                                  kRunThreads, 0, 0, blocks);
   if (err != cudaSuccess) return err;
   const long long need = (M + groups * kRunTile - 1) / (groups * kRunTile);
   if (*blocks > need) *blocks = need;
   if (*blocks < 1) *blocks = 1;
   *span = (M + *blocks * groups - 1) / (*blocks * groups);
   return cudaSuccess;
-}
-
-template <int F, typename Src, typename Sink>
-int launch_scatter_runs(Src src, Sink sink, const int* idx, int M,
-                        int n_bricks, cudaStream_t stream) {
-  static KernelFacts facts[kMaxDevices];
-  auto kernel = scatter_runs_kernel<F, Src, Sink>;
-  long long blocks = 0, span = 0;
-  cudaError_t err = runs_grid<F>(kernel, facts, M, &blocks, &span);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned int>(blocks), kRunThreads, 0, stream>>>(
-      src, idx, sink, M, n_bricks, span);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// scatter_owned_kernel's grid for M descriptors, its scratch slots (two
-// a lane group) and its launch.
-template <int F, typename Src>
-cudaError_t owned_grid(int M, long long* blocks, long long* span) {
-  static KernelFacts facts[kMaxDevices];
-  return runs_grid<F>(scatter_owned_kernel<F, Src>, facts, M, blocks, span);
 }
 
 template <int F, typename Src>
@@ -2206,44 +1891,17 @@ extern "C" int gather_cols(const void* tab, const void* idx, void* out, int M,
   const int* ix = static_cast<const int*>(idx);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Bf16Rows sink{o};
   switch (R) {
-    case 32: return launch_gather_cols<4>(tb, ix, sink, M, n_bricks, s);
-    case 64: return launch_gather_cols<8>(tb, ix, sink, M, n_bricks, s);
-    case 128: return launch_gather_cols<16>(tb, ix, sink, M, n_bricks, s);
-    case 256: return launch_gather_cols<32>(tb, ix, sink, M, n_bricks, s);
+    case 32: return launch_gather_cols<4>(tb, ix, o, M, n_bricks, s);
+    case 64: return launch_gather_cols<8>(tb, ix, o, M, n_bricks, s);
+    case 128: return launch_gather_cols<16>(tb, ix, o, M, n_bricks, s);
+    case 256: return launch_gather_cols<32>(tb, ix, o, M, n_bricks, s);
     default: {
       const int blocks = (M + kWarps - 1) / kWarps;
       gather_cols_any_kernel<<<blocks, kThreads, 0, s>>>(tb, ix, o, M, R,
                                                          n_bricks);
       return static_cast<int>(cudaGetLastError());
     }
-  }
-}
-
-// tab [n_bricks, 32F] f32, idx [M] int32, cot [M, F] f32 -> dW [M, 32]
-// f32, dW[t, e] = sum_f bf16(tab[idx[t], e F + f]) cot[t, f]; an id out of
-// range gives a row of zeros. F in {1, 2, 4, 8}; cot aligned to 4F bytes
-// (16 at F = 8).
-extern "C" int gather_cols_dot(const void* tab, const void* idx,
-                               const void* cot, void* dW, int M, int F,
-                               int n_bricks, void* stream) {
-  if (M == 0) return 0;
-  const float* tb = static_cast<const float*>(tab);
-  const int* ix = static_cast<const int*>(idx);
-  const float* c = static_cast<const float*>(cot);
-  float* o = static_cast<float*>(dW);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (F) {
-    case 1: return launch_gather_cols<4>(tb, ix, DotCot<1>{c, o}, M,
-                                         n_bricks, s);
-    case 2: return launch_gather_cols<8>(tb, ix, DotCot<2>{c, o}, M,
-                                         n_bricks, s);
-    case 4: return launch_gather_cols<16>(tb, ix, DotCot<4>{c, o}, M,
-                                          n_bricks, s);
-    case 8: return launch_gather_cols<32>(tb, ix, DotCot<8>{c, o}, M,
-                                          n_bricks, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -2294,25 +1952,28 @@ extern "C" int gather_interp_mm(const void* tab, const void* idx,
   }
 }
 
-// g [M, 32F] f32, idx [M] int32; out [n_bricks, 32F] f32, zeroed by the
-// caller. At F >= 4 rows [0, hot) (at most 768) accumulate in shared
-// memory; F <= 2 sums runs of equal ids in registers and does not read
-// `hot`.
-extern "C" int scatter_cols_accum(const void* g, const void* idx, void* out,
-                                  int M, int F, int n_bricks, int hot,
+// g [M, 32F] f32; sidx [M] int32 the keys of sort_ids (the ids sorted,
+// stably; n_bricks for an id out of range) and perm [M] int32 their
+// positions; out [n_bricks, 32F] f32, zeroed by the caller: out[b] = sum of
+// g[t] over idx[t] == b, each id's rows summed in sorted order, the same on
+// every call. part [slots, 32F] f32 and part_id [slots] int32 are scratch,
+// slots = scatter_slots(M, F, 0). One cooperative launch.
+extern "C" int scatter_cols_accum(const void* g, const void* sidx,
+                                  const void* perm, void* out, void* part,
+                                  void* part_id, int M, int F, int n_bricks,
                                   void* stream) {
   if (M == 0) return 0;
-  const float* gp = static_cast<const float*>(g);
-  const int* ix = static_cast<const int*>(idx);
+  const Rows src{static_cast<const float*>(g), static_cast<const int*>(perm)};
+  const int* ix = static_cast<const int*>(sidx);
   float* o = static_cast<float*>(out);
+  float* pt = static_cast<float*>(part);
+  int* pi = static_cast<int*>(part_id);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
-    case 1: return launch_scatter_runs<1>(Rows{gp}, AddRuns{o}, ix, M,
-                                          n_bricks, s);
-    case 2: return launch_scatter_runs<2>(Rows{gp}, AddRuns{o}, ix, M,
-                                          n_bricks, s);
-    case 4: return launch_scatter_slabs<4>(gp, ix, o, M, n_bricks, hot, s);
-    case 8: return launch_scatter_slabs<8>(gp, ix, o, M, n_bricks, hot, s);
+    case 1: return launch_scatter_owned<1>(src, ix, o, pt, pi, M, n_bricks, s);
+    case 2: return launch_scatter_owned<2>(src, ix, o, pt, pi, M, n_bricks, s);
+    case 4: return launch_scatter_owned<4>(src, ix, o, pt, pi, M, n_bricks, s);
+    case 8: return launch_scatter_owned<8>(src, ix, o, pt, pi, M, n_bricks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -2323,8 +1984,8 @@ extern "C" int scatter_cols_accum(const void* g, const void* idx, void* out,
 // f32, zeroed by the caller: out[b, e F + f] = sum of W[t, e] cot[t, f]
 // over idx[t] == b, the product formed in registers, each id's terms
 // summed in sorted order, the same on every call. part [slots, 32F] f32
-// and part_id [slots] int32 are scratch, slots =
-// scatter_cols_outer_slots(M, F). One cooperative launch.
+// and part_id [slots] int32 are scratch, slots = scatter_slots(M, F, 1).
+// One cooperative launch.
 extern "C" int scatter_cols_outer(const void* W, const void* cot,
                                   const void* sidx, const void* perm,
                                   void* out, void* part, void* part_id,
@@ -2351,14 +2012,20 @@ extern "C" int scatter_cols_outer(const void* W, const void* cot,
   }
 }
 
-// scatter_cols_outer's scratch slots for M descriptors on the current
-// device, or a negative value if the grid cannot be sized.
-extern "C" long long scatter_cols_outer_slots(int M, int F) {
+// The scratch slots of a scatter of M descriptors on the current device,
+// scatter_cols_outer's where `outer`, else scatter_cols_accum's (the grid
+// follows the kernel's resources, which differ by row source), or a
+// negative value if the grid cannot be sized.
+extern "C" long long scatter_slots(int M, int F, int outer) {
   switch (F) {
-    case 1: return owned_slots<1, Outer<1>>(M);
-    case 2: return owned_slots<2, Outer<2>>(M);
-    case 4: return owned_slots<4, Outer<4>>(M);
-    case 8: return owned_slots<8, Outer<8>>(M);
+    case 1: return outer ? owned_slots<1, Outer<1>>(M)
+                         : owned_slots<1, Rows>(M);
+    case 2: return outer ? owned_slots<2, Outer<2>>(M)
+                         : owned_slots<2, Rows>(M);
+    case 4: return outer ? owned_slots<4, Outer<4>>(M)
+                         : owned_slots<4, Rows>(M);
+    case 8: return outer ? owned_slots<8, Outer<8>>(M)
+                         : owned_slots<8, Rows>(M);
     default: return -1;
   }
 }

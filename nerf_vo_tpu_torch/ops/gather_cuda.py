@@ -18,8 +18,6 @@ wrapper                function
 :func:`gather_interp_bf16`  the same function on a bf16 table
 :func:`gather_interp_mm`  the same function, for small dense tables
 :func:`scatter_cols_accum`  ``out[b, :] = sum_{t: idx[t] = b} g[t, :]``, f32
-:func:`gather_cols_dot`  ``dW[t, e] = sum_f bf16(tab[idx[t], eF+f])
-                       cot[t, f]``, [M, 32] f32
 :func:`scatter_cols_outer`  ``out[b, eF+f] = sum_{t: idx[t] = b} W[t, e]
                        cot[t, f]``, f32
 :func:`gather_cols_dfrac`  ``res * d<gather_interp(tab, idx, W, F)[t],
@@ -40,12 +38,12 @@ contiguous f32 tensor of the result's shape on the inputs' device that
 receives the result in place of a new one (a replayed mapping step passes
 the buffers its CUDA graphs read). ``bf16`` rounds to nearest even (the
 JAX package's bf16 shadow of the table); weights, sums and outputs are f32.
-``scatter_cols_outer`` launches :func:`sort_ids` and then its own kernel.
-``gather_interp_mm`` and ``scatter_cols_accum`` take ``hot_rows``, the
-number of leading table rows the kernel keeps on chip (staged, or
-accumulated, in shared memory; the scatter's slab design only); the hash
-grid passes the rows of its one-hot levels. It changes where rows are read
-or added, never the result.
+Both scatters launch :func:`sort_ids` and then one kernel that sums each
+id's rows in sorted order with no atomics, so each gives the same bits on
+every call. ``gather_interp_mm`` takes ``hot_rows``, the number of leading
+table rows the kernel stages in shared memory; the hash grid passes the
+rows of its one-hot levels. It changes where rows are read, never the
+result.
 What bounds each kernel, and its design, are noted at the top of
 ``csrc/gather.cu``.
 """
@@ -100,6 +98,10 @@ def scatter_cols_accum_plain(g, idx, n_bricks: int):
 
 
 def gather_cols_dot_plain(tab, idx, cot):
+    """dW [M, 32] f32, ``dW[t, e] = sum_f bf16(tab[idx[t], eF+f])
+    cot[t, f]``: the W adjoint of :func:`gather_interp_plain`, the dW that
+    :func:`gather_cols_dfrac_plain` contracts through the weights'
+    derivatives."""
     M, F = cot.shape
     g = gather_cols_plain(tab, idx).float().reshape(M, 32, F)
     return torch.sum(g * cot[:, None, :], dim=-1)
@@ -232,11 +234,10 @@ def _lib():
     lib.gather_interp.argtypes = [p, p, p, p, i, i, i, p]
     lib.gather_interp_bf16.argtypes = [p, p, p, p, i, i, i, p]
     lib.gather_interp_mm.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.scatter_cols_accum.argtypes = [p, p, p, i, i, i, i, p]
-    lib.gather_cols_dot.argtypes = [p, p, p, p, i, i, i, p]
+    lib.scatter_cols_accum.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.scatter_cols_outer.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
-    lib.scatter_cols_outer_slots.argtypes = [i, i]
-    lib.scatter_cols_outer_slots.restype = ctypes.c_longlong
+    lib.scatter_slots.argtypes = [i, i, i]
+    lib.scatter_slots.restype = ctypes.c_longlong
     lib.gather_cols_dfrac.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p]
     lib.sort_ids.argtypes = [p, p, p, p, i, i, p]
     lib.hash_descriptors.argtypes = [p, p, p, p, p, p, i, i, p, p, p, i, p]
@@ -244,7 +245,7 @@ def _lib():
     lib.sort_ids_scratch.restype = ctypes.c_longlong
     for fn in (lib.gather_cols, lib.gather_interp, lib.gather_interp_bf16,
                lib.gather_interp_mm, lib.scatter_cols_accum,
-               lib.gather_cols_dot, lib.scatter_cols_outer,
+               lib.scatter_cols_outer,
                lib.gather_cols_dfrac, lib.sort_ids, lib.hash_descriptors):
         fn.restype = ctypes.c_int
     return lib
@@ -395,18 +396,14 @@ def gather_interp_mm(tab, idx, w, features: int, hot_rows: int = 0,
                    features, int(hot_rows), out=out)
 
 
-def scatter_cols_accum(g, idx, n_bricks: int, hot_rows: int = 0):
+def scatter_cols_accum(g, idx, n_bricks: int):
     """Accumulate rows: g [M, 32F] f32, idx [M] int32 -> [n_bricks, 32F]
     f32 with ``out[b] = sum of g[t] over idx[t] == b`` (F in 1, 2, 4, 8).
 
-    On the card, at F >= 4, the first ``hot_rows`` rows (at most 768)
-    accumulate in shared memory and are added to the table once per block;
-    every other row is added with 16-byte float4 atomics. At F <= 2 each
-    lane group walks a contiguous range of descriptors and sums runs of
-    equal ids in registers, so that a run costs one add (the hash grid's
-    descriptors come level-major and ray-major, a ray's samples adjacent);
-    ``hot_rows`` is not used there. Sums are f32 in an order that changes
-    from run to run."""
+    On the card the ids are sorted first (:func:`sort_ids`), and each id's
+    rows are summed in registers in sorted order with no atomics (the
+    design noted at the top of ``csrc/gather.cu``): the result is the same
+    on every call. An id out of range is dropped."""
     if g.device.type == "cpu":
         return scatter_cols_accum_plain(g, idx, n_bricks)
     dev = _cuda_device(g, "scatter_cols_accum")
@@ -420,11 +417,8 @@ def scatter_cols_accum(g, idx, n_bricks: int, hot_rows: int = 0):
         raise ValueError(f"scatter_cols_accum: rows of {R} floats; the "
                          f"kernel takes R = 32F, F in {FEATURES}")
     out = torch.zeros(n_bricks, R, dtype=torch.float32, device=dev)
-    if M:
-        _launched(scatter_cols_accum, _lib().scatter_cols_accum(
-            g.data_ptr(), idx.data_ptr(), out.data_ptr(), M, R // 32,
-            n_bricks, int(hot_rows), _stream(dev)))
-    return out
+    return _scatter_sorted(scatter_cols_accum, "scatter_cols_accum", idx,
+                           n_bricks, out, g)
 
 
 def _features(name, cot, M, dev):
@@ -440,35 +434,6 @@ def _features(name, cot, M, dev):
         raise ValueError(f"{name}: {cot.shape[0]} cotangent rows for {M} "
                          "descriptors")
     return F
-
-
-def gather_cols_dot(tab, idx, cot):
-    """The W adjoint of :func:`gather_interp`: tab [n_bricks, 32F] f32, idx
-    [M] int32, cot [M, F] f32 -> dW [M, 32] f32 with ``dW[t, e] = sum_f
-    bf16(tab[idx[t], eF+f]) cot[t, f]`` (the hash grid's position
-    pullback, before the weights' derivatives).
-
-    On the card it is :func:`gather_cols` with its consumer fused: each
-    brick row is read and rounded to bf16 in registers and contracted with
-    ``cot`` there, so 128 B a descriptor are written and no [M, 32F] row.
-    An id out of range gives a row of zeros (for a finite ``cot``)."""
-    if tab.device.type == "cpu":
-        return gather_cols_dot_plain(tab, idx, cot)
-    dev = _cuda_device(tab, "gather_cols_dot")
-    _check("tab", tab, torch.float32, 2, dev, align=16)
-    _check("idx", idx, torch.int32, 1, dev)
-    M = idx.shape[0]
-    F = _features("gather_cols_dot", cot, M, dev)
-    n_bricks, R = tab.shape
-    if R != 32 * F:
-        raise ValueError(f"gather_cols_dot: rows of {R} floats with F={F}; "
-                         "the kernel takes R = 32F")
-    out = torch.empty(M, 32, dtype=torch.float32, device=dev)
-    if M:
-        _launched(gather_cols_dot, _lib().gather_cols_dot(
-            tab.data_ptr(), idx.data_ptr(), cot.data_ptr(), out.data_ptr(),
-            M, F, n_bricks, _stream(dev)))
-    return out
 
 
 def sort_ids(idx, n_bricks: int):
@@ -529,18 +494,31 @@ def scatter_cols_outer(W, cot, idx, n_bricks: int, out=None):
     F = _features("scatter_cols_outer", cot, M, dev)
     out = _result("scatter_cols_outer", out, (n_bricks, 32 * F),
                   dev).zero_()
-    if M:
-        keys, perm = sort_ids(idx, n_bricks)
-        slots = int(_lib().scatter_cols_outer_slots(M, F))
-        if slots <= 0:
-            raise RuntimeError("scatter_cols_outer: the kernel's grid could "
-                               "not be sized")
-        part = torch.empty(slots, 32 * F, dtype=torch.float32, device=dev)
-        part_id = torch.empty(slots, dtype=torch.int32, device=dev)
-        _launched(scatter_cols_outer, _lib().scatter_cols_outer(
-            W.data_ptr(), cot.data_ptr(), keys.data_ptr(), perm.data_ptr(),
-            out.data_ptr(), part.data_ptr(), part_id.data_ptr(), M, F,
-            n_bricks, _stream(dev)))
+    return _scatter_sorted(scatter_cols_outer, "scatter_cols_outer", idx,
+                           n_bricks, out, W, cot)
+
+
+def _scatter_sorted(fn, name, idx, n_bricks, out, *src):
+    """The scatter ``name`` into the zeroed ``out`` [n_bricks, 32F], its
+    launch counted on ``fn``: :func:`sort_ids` on ``idx``, then one
+    cooperative launch of the kernel with its row source ``src`` (``g``, or
+    ``W`` and ``cot``), the sorted keys and positions, and scratch sized for
+    that source."""
+    M = idx.shape[0]
+    if not M:
+        return out
+    F = out.shape[1] // 32
+    keys, perm = sort_ids(idx, n_bricks)
+    outer = int(name == "scatter_cols_outer")
+    slots = int(_lib().scatter_slots(M, F, outer))
+    if slots <= 0:
+        raise RuntimeError(f"{name}: the kernel's grid could not be sized")
+    part = torch.empty(slots, 32 * F, dtype=torch.float32, device=out.device)
+    part_id = torch.empty(slots, dtype=torch.int32, device=out.device)
+    _launched(fn, getattr(_lib(), name)(
+        *(t.data_ptr() for t in src), keys.data_ptr(), perm.data_ptr(),
+        out.data_ptr(), part.data_ptr(), part_id.data_ptr(), M, F, n_bricks,
+        _stream(out.device)))
     return out
 
 
@@ -554,7 +532,7 @@ def gather_cols_dfrac(tab, idx, cot, local, frac, level_first, res,
     trilinear weights of (local, frac) and l the level of idx[t]: the last
     of the levels whose first ids ``level_first`` (ascending, at most 32)
     is at most idx[t]. Its plain version is :func:`dfrac` of
-    :func:`gather_cols_dot`'s ``dW``, times ``res``.
+    :func:`gather_cols_dot_plain`'s ``dW``, times ``res``.
 
     On the card one thread serves a descriptor: it reads the F features of
     the 8 corners of its cell (the only entries with a non-zero weight or
@@ -663,7 +641,7 @@ def hash_descriptors(x, resolutions, n_bricks: int):
 # hash_descriptors is captured inside the step's graphs, so its counter
 # advances at eager steps and captures only.
 KERNELS = (gather_cols, gather_interp, gather_interp_bf16, gather_interp_mm,
-           scatter_cols_accum, gather_cols_dot, scatter_cols_outer,
-           gather_cols_dfrac, sort_ids)
+           scatter_cols_accum, scatter_cols_outer, gather_cols_dfrac,
+           sort_ids)
 for _fn in KERNELS + (hash_descriptors,):
     _fn.launches = 0

@@ -6,10 +6,9 @@ scatter against its other designs, on one NVIDIA GPU.
     python3 scripts/exp_torch_table_adjoints.py [--skip-h1]
 
 Builds ``nerf_vo_tpu_torch/csrc/gather.cu`` (the kernels the port runs),
-``scripts/exp_torch_table_adjoints_variants.cu`` (the scatter by atomic
-runs of the ids in the order given, and the port's design with each
-weight formed from the descriptor's offsets and base corner in place of
-read from W) and ``scripts/exp_torch_table_adjoints_prior.cu`` (the
+``scripts/exp_torch_table_adjoints_variants.cu`` (the port's design with
+each weight formed from the descriptor's offsets and base corner in place
+of read from W) and ``scripts/exp_torch_table_adjoints_prior.cu`` (the
 scatter as it was before ``sort_ids``: ``torch.sort``, then the runs
 kernel and a separate combine launch) into
 ``nerf_vo_tpu_torch/_build/adjoints/`` (git-ignored). Then, on the card:
@@ -19,7 +18,7 @@ kernel and a separate combine launch) into
   twice to see whether it repeats bitwise, and timed in turns port,
   other, other, port, whole and per level: the earlier design
   (``torch.sort``, runs, combine), the same kernels on ``sort_ids``'s
-  order (the combine not folded in), W from (frac, local), atomic runs;
+  order (the combine not folded in), W from (frac, local);
   ``sort_ids`` against ``torch.sort`` in turns; each kernel beside the
   chain it replaced (``chip_smoke.adjoint_timing``);
 - ``chip_smoke.py``'s phases (b) and (c) for their packets, (d)'s 64 steps
@@ -83,13 +82,10 @@ def load_variants():
     """The variants library :func:`build_variants` built, loaded."""
     dll = ctypes.CDLL(str(OUT / "libvariants.so"))
     p, i = ctypes.c_void_p, ctypes.c_int
-    dll.scatter_cols_outer_atomic_runs.argtypes = [p, p, p, p, i, i, i, p]
     dll.scatter_cols_outer_tri.argtypes = [p] * 8 + [i, i, i, p]
+    dll.scatter_cols_outer_tri.restype = ctypes.c_int
     dll.scatter_cols_outer_tri_slots.argtypes = [i, i]
     dll.scatter_cols_outer_tri_slots.restype = ctypes.c_longlong
-    for fn in (dll.scatter_cols_outer_atomic_runs,
-               dll.scatter_cols_outer_tri):
-        fn.restype = ctypes.c_int
     return dll
 
 
@@ -112,14 +108,6 @@ def _stream():
 def _check(rc, what):
     if rc:
         raise SystemExit(f"{what} launch failed: cudaError {rc}")
-
-
-def atomic_scatter(lib, W, cot, idx, nb):
-    out = torch.zeros(nb, 32 * cot.shape[1], device=W.device)
-    _check(lib.scatter_cols_outer_atomic_runs(
-        W.data_ptr(), cot.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        W.shape[0], cot.shape[1], nb, _stream()), "atomic runs")
-    return out
 
 
 def prior_scatter(lib, W, cot, idx, nb, own_sort):
@@ -193,9 +181,7 @@ def compare(libs, label, W, cot, idx, nb, cells=None, dfrac=None,
     designs = [("earlier: torch.sort, runs, combine",
                 lambda w, c, i, cl: prior_scatter(prior, w, c, i, nb, False)),
                ("sort_ids, runs, separate combine",
-                lambda w, c, i, cl: prior_scatter(prior, w, c, i, nb, True)),
-               ("atomic runs",
-                lambda w, c, i, cl: atomic_scatter(variants, w, c, i, nb))]
+                lambda w, c, i, cl: prior_scatter(prior, w, c, i, nb, True))]
     if cells is not None:
         designs.append(("W from (frac, local)",
                         lambda w, c, i, cl: tri_scatter(variants, *cl, c, i,

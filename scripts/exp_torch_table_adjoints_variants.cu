@@ -1,14 +1,9 @@
-// scatter_cols_outer's function by two designs it does not take, on no
-// path: scripts/exp_torch_table_adjoints.py builds this file (the whole of
+// scatter_cols_outer's function by a design it does not take, on no path:
+// scripts/exp_torch_table_adjoints.py builds this file (the whole of
 // nerf_vo_tpu_torch/csrc/gather.cu is included, for its kernels and
-// helpers) and times both against the port's design (ids sorted by
-// sort_ids, each id's terms summed in order, no atomics, one cooperative
-// launch):
+// helpers) and times it against the port's design (ids sorted by sort_ids,
+// each id's terms summed in order, no atomics, one cooperative launch):
 //
-// - scatter_cols_outer_atomic_runs: the runs kernel on the ids in the
-//   order given (level-major, ray-major), each run's sum added with float4
-//   atomics (AddRuns), as scatter_cols_accum does at F <= 2; any F; it
-//   sums in an order that changes from call to call;
 // - scatter_cols_outer_tri: the port's design with another row source,
 //   OuterTri, which forms each weight W[r, e] in registers from the
 //   descriptor's offsets frac[r] and base corner local[r] (36 bytes, read
@@ -19,23 +14,6 @@
 #include "nerf_vo_tpu_torch/csrc/gather.cu"
 
 namespace {
-
-// row t of W (x) cot in the order given: Outer<F> without the permutation
-template <int F>
-struct OuterInOrder {
-  const float* W;
-  const float* cot;
-  template <int R>
-  __device__ __forceinline__ void load(long long t, int col, bool ok,
-                                       float (&v)[8]) const {
-    constexpr int E = F >= 8 ? 1 : 8 / F;
-    float w[E], c[F < 8 ? F : 8];
-    ld_floats_if<E, true>(W + t * 32 + col / F, ok, w);
-    ld_floats_if<(F < 8 ? F : 8), false>(cot + t * F + col % F, ok, c);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = w[i / F] * c[i % F];
-  }
-};
 
 // the weight of lattice point i on an axis: (i == lo) (1 - f) + (i == lo +
 // 1) f, as hash_grid's axis weights give it bit for bit
@@ -80,31 +58,6 @@ struct OuterTri {
 };
 
 }  // namespace
-
-// W [M, 32] f32, cot [M, F] f32, idx [M] int32 (any order); out [n_bricks,
-// 32F] f32, zeroed by the caller. The function of scatter_cols_outer.
-extern "C" int scatter_cols_outer_atomic_runs(const void* W, const void* cot,
-                                              const void* idx, void* out,
-                                              int M, int F, int n_bricks,
-                                              void* stream) {
-  if (M == 0) return 0;
-  const float* w = static_cast<const float*>(W);
-  const float* c = static_cast<const float*>(cot);
-  const int* ix = static_cast<const int*>(idx);
-  const AddRuns sink{static_cast<float*>(out)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (F) {
-    case 1: return launch_scatter_runs<1>(OuterInOrder<1>{w, c}, sink, ix, M,
-                                          n_bricks, s);
-    case 2: return launch_scatter_runs<2>(OuterInOrder<2>{w, c}, sink, ix, M,
-                                          n_bricks, s);
-    case 4: return launch_scatter_runs<4>(OuterInOrder<4>{w, c}, sink, ix, M,
-                                          n_bricks, s);
-    case 8: return launch_scatter_runs<8>(OuterInOrder<8>{w, c}, sink, ix, M,
-                                          n_bricks, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // frac [M, 3] f32, local [M, 3] int64, cot [M, F] f32; sidx, perm [M]
 // int32 from sort_ids; out [n_bricks, 32F] f32, zeroed by the caller; part

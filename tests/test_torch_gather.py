@@ -2,9 +2,10 @@
 (``nerf_vo_tpu_torch/ops/gather_cuda.py``) against the Pallas kernels of
 ``nerf_vo_tpu/ops/gather_pallas.py`` in interpret mode, and against the
 XLA chain of ``hash_encode`` that computes the same functions. The two
-adjoints of ``gather_interp`` (``gather_cols_dot``, ``scatter_cols_outer``)
-are held against the Pallas ``gather_cols`` / ``scatter_cols_accum``
-followed by the contraction / the outer product in ``jnp``.
+adjoints of ``gather_interp`` (``gather_cols_dot_plain``, the dW inside
+``gather_cols_dfrac_plain``, and ``scatter_cols_outer``) are held against
+the Pallas ``gather_cols`` / ``scatter_cols_accum`` followed by the
+contraction / the outer product in ``jnp``.
 
 Pallas runs as ``tests/test_gather_pallas.py`` runs it: interpret mode,
 tile 128, a 64-brick table of 256-wide rows, M = 256 descriptors. Inputs are
@@ -18,7 +19,7 @@ sums and the output in f32. Tolerances:
 - ``scatter_cols_accum`` / ``scatter_cols_outer``: abs < 0.2, the bound of
   the Pallas tests (Pallas accumulates its ~4 N(0, 0.1) rows per brick in
   bf16, the port in f32), and 1e-5 against numpy's f32 ``add.at``;
-- ``gather_cols_dot``: 1e-5 against the Pallas gather's bf16 rows
+- ``gather_cols_dot_plain``: 1e-5 against the Pallas gather's bf16 rows
   contracted in f32 in ``jnp``, and against numpy (F-term f32 sums);
 - against the XLA chain (all f32 but the bf16 table): 1e-5, the order of
   a 32-term f32 sum.
@@ -170,8 +171,8 @@ def test_gather_cols_dot_matches_pallas(F, ids):
                           interpret=True, tile=TILE)
     want = jnp.sum(rows.astype(jnp.float32).reshape(M, 32, F)
                    * jnp.asarray(cot)[:, None, :], axis=-1)
-    got = gc.gather_cols_dot(torch.tensor(tab), torch.tensor(idx),
-                             torch.tensor(cot))
+    got = gc.gather_cols_dot_plain(torch.tensor(tab), torch.tensor(idx),
+                                   torch.tensor(cot))
     assert got.shape == (M, 32) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
@@ -278,8 +279,6 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(data):
     with pytest.raises(ValueError, match="unsupported device"):
         gc.scatter_cols_accum(torch.empty(M, 256, device="meta"), idx, B)
     cot = torch.empty(M, 8, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        gc.gather_cols_dot(tab, idx, cot)
     with pytest.raises(ValueError, match="unsupported device"):
         gc.scatter_cols_outer(torch.empty(M, 32, device="meta"), cot, idx, B)
     with pytest.raises(ValueError, match="unsupported device"):

@@ -9,19 +9,18 @@ imports nothing of JAX, so it also runs where JAX is not installed:
 Tolerances: ``gather_cols`` bitwise (the same bf16 rounding);
 ``gather_interp`` / ``gather_interp_mm`` 1e-5 of the largest |output| (f32
 sums of 32 products in another order); ``gather_interp`` on a bf16 table
-bitwise the f32 kernel's result on the same values in f32; ``scatter_cols_accum`` 1e-5 of the
-largest |output| (f32 atomics in arbitrary order against a sequential
-index_add_). ``gather_interp_mm`` and ``scatter_cols_accum`` run both with
-leading rows kept on chip (``hot_rows``) and without; ids out of
+bitwise the f32 kernel's result on the same values in f32;
+``scatter_cols_accum`` 1e-5 of the largest |output| (f32 sums in sorted
+order against a sequential index_add_). ``gather_interp_mm`` runs both
+with leading rows staged on chip (``hot_rows``) and without; ids out of
 ``[0, n_bricks)`` are held against a reference that reads zeros for them
-(gather) or drops them (scatter). The scatter's id patterns (runs of equal
-ids, which the F <= 2 kernel sums in registers) are held elementwise
-within the f32 summation bound of each brick's terms. The fused adjoints
-of ``gather_interp``: ``gather_cols_dot`` elementwise within the f32
-summation bound of its F terms, ``scatter_cols_outer`` within that of
-each brick's terms (its rows ``W (x) cot`` formed in registers) and
-bitwise the same over two calls (it adds no atomics, and sorts its ids
-with ``sort_ids``, never ``torch.sort``). The position pullback
+(gather) or drops them (scatter). The scatters' id patterns (runs of equal
+ids, ids spanning many lane groups' ranges) are held elementwise within
+the f32 summation bound of each brick's terms, and both scatters bitwise
+the same over two calls (they add no atomics, and sort their ids with
+``sort_ids``, never ``torch.sort``). The fused table adjoint of
+``gather_interp``, ``scatter_cols_outer``, forms its rows ``W (x) cot`` in
+registers. The position pullback
 ``gather_cols_dfrac`` elementwise within the f32 summation bound of its
 terms (F products a corner, the separable weights' sums), bitwise the same
 over two calls and for a descriptor wherever it lies in the call;
@@ -157,22 +156,20 @@ def test_gather_interp_weight_patterns(dev, F, weights):
 @pytest.mark.cuda
 @pytest.mark.parametrize("F", [1, 2, 4, 8])
 def test_scatter_cols_accum_matches_plain(dev, F):
-    """With no rows on chip, and with the first 64 of 300 accumulated in
-    shared memory."""
+    """One launch of the scatter after one of its sort."""
     tab, idx, w = _inputs(dev, F)
     rows = torch.randn(idx.shape[0], 32 * F, device=dev)
     want = gc.scatter_cols_accum_plain(rows, idx, tab.shape[0])
-    for hot in (0, 64):
-        before = gc.scatter_cols_accum.launches
-        got = gc.scatter_cols_accum(rows, idx, tab.shape[0], hot_rows=hot)
-        torch.cuda.synchronize()
-        assert gc.scatter_cols_accum.launches == before + 1
-        _close(got, want)
+    before = (gc.scatter_cols_accum.launches, gc.sort_ids.launches)
+    got = gc.scatter_cols_accum(rows, idx, tab.shape[0])
+    torch.cuda.synchronize()
+    assert (gc.scatter_cols_accum.launches, gc.sort_ids.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hot", [0, 512])
-def test_scatter_cols_accum_level0_contention(dev, hot):
+def test_scatter_cols_accum_level0_contention(dev):
     """The field's level 0: 512 bricks, 196,608 descriptors (~384 a
     brick), F = 8."""
     g = torch.Generator(device=dev)
@@ -180,7 +177,7 @@ def test_scatter_cols_accum_level0_contention(dev, hot):
     idx = torch.randint(0, 512, (196608,), generator=g, device=dev,
                         dtype=torch.int32)
     rows = torch.randn(196608, 256, generator=g, device=dev)
-    got = gc.scatter_cols_accum(rows, idx, 512, hot_rows=hot)
+    got = gc.scatter_cols_accum(rows, idx, 512)
     torch.cuda.synchronize()
     _close(got, gc.scatter_cols_accum_plain(rows, idx, 512))
 
@@ -189,7 +186,7 @@ def test_scatter_cols_accum_level0_contention(dev, hot):
 @pytest.mark.parametrize("brick", [5, 700], ids=["hot", "beyond_hot"])
 def test_every_id_on_one_brick(dev, brick):
     """4096 descriptors on one brick of a 1024-row table whose first 512
-    rows are kept on chip."""
+    rows gather_interp_mm stages on chip."""
     g = torch.Generator(device=dev)
     g.manual_seed(5)
     tab = torch.randn(1024, 256, generator=g, device=dev)
@@ -199,7 +196,7 @@ def test_every_id_on_one_brick(dev, brick):
     # stays well inside 1e-5 of the sum
     rows = torch.rand(4096, 256, generator=g, device=dev)
     got = gc.gather_interp_mm(tab, idx, w, 8, hot_rows=512)
-    got_s = gc.scatter_cols_accum(rows, idx, 1024, hot_rows=512)
+    got_s = gc.scatter_cols_accum(rows, idx, 1024)
     torch.cuda.synchronize()
     _close(got, gc.gather_interp_plain(tab, idx, w, 8))
     _close(got_s, gc.scatter_cols_accum_plain(rows, idx, 1024))
@@ -219,7 +216,7 @@ def test_ids_out_of_range(dev, hot):
     idx[:3] = torch.tensor([-1, 300, 2**31 - 1], device=dev)
     rows = torch.randn(idx.shape[0], 256, generator=g, device=dev)
     got = gc.gather_interp_mm(tab, idx, w, 8, hot_rows=hot)
-    got_s = gc.scatter_cols_accum(rows, idx, 300, hot_rows=hot)
+    got_s = gc.scatter_cols_accum(rows, idx, 300)
     torch.cuda.synchronize()
     _close(got, _interp_ref(tab, idx, w, 8))
     assert not got[:3].any()
@@ -229,13 +226,13 @@ def test_ids_out_of_range(dev, hot):
 @pytest.mark.cuda
 @pytest.mark.parametrize("F", [1, 8])
 def test_one_descriptor(dev, F):
-    """M = 1, staged and not."""
+    """M = 1, staged (gather_interp_mm) and not."""
     tab, idx, w = _inputs(dev, F)
     idx, w = idx[:1].contiguous(), w[:1].contiguous()
     rows = torch.randn(1, 32 * F, device=dev)
     for hot in (0, 300):
         got = gc.gather_interp_mm(tab, idx, w, F, hot_rows=hot)
-        got_s = gc.scatter_cols_accum(rows, idx, 300, hot_rows=hot)
+        got_s = gc.scatter_cols_accum(rows, idx, 300)
         torch.cuda.synchronize()
         assert got.shape == (1, F)
         _close(got, gc.gather_interp_plain(tab, idx, w, F))
@@ -446,10 +443,9 @@ def test_hash_proposal_grid_at_f2_with_512_hot_rows(dev):
     one-hot route and kept on chip, 512 hot rows): hash_encode's forward,
     table gradient and position gradient on the card against the plain
     versions on the CPU (rows 2 and 5 as the position pullback and the
-    table adjoint with its sort, one launch each, the unfused kernels and
-    gather_cols_dot none); then gather_interp_mm and
-    scatter_cols_accum alone at F = 2 with the 512 hot rows, against
-    plain."""
+    table adjoint with its sort, one launch each, the unfused kernels
+    none); then gather_interp_mm with the 512 hot rows and
+    scatter_cols_accum alone at F = 2, against plain."""
     cfg = hg.HashGridConfig(5, 2, 17, 16, 128)
     assert hg._hot_rows(cfg) == 512
     g = torch.Generator().manual_seed(7)
@@ -469,7 +465,7 @@ def test_hash_proposal_grid_at_f2_with_512_hot_rows(dev):
     for name in ("gather_cols_dfrac", "gather_interp", "gather_interp_mm",
                  "scatter_cols_outer", "sort_ids"):
         assert getattr(gc, name).launches == counts[name] + 1, name
-    for name in ("gather_cols", "scatter_cols_accum", "gather_cols_dot"):
+    for name in ("gather_cols", "scatter_cols_accum"):
         assert getattr(gc, name).launches == counts[name], name
     tab_d = tab.to(dev)
     n = 2000
@@ -477,13 +473,14 @@ def test_hash_proposal_grid_at_f2_with_512_hot_rows(dev):
     _close(gc.gather_interp_mm(tab_d, idx[:n], W[:n], 2, hot_rows=512),
            gc.gather_interp_mm_plain(tab_d, idx[:n], W[:n], 2))
     rows = torch.randn(idx.shape[0], 64, device=dev)
-    _close(gc.scatter_cols_accum(rows, idx, tab_d.shape[0], hot_rows=512),
+    _close(gc.scatter_cols_accum(rows, idx, tab_d.shape[0]),
            gc.scatter_cols_accum_plain(rows, idx, tab_d.shape[0]))
 
 
 # ---------------------------------------------------------------------------
-# the F <= 2 scatter (runs of equal ids summed in registers) and the
-# lane-group gather_cols, on the id patterns their designs meet
+# the scatters (runs of equal ids summed in registers, ranges of the sorted
+# order) and the lane-group gather_cols, on the id patterns their designs
+# meet
 # ---------------------------------------------------------------------------
 
 def _within_sum_bound(got, rows, idx, n_bricks):
@@ -561,26 +558,23 @@ SCATTER_CASES = ["run_longer_than_a_range", "one_id_everywhere",
 @pytest.mark.parametrize("case", SCATTER_CASES)
 @pytest.mark.parametrize("F", [1, 2, 4, 8])
 def test_scatter_cols_accum_id_patterns(dev, F, case):
-    """Each case with no rows on chip and with the first 64 accumulated in
-    shared memory, held within the f32 summation bound of its terms."""
-    idx, n_bricks, hot = _scatter_case(dev, case)
+    """Each case held within the f32 summation bound of its terms."""
+    idx, n_bricks, _ = _scatter_case(dev, case)
     g = torch.Generator(device=dev)
     g.manual_seed(12)
     rows = torch.randn(idx.shape[0], 32 * F, generator=g, device=dev)
-    for h in (0, hot):
-        before = gc.scatter_cols_accum.launches
-        got = gc.scatter_cols_accum(rows, idx, n_bricks, hot_rows=h)
-        torch.cuda.synchronize()
-        assert gc.scatter_cols_accum.launches == before + 1
-        _within_sum_bound(got, rows, idx, n_bricks)
+    before = gc.scatter_cols_accum.launches
+    got = gc.scatter_cols_accum(rows, idx, n_bricks)
+    torch.cuda.synchronize()
+    assert gc.scatter_cols_accum.launches == before + 1
+    _within_sum_bound(got, rows, idx, n_bricks)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("F", [1, 2, 4, 8])
 def test_scatter_cols_accum_on_proposal_rays(dev, F):
     """Level-major descriptors of rays (each ray's samples adjacent), the
-    order the hash grid hands the scatter, through a 5-level grid with
-    level 0's bricks on chip."""
+    order the hash grid hands the scatter, through a 5-level grid."""
     cfg = hg.HashGridConfig(5, F, 17, 16, 128)
     g = torch.Generator(device=dev)
     g.manual_seed(13)
@@ -594,7 +588,7 @@ def test_scatter_cols_accum_on_proposal_rays(dev, F):
     cot = torch.randn(idx.shape[0], F, generator=g, device=dev)
     rows = (W[:, :, None] * cot[:, None, :]).reshape(idx.shape[0], 32 * F)
     nb = 5 * cfg.bricks_per_level
-    got = gc.scatter_cols_accum(rows, idx, nb, hot_rows=hg._hot_rows(cfg))
+    got = gc.scatter_cols_accum(rows, idx, nb)
     torch.cuda.synchronize()
     _within_sum_bound(got, rows, idx, nb)
 
@@ -622,9 +616,8 @@ def test_gather_cols_bitwise_widths(dev, R, M):
 
 
 # ---------------------------------------------------------------------------
-# the fused adjoints of gather_interp: gather_cols_dot (row 2 with the
-# contraction that consumed its rows) and scatter_cols_outer (row 5 with
-# the outer product that fed it)
+# the table adjoint of gather_interp: scatter_cols_outer (row 5 with the
+# outer product that fed it)
 # ---------------------------------------------------------------------------
 
 ADJOINT_IDS = ["random", "runs", "out_of_range"]
@@ -656,39 +649,9 @@ def _adjoint_inputs(dev, F, ids, M=4099, n_bricks=700):
     return tab, idx, w.contiguous(), cot
 
 
-def _within_dot_bound(got, tab, idx, cot):
-    """Elementwise |got - plain| <= 2 gamma_(F+1) * sum_f |bf16(v) c|, the
-    bound on two f32 sums of the same F products in any order; ids outside
-    [0, n_bricks) give rows of zeros."""
-    F = cot.shape[1]
-    ok = (idx >= 0) & (idx < tab.shape[0])
-    safe = torch.where(ok, idx, torch.zeros_like(idx))
-    want = gc.gather_cols_dot_plain(tab, safe, cot) * ok[:, None]
-    abs_sum = gc.gather_cols_dot_plain(tab.abs(), safe, cot.abs())
-    eps = 2.0 ** -24
-    bound = 2 * (F + 1) * eps / (1 - (F + 1) * eps) * abs_sum
-    diff = (got - want).abs()
-    assert bool((diff <= bound).all()), diff.max().item()
-    assert not got[~ok].any()
-
-
 def _outer_rows(W, cot):
     M, F = cot.shape
     return (W[:, :, None] * cot[:, None, :]).reshape(M, 32 * F)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("ids", ADJOINT_IDS)
-@pytest.mark.parametrize("F", [1, 2, 4, 8])
-def test_gather_cols_dot_matches_plain(dev, F, ids):
-    tab, idx, _, cot = _adjoint_inputs(dev, F, ids)
-    before = (gc.gather_cols_dot.launches, gc.gather_cols.launches)
-    got = gc.gather_cols_dot(tab, idx, cot)
-    torch.cuda.synchronize()
-    assert (gc.gather_cols_dot.launches, gc.gather_cols.launches) == (
-        before[0] + 1, before[1])
-    assert got.shape == (idx.shape[0], 32) and got.dtype == torch.float32
-    _within_dot_bound(got, tab, idx, cot)
 
 
 @pytest.mark.cuda
@@ -725,19 +688,26 @@ def test_scatter_cols_outer_id_patterns(dev, F, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scatter", ["outer", "accum"])
 @pytest.mark.parametrize("case", SCATTER_CASES)
 @pytest.mark.parametrize("F", [1, 2, 4, 8])
-def test_scatter_cols_outer_repeats_bitwise(dev, F, case):
+def test_scatter_cols_outer_repeats_bitwise(dev, F, case, scatter):
     """The sorted design adds no atomics: two calls on the same inputs
-    give the same bits, ids spanning many lane groups' ranges included."""
+    give the same bits, ids spanning many lane groups' ranges included;
+    scatter_cols_outer, and scatter_cols_accum on rows of its own."""
     idx, n_bricks, _ = _scatter_case(dev, case)
     g = torch.Generator(device=dev)
     g.manual_seed(25)
     W = torch.rand(idx.shape[0], 32, generator=g, device=dev)
     cot = torch.randn(idx.shape[0], F, generator=g, device=dev)
+    if scatter == "outer":
+        call = lambda: gc.scatter_cols_outer(W, cot, idx, n_bricks)  # noqa
+    else:
+        rows = torch.randn(idx.shape[0], 32 * F, generator=g, device=dev)
+        call = lambda: gc.scatter_cols_accum(rows, idx, n_bricks)  # noqa
     before = gc.sort_ids.launches
-    first = gc.scatter_cols_outer(W, cot, idx, n_bricks)
-    again = gc.scatter_cols_outer(W, cot, idx, n_bricks)
+    first = call()
+    again = call()
     torch.cuda.synchronize()
     assert gc.sort_ids.launches == before + 2
     assert torch.equal(first, again)
@@ -747,8 +717,8 @@ def test_scatter_cols_outer_repeats_bitwise(dev, F, case):
 @pytest.mark.parametrize("F", [1, 2, 4, 8])
 def test_adjoints_on_proposal_rays(dev, F):
     """Level-major descriptors of rays (each ray's samples adjacent) through
-    a 5-level grid: both adjoints as the hash grid's backward calls
-    them."""
+    a 5-level grid: the table adjoint as the hash grid's backward calls
+    it."""
     cfg = hg.HashGridConfig(5, F, 17, 16, 128)
     g = torch.Generator(device=dev)
     g.manual_seed(24)
@@ -760,31 +730,29 @@ def test_adjoints_on_proposal_rays(dev, F):
     idx, _, _, W, _ = hg._descriptors((o + t * d).clamp(0.0, 1.0), cfg)
     cot = torch.randn(idx.shape[0], F, generator=g, device=dev)
     nb = 5 * cfg.bricks_per_level
-    tab = torch.randn(nb, 32 * F, generator=g, device=dev)
     got = gc.scatter_cols_outer(W, cot, idx, nb)
-    dW = gc.gather_cols_dot(tab, idx, cot)
     torch.cuda.synchronize()
     _within_sum_bound(got, _outer_rows(W, cot), idx, nb)
-    _within_dot_bound(dW, tab, idx, cot)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("F", [1, 2, 4, 8])
 def test_adjoints_with_no_descriptors(dev, F):
-    """M = 0: an empty dW, dfrac and sort, a zero gradient, no launch."""
+    """M = 0: an empty dfrac and sort, zero scatters, no launch."""
     tab, idx, W, cot = _adjoint_inputs(dev, F, "random", M=16)
     local, frac = _cells(dev, F, 16)
-    counted = (gc.gather_cols_dot, gc.scatter_cols_outer,
+    counted = (gc.scatter_cols_accum, gc.scatter_cols_outer,
                gc.gather_cols_dfrac, gc.sort_ids)
     before = [k.launches for k in counted]
-    dW = gc.gather_cols_dot(tab, idx[:0], cot[:0])
+    acc = gc.scatter_cols_accum(tab[:0], idx[:0], 700)
     grad = gc.scatter_cols_outer(W[:0], cot[:0], idx[:0], 700)
     d = gc.gather_cols_dfrac(tab, idx[:0], cot[:0], local[:0], frac[:0],
                              LEVEL_FIRST, LEVEL_RES)
     keys, perm = gc.sort_ids(idx[:0], 700)
     torch.cuda.synchronize()
-    assert dW.shape == (0, 32) and d.shape == (0, 3)
+    assert d.shape == (0, 3)
     assert keys.shape == (0,) and perm.shape == (0,)
+    assert acc.shape == (700, 32 * F) and not acc.any()
     assert grad.shape == (700, 32 * F) and not grad.any()
     assert [k.launches for k in counted] == before
 
@@ -807,16 +775,6 @@ def test_adjoints_reject_bad_inputs(dev):
                              [16.0] * 33)
     with pytest.raises(TypeError):
         gc.sort_ids(idx.long(), 700)
-    with pytest.raises(ValueError):
-        gc.gather_cols_dot(tab, idx, cot[:, :4].contiguous())  # R != 32F
-    with pytest.raises(ValueError):
-        gc.gather_cols_dot(tab, idx, cot[:10])  # row count mismatch
-    with pytest.raises(TypeError):
-        gc.gather_cols_dot(tab, idx, cot.double())
-    with pytest.raises(ValueError):
-        gc.gather_cols_dot(tab, idx, cot.cpu())
-    with pytest.raises(ValueError):
-        gc.gather_cols_dot(tab, idx, cot[:, :3].contiguous())  # F 3
     with pytest.raises(ValueError):
         gc.scatter_cols_outer(W[:, :16].contiguous(), cot, idx, 700)
     with pytest.raises(ValueError):
@@ -894,17 +852,17 @@ def _within_dfrac_bound(got, tab, idx, cot, local, frac):
 @pytest.mark.parametrize("ids", DFRAC_IDS)
 @pytest.mark.parametrize("F", [1, 2, 4, 8])
 def test_gather_cols_dfrac_matches_plain(dev, F, ids):
-    """One launch of the kernel and none of gather_cols_dot; uniform ids,
-    runs of ids, one brick, ids out of range (zeros); two calls give the
-    same bits."""
+    """One launch of the kernel and none of gather_cols; uniform ids, runs
+    of ids, one brick, ids out of range (zeros); two calls give the same
+    bits."""
     tab, idx, cot, local, frac = _dfrac_case(dev, F, ids)
-    before = (gc.gather_cols_dfrac.launches, gc.gather_cols_dot.launches)
+    before = (gc.gather_cols_dfrac.launches, gc.gather_cols.launches)
     got = gc.gather_cols_dfrac(tab, idx, cot, local, frac, LEVEL_FIRST,
                                LEVEL_RES)
     again = gc.gather_cols_dfrac(tab, idx, cot, local, frac, LEVEL_FIRST,
                                  LEVEL_RES)
     torch.cuda.synchronize()
-    assert (gc.gather_cols_dfrac.launches, gc.gather_cols_dot.launches) == (
+    assert (gc.gather_cols_dfrac.launches, gc.gather_cols.launches) == (
         before[0] + 2, before[1])
     assert got.shape == (idx.shape[0], 3) and got.dtype == torch.float32
     _within_dfrac_bound(got, tab, idx, cot, local, frac)
@@ -936,7 +894,8 @@ def test_gather_cols_dfrac_rows_do_not_depend_on_their_place(dev, F):
 @pytest.mark.parametrize("F", [2, 8])
 def test_gather_cols_dfrac_is_hash_encodes_position_pullback(dev, F):
     """The kernel, summed over levels, against the plain chain it replaced
-    (``gather_cols_dot``'s dW through ``dfrac``, times the resolution) on a
+    (``gather_cols_dot_plain``'s dW through ``dfrac``, times the
+    resolution) on a
     5-level hash grid's descriptors of rays."""
     cfg = hg.HashGridConfig(5, F, 17, 16, 128)
     g = torch.Generator(device=dev)
@@ -952,8 +911,9 @@ def test_gather_cols_dfrac_is_hash_encodes_position_pullback(dev, F):
     first = [l * cfg.bricks_per_level for l in range(5)]
     got = gc.gather_cols_dfrac(tab, idx, cot, local, frac, first,
                                cfg.resolutions)
-    chain = gc.dfrac(gc.gather_cols_dot(tab, idx, cot), local, frac) * \
-        torch.tensor(cfg.resolutions, device=dev).repeat_interleave(
+    dW = gc.gather_cols_dot_plain(tab, idx, cot)
+    chain = gc.dfrac(dW, local, frac) * torch.tensor(
+        cfg.resolutions, device=dev).repeat_interleave(
             idx.shape[0] // 5)[:, None]
     torch.cuda.synchronize()
     err = (got - chain).abs().max().item()

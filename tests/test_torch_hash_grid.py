@@ -5,8 +5,8 @@ Inputs are numpy draws from a fixed seed; tables go to the port transposed
 to its brick-major layout. On the CPU the port's ``hash_encode`` runs the
 plain versions of its kernels: the one-hot route (``gather_interp_mm``) on
 the dense prefix levels with at most 512 bricks, ``gather_interp`` on the
-rest, ``scatter_cols_outer`` for the table gradient and ``gather_cols_dot``
-for the position gradient.
+rest, ``scatter_cols_outer`` for the table gradient and
+``gather_cols_dfrac`` for the position gradient.
 
 Tolerances, from the measured spread:
 - brick ids: bit-exact (int64 masked to 32 bits against uint32);
@@ -309,8 +309,8 @@ def test_dfrac_matches_the_einsum_form():
 @pytest.mark.parametrize("case", ["field", "hash_proposal"])
 def test_position_pullback_kernel_matches_jax_vjp(case):
     """``gather_cols_dfrac``'s plain version (``dfrac`` of
-    ``gather_cols_dot``'s dW, times the level's resolution), summed over the
-    levels and masked outside the cube, against ``jax.vjp`` of the JAX
+    ``gather_cols_dot_plain``'s dW, times the level's resolution), summed
+    over the levels and masked outside the cube, against ``jax.vjp`` of the JAX
     ``hash_encode`` with respect to the points: the field grid (3 x 8) and
     nerfstudio's first hash proposal grid (5 x 2, log2 17, 16 -> 128),
     points in and around the unit cube; f32 on both sides, relative L2 <

@@ -1,8 +1,8 @@
 """The order in which the hash proposals and the NeRF field hand their
-table gradient to ``scatter_cols_outer``, which the atomic runs design of
-``scatter_cols_accum`` relies on: it sums runs of equal ids in registers
-before adding them to the table (``nerf_vo_tpu_torch/csrc/gather.cu``;
-``scatter_cols_outer`` sorts the ids first and does not depend on it).
+table gradient to ``scatter_cols_outer``: the encode's level-major,
+ray-major layout. No scatter depends on it (both sort their ids first,
+``nerf_vo_tpu_torch/csrc/gather.cu``); the id runs it gives are what
+``chip_smoke.py`` prints per level and what the scatters' run sums meet.
 
 A ``ProposalDensityField`` or ``NerfactoField`` encodes ``positions
 [rays, samples, 3]``; its backward scatters one row per (level, sample) in
@@ -113,8 +113,7 @@ def test_scatter_on_runs_matches_numpy(F):
     ids = np.repeat(rng.integers(0, n_bricks, 60), rng.integers(1, 12, 60))
     rows = rng.normal(size=(ids.shape[0], 32 * F)).astype(np.float32)
     got = gc.scatter_cols_accum(torch.tensor(rows),
-                                torch.tensor(ids.astype(np.int32)), n_bricks,
-                                hot_rows=8)
+                                torch.tensor(ids.astype(np.int32)), n_bricks)
     want = np.zeros((n_bricks, 32 * F), np.float32)
     np.add.at(want, ids, rows)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
