@@ -25,6 +25,11 @@ exit:
       ``hash_descriptors``, every encode's descriptors in one launch,
       bitwise its plain chain and timed beside it, at the benchmark's four
       encodes (vo.map's field and two hash proposals, slam.map's field);
+      and the interlevel loss's forward and backward kernels
+      (``csrc/rendering.cu``) at vo.map's two proposal shapes, within the
+      f32 summation bound of their terms, timed beside the plain [R, B, K]
+      indicator contraction (launched on (h1)'s path only: the replica
+      mapper's proposals distill);
   (b) tracking: ``TrackingStage`` at the full replica configuration
       (DPVO fdim 128 / cdim 384, 96 patches, 32768 edge slots, 32-frame
       ring) on synthetic 360x640 frames, random weights from a seed;
@@ -192,6 +197,13 @@ UNFUSED = ("gather_cols", "scatter_cols_accum")
 # every encode's descriptors: captured inside a replayed step's graphs, so
 # counted at eager steps and captures only
 DESCRIPTORS = "hash_descriptors"
+# the interlevel loss's kernel pair (csrc/rendering.cu): captured inside a
+# replayed step's graphs, so counted at eager steps and captures only; on
+# the paths whose proposals train by the interlevel loss ((h1))
+INTERLEVEL = "interlevel_loss"
+# (a)'s interlevel shapes: vo.map's rays, hash proposals 0 and 1's bins,
+# its final bins
+INTERLEVEL_SHAPES = ((RAYS, 256, FIELD_SAMPLES), (RAYS, 96, FIELD_SAMPLES))
 # the encodes (a) makes descriptors for: vo.map's field and hash proposals
 # 0 and 1, slam.map's field (grid, samples a ray; benchmark/configs)
 DESCRIPTOR_ENCODES = (
@@ -472,12 +484,14 @@ def time_kernel(name, fn, plain, library, nbytes, flops, err, reps=20,
 def kernel_launches():
     """Every counted kernel wrapper by name; each carries its launches in
     ``.launches``."""
-    from nerf_vo_tpu_torch.ops import correlation_cuda, gather_cuda
+    from nerf_vo_tpu_torch.ops import (correlation_cuda, gather_cuda,
+                                       rendering_cuda)
 
     return {"corr_level": correlation_cuda.corr_level,
             "corr_two_level": correlation_cuda.corr_two_level,
             **{k.__name__: k for k in gather_cuda.KERNELS},
-            DESCRIPTORS: gather_cuda.hash_descriptors}
+            DESCRIPTORS: gather_cuda.hash_descriptors,
+            INTERLEVEL: rendering_cuda.interlevel_loss}
 
 
 def reset_launches():
@@ -1004,6 +1018,102 @@ def phase_descriptors(dev):
     return out
 
 
+def interlevel_inputs(dev, R, B, K, gen):
+    """A proposal histogram on jittered uniform bins and a final one
+    resampled from it (monotone through cummax), as the mapper makes them."""
+    from nerf_vo_tpu_torch.ops import rendering as rd
+
+    pe = rd.uniform_bins(R, B, torch.rand(R, B + 1, generator=gen,
+                                          device=dev))
+    pw = torch.rand(R, B, generator=gen, device=dev) ** 4
+    pw = pw / pw.sum(-1, keepdim=True)
+    fe = rd.sample_pdf(pe, pw, K, torch.rand(R, K + 1, generator=gen,
+                                             device=dev))
+    fw = torch.rand(R, K, generator=gen, device=dev) ** 4
+    fw = 0.9 * fw / fw.sum(-1, keepdim=True)
+    return pe.contiguous(), pw.contiguous(), fe.contiguous(), fw.contiguous()
+
+
+def phase_interlevel(dev):
+    """The interlevel loss's kernels at vo.map's two proposal shapes (4096
+    rays; 256 and 96 proposal bins; 48 final bins): the forward's clamped
+    gaps against the plain contraction's and its loss, and the backward's
+    ``d pw`` against the plain contractions of the same per-bin
+    derivatives, each within the f32 summation bound of its terms; each
+    kernel timed as the other rows are, beside the plain chain (the
+    [R, B, K] compares, casts and GEMMs; with autograd's backward for the
+    whole loss). Bounds: the forward reads pe, pw, fe, fw once and writes
+    the [R] partial; the backward reads pe, fe, fw, the clamped gaps and
+    the partial's gradient and writes d pw; each makes 2 B K
+    compare-and-adds a ray, counted as 4 B K operations."""
+    from nerf_vo_tpu_torch.ops import rendering as rd
+    from nerf_vo_tpu_torch.ops import rendering_cuda as rc
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    out = []
+    for R, B, K in INTERLEVEL_SHAPES:
+        label = f"R={R} B={B} K={K}"
+        pe, pw, fe, fw = interlevel_inputs(dev, R, B, K, gen)
+        part, clipped = rc._forward(pe, pw, fe, fw)
+        left = (pe[:, 1:, None] <= fe[:, None, :-1]).float()
+        right = (pe[:, :-1, None] < fe[:, None, 1:]).float()
+        fwc = fw.clamp(min=1e-7)
+        want = (fw - rd._outer_bounds(fe, pe, pw)).clamp(min=0.0)
+        err = check_sums(f"interlevel clamped gaps {label}", clipped, want,
+                         fw.abs() + torch.einsum("rb,rbk->rk", pw.abs(),
+                                                 left + right), B + 2, "(a)")
+        terms = clipped ** 2 / fwc
+        check_sums(f"interlevel loss {label}", torch.sum(part) / (R * K),
+                   torch.mean(terms), terms.sum() / (R * K), R * K, "(a)")
+        gpart = torch.full((R,), 1.0 / (R * K), device=dev)
+        dpw = rc._backward(pe, fe, fw, clipped, gpart)
+        g = -((gpart[:, None] / fwc) * (2.0 * clipped))
+        err = max(err, check_sums(
+            f"interlevel d pw {label}", dpw,
+            torch.einsum("rk,rbk->rb", g, right)
+            - torch.einsum("rk,rbk->rb", g, left),
+            torch.einsum("rk,rbk->rb", g.abs(), left + right), K + 1, "(a)"))
+        del left, right, want, terms, g
+        in_bytes = 4 * (pe.numel() + pw.numel() + fe.numel() + fw.numel())
+        fwd = time_kernel(
+            f"interlevel_fwd {label}", lambda: rc._forward(pe, pw, fe, fw),
+            lambda: rd.interlevel_loss_plain(pe, pw, fe, fw), None,
+            in_bytes + 4 * R, 4 * R * B * K, err)
+        w0 = pw.clone().requires_grad_(True)
+        plain_loss = rd.interlevel_loss_plain(pe, w0, fe, fw)
+        bwd = time_kernel(
+            f"interlevel_bwd {label}",
+            lambda: rc._backward(pe, fe, fw, clipped, gpart),
+            lambda: torch.autograd.grad(plain_loss, w0, retain_graph=True),
+            None,
+            4 * (pe.numel() + fe.numel() + fw.numel() + clipped.numel()
+                 + R + pw.numel()), 4 * R * B * K, err)
+        w = pw.clone().requires_grad_(True)
+
+        def whole(fn):
+            return lambda: torch.autograd.grad(fn(pe, w, fe, fw), w)
+        both = time_kernel(
+            f"interlevel loss and d pw {label}", whole(rc.interlevel_loss),
+            whole(rd.interlevel_loss_plain), None,
+            in_bytes + 4 * R + 4 * pw.numel(), 8 * R * B * K, err)
+        print(f"(a) interlevel {label}: kernels forward {fwd['ms']:.4f} + "
+              f"backward {bwd['ms']:.4f} ms (queued {fwd['queued_ms']:.4f} "
+              f"+ {bwd['queued_ms']:.4f}, cold {fwd['cold_ms']:.4f} + "
+              f"{bwd['cold_ms']:.4f}); the loss and its gradient "
+              f"{both['ms']:.4f} ms against the plain chain's "
+              f"{both['plain_ms']:.4f} ms", flush=True)
+        out.append(dict(name=INTERLEVEL, route="cuda",
+                        source="nerf_vo_tpu_torch/csrc/rendering.cu",
+                        replaces="nerf_vo_tpu_torch/ops/rendering.py "
+                        "_outer_bounds' [R, B, K] indicator contraction",
+                        launches=None, shape=label, backward=bwd,
+                        whole=both, **fwd))
+        del pe, pw, fe, fw, part, clipped, dpw, w, w0, plain_loss
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # (b) tracking, (c) enhancement, (d) mapping
 # ---------------------------------------------------------------------------
@@ -1313,6 +1423,8 @@ def phase_variants(dev, smi, enhanced, frame_of):
         fail("(h1) non-finite losses")
     if "interlevel_loss" not in history[-1]:
         fail("(h1) the loss has no interlevel term")
+    if not counts[INTERLEVEL]:
+        fail("(h1) the interlevel loss never launched its kernels")
     for name in TABLE_ROWS + (DESCRIPTORS,):
         if not counts[name]:
             fail(f"(h1) nerfstudio's mapper never launched {name}")
@@ -1535,10 +1647,7 @@ def phase_pipeline(dev, smi, tracking_fps, tmp):
         marks["end"] = (time.perf_counter(), self.step_count)
 
     stages.MappingStage.finish = timed_finish
-    correlation_cuda.corr_level.launches = 0
-    correlation_cuda.corr_two_level.launches = 0
-    for k in gather_cuda.KERNELS + (gather_cuda.hash_descriptors,):
-        k.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     try:
         mapping = pipeline.execute(args, device=dev, dataset=dataset)
@@ -1556,6 +1665,8 @@ def phase_pipeline(dev, smi, tracking_fps, tmp):
         if n == 0 and name not in BF16_KERNELS + UNFUSED:
             fail(f"the pipeline never launched {name}")
     check_unfused(counts, "the pipeline")
+    # the replica mapper's proposals distill, so no interlevel loss here
+    counts[INTERLEVEL] = read_launches()[INTERLEVEL]
     if correlation_cuda.corr_level.launches:
         fail("the pipeline launched the one-level corr kernel")
 
@@ -3541,12 +3652,13 @@ def run_phases(jtmp):
         f"CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    reports = cuda_build.build_all(["corr", "gather"])
+    reports = cuda_build.build_all(["corr", "gather", "rendering"])
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         log(f"--- nvcc {name}:\n{rep}")
 
-    kernels = phase_corr(dev) + phase_gather(dev) + phase_descriptors(dev)
+    kernels = (phase_corr(dev) + phase_gather(dev) + phase_descriptors(dev)
+               + phase_interlevel(dev))
     correlation_cuda.corr_level.launches = 0
     correlation_cuda.corr_two_level.launches = 0
     packets, frame_of, fps, updates = phase_tracking(dev)
@@ -3564,12 +3676,13 @@ def run_phases(jtmp):
           " GiB", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    for k in gather_cuda.KERNELS + (gather_cuda.hash_descriptors,):
-        k.launches = 0
+    reset_launches()
     map_ms, held_d = phase_mapping(dev, enhanced, frame_of)
+    d_interlevel = read_launches()[INTERLEVEL]
     counts = {k.__name__: k.launches
               for k in gather_cuda.KERNELS + (gather_cuda.hash_descriptors,)}
-    print(f"(d) launches on the mapping path: {counts}; peak device memory "
+    print(f"(d) launches on the mapping path: {counts}, {INTERLEVEL} "
+          f"{d_interlevel} (its proposals distill); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     for name, n in counts.items():
         if n == 0 and name not in BF16_KERNELS + UNFUSED:
@@ -3601,7 +3714,7 @@ def run_phases(jtmp):
     for name in ("gather_interp", "gather_interp_mm"):
         if not eval_counts[name]:
             fail(f"the evaluation path never launched {name}")
-    for name in UNFUSED + ADJOINTS + (SORT,) + CORR_KERNELS:
+    for name in UNFUSED + ADJOINTS + (SORT, INTERLEVEL) + CORR_KERNELS:
         if eval_counts[name]:
             fail(f"the evaluation path launched {name} "
                  f"{eval_counts[name]} times: a gradient or tracking")
@@ -3637,6 +3750,8 @@ def run_phases(jtmp):
         if name in parallel_launches:  # (i): by case, per rank
             entry["i_launches"] = parallel_launches[name]
             entry["i_tp_route"] = [t for n, t in parallel_held if n == name]
+        if name == INTERLEVEL:
+            entry["d_launches"] = d_interlevel
         entry["j1_launches"] = j1_launches[name]
         entry["j2_launches"] = j2_launches[name]
         if name in TABLE_ROWS:

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from nerf_vo_tpu_torch.ops import rendering_cuda
+
 # ---------------------------------------------------------------------------
 # spacing functions: s in [0,1] <-> metric distance t
 # ---------------------------------------------------------------------------
@@ -185,7 +187,22 @@ def _outer_bounds(t0, t1, y1):
 def interlevel_loss(proposal_edges, proposal_weights, final_edges,
                     final_weights):
     """Histogram consistency loss: penalizes proposal histograms that put
-    less mass than the final one over the same span."""
+    less mass than the final one over the same span.
+
+    CUDA tensors go to ``rendering_cuda.interlevel_loss`` (the indicators
+    formed in registers, never materialized); CPU tensors to
+    :func:`interlevel_loss_plain`."""
+    if proposal_weights.device.type == "cuda":
+        return rendering_cuda.interlevel_loss(
+            proposal_edges, proposal_weights, final_edges, final_weights)
+    return interlevel_loss_plain(proposal_edges, proposal_weights,
+                                 final_edges, final_weights)
+
+
+def interlevel_loss_plain(proposal_edges, proposal_weights, final_edges,
+                          final_weights):
+    """:func:`interlevel_loss` as the [R, B, K] indicator contraction of
+    :func:`_outer_bounds`, on any device."""
     fw = final_weights.detach()
     fe = final_edges.detach()
     bound = _outer_bounds(fe, proposal_edges, proposal_weights)

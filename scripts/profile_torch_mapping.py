@@ -28,8 +28,9 @@ Both windows are also reduced by the occupancy sampler's spans
 (``map.occupancy``, ``map.occ_refresh``; empty for nerfacto). The eager
 window's ``hash.encode`` (launches and device ms a step) is printed apart,
 beside ``gather_cuda.hash_descriptors.launches``, the descriptor kernel's
-launches in each window (a replayed step runs it inside its graphs, so
-counts it only where it captures). The ``CatArrayBatchedCopy`` copies' device time is
+launches in each window, and ``rendering_cuda.interlevel_loss.launches``,
+the interlevel-loss kernels' (a replayed step runs both inside its graphs,
+so counts them only where it captures). The ``CatArrayBatchedCopy`` copies' device time is
 given by span in each of the three. What the program's spans cost a
 profiled step is their count a step times the time of one empty span
 under the profiler (the mean of 20,000). Prints one JSON line (and writes
@@ -59,6 +60,7 @@ from benchmark import harness  # noqa: E402
 from benchmark.yardstick import parts  # noqa: E402
 from benchmark.yardstick.trace import Trace, busy  # noqa: E402
 from nerf_vo_tpu_torch.ops import gather_cuda as gc  # noqa: E402
+from nerf_vo_tpu_torch.ops import rendering_cuda  # noqa: E402
 from nerf_vo_tpu_torch.runtime import perf  # noqa: E402
 
 WINDOW = "bench.window"
@@ -179,10 +181,16 @@ def main():
     trainer = stage.trainer
     untraced = drv.window(ctx, state, a.seconds)
     n = a.steps
-    descriptors = {"setup_and_untraced": gc.hash_descriptors.launches}
+    # kernels captured inside the step's graphs: counted at eager steps
+    # and captures only
+    captured = {"hash_descriptors": gc.hash_descriptors,
+                "interlevel_loss": rendering_cuda.interlevel_loss}
+    counted = {k: {"setup_and_untraced": fn.launches}
+               for k, fn in captured.items()}
     _, replayed = _window(*_profile(stage.train_step, n), n)
-    descriptors["replayed"] = (gc.hash_descriptors.launches
-                               - descriptors["setup_and_untraced"])
+    for k, fn in captured.items():
+        counted[k]["replayed"] = (fn.launches
+                                  - counted[k]["setup_and_untraced"])
     counters = {k: getattr(trainer, k) for k in (
         "captures", "replays", "eager_steps", "occ_refreshes")}
 
@@ -191,9 +199,10 @@ def main():
         trainer.gradients(stage.state, stage.buffer, d)
         trainer.update(stage.state, d)
 
-    before = gc.hash_descriptors.launches
+    before = {k: fn.launches for k, fn in captured.items()}
     tr, w = _profile(eager, n)
-    descriptors["eager"] = gc.hash_descriptors.launches - before
+    for k, fn in captured.items():
+        counted[k]["eager"] = fn.launches - before[k]
     r, line_eager = _window(tr, w, n)
     del line_eager["parts"]["replay"]
     fw = parts.Window(w.device, w.launches, w.ranges, w.window, FORWARD)
@@ -221,7 +230,8 @@ def main():
         "card": _card(), "cell": cell.name, "seed": a.seed, "steps": n,
         "untraced_step_ms": 1e3 * untraced["window_s"]
         / max(untraced["steps"], 1),
-        "counters": counters, "hash_descriptors_launches": descriptors,
+        "counters": counters,
+        **{f"{k}_launches": v for k, v in counted.items()},
         "graphs": (trainer.graphs.counts() if trainer.graphs else None),
         "replayed": replayed, "eager": line_eager,
         "span_us": 1e6 * span_s,

@@ -27,6 +27,7 @@ from nerf_vo_tpu.ops import rendering as jR
 from nerf_vo_tpu.ops.sh import sh_encode as j_sh
 from nerf_vo_tpu_torch.ops import losses as tL
 from nerf_vo_tpu_torch.ops import rendering as tR
+from nerf_vo_tpu_torch.ops import rendering_cuda
 from nerf_vo_tpu_torch.ops.sh import sh_encode as t_sh
 
 ATOL = 2e-6
@@ -138,6 +139,103 @@ def test_regularizers(data):
                               torch.tensor(e), torch.tensor(w)),
            jR.interlevel_loss(jnp.asarray(pe), jnp.asarray(pw),
                               jnp.asarray(e), jnp.asarray(w)), 1e-5)
+
+
+def _interlevel_case(data, variant):
+    """A proposal histogram (16 bins) against the final one (the fixture's
+    24), with ``variant``'s ties: proposal edges equal to final edges
+    (``<=`` and ``<`` both decide), zero-width final bins (as cummax
+    leaves them), equal adjacent proposal edges, a swapped pair."""
+    rng = np.random.default_rng(7)
+    e = data["edges"].copy()
+    pe = np.sort(rng.uniform(0, 1, (R, 17)), -1).astype(np.float32)
+    pe[:, 0], pe[:, -1] = 0.0, 1.0
+    pw = rng.exponential(0.1, (R, 16)).astype(np.float32)
+    fw = data["w"] + np.float32(0.01)
+    if variant in ("ties", "all"):
+        pe[:, 3:15:3] = e[:, 5:23:5][:, :4]
+        e[:, 9] = pe[:, 8]
+    if variant in ("zero_width", "all"):
+        e[:, 12] = e[:, 11]
+        e[:, 18:20] = e[:, 17:18]
+        pe[:, 6] = pe[:, 5]
+    if variant in ("swapped", "all"):
+        pe[:, [7, 8]] = pe[:, [8, 7]]
+    return pe, pw, e, fw
+
+
+INTERLEVEL_CASES = ["random", "ties", "zero_width", "swapped", "all"]
+
+
+@pytest.mark.parametrize("variant", INTERLEVEL_CASES[1:])
+def test_interlevel_ties(data, variant):
+    """The indicator contraction keeps JAX's two prefix sets, their ties
+    and no monotonicity of the edges."""
+    pe, pw, e, fw = _interlevel_case(data, variant)
+    _close(tR._outer_bounds(torch.tensor(e), torch.tensor(pe),
+                            torch.tensor(pw)),
+           jR._outer_bounds(jnp.asarray(e), jnp.asarray(pe), jnp.asarray(pw)))
+    _close(tR.interlevel_loss(torch.tensor(pe), torch.tensor(pw),
+                              torch.tensor(e), torch.tensor(fw)),
+           jR.interlevel_loss(jnp.asarray(pe), jnp.asarray(pw),
+                              jnp.asarray(e), jnp.asarray(fw)), 1e-5)
+
+
+@pytest.mark.parametrize("variant", INTERLEVEL_CASES)
+def test_interlevel_grad_matches_jax(data, variant):
+    """d loss / d proposal weights, which the card's backward kernel
+    computes, against JAX's gradient (the edges and final weights take
+    none)."""
+    pe, pw, e, fw = _interlevel_case(data, variant)
+    want = jax.grad(lambda w: jR.interlevel_loss(
+        jnp.asarray(pe), w, jnp.asarray(e), jnp.asarray(fw)))(
+        jnp.asarray(pw))
+    w = torch.tensor(pw, requires_grad=True)
+    edges = torch.tensor(e, requires_grad=True)
+    final = torch.tensor(fw, requires_grad=True)
+    tR.interlevel_loss(torch.tensor(pe), w, edges, final).backward()
+    assert edges.grad is None and final.grad is None
+    scale = float(np.abs(np.asarray(want)).max())
+    assert scale > 0
+    _close(w.grad, want, 1e-5 * scale)
+
+
+def _interlevel_before(pe, pw, fe, fw):
+    """The interlevel loss as the port computed it on every device before
+    the card got its kernels: the [R, B, K] indicator contraction."""
+    fw = fw.detach()
+    fe = fe.detach()
+    left = (pe[..., 1:, None] <= fe[..., :-1][..., None, :]).to(torch.float32)
+    right = (pe[..., :-1, None] < fe[..., 1:][..., None, :]).to(torch.float32)
+    bound = (torch.einsum("rb,rbk->rk", pw, right)
+             - torch.einsum("rb,rbk->rk", pw, left))
+    clipped = (fw - bound).clamp(min=0.0)
+    return torch.mean(clipped**2 / fw.clamp(min=1e-7))
+
+
+@pytest.mark.parametrize("variant", INTERLEVEL_CASES)
+def test_interlevel_cpu_bits_unchanged(data, variant, monkeypatch):
+    """On CPU tensors ``interlevel_loss`` is the plain contraction: the
+    same bits as before, loss and gradient, and no kernel is called or
+    launched."""
+    def refuse(*args):
+        raise AssertionError("the CPU route called the CUDA wrapper")
+
+    launches = rendering_cuda.interlevel_loss.launches
+    monkeypatch.setattr(rendering_cuda, "interlevel_loss", refuse)
+    pe, pw, e, fw = (torch.tensor(a) for a in _interlevel_case(data,
+                                                               variant))
+    w0 = pw.clone().requires_grad_(True)
+    w1 = pw.clone().requires_grad_(True)
+    got = tR.interlevel_loss(pe, w0, e, fw)
+    want = _interlevel_before(pe, w1, e, fw)
+    got.backward()
+    want.backward()
+    assert torch.equal(got, want)
+    assert torch.equal(w0.grad, w1.grad)
+    assert torch.equal(got, tR.interlevel_loss_plain(pe, pw, e, fw))
+    monkeypatch.undo()
+    assert rendering_cuda.interlevel_loss.launches == launches
 
 
 def test_losses(data):
