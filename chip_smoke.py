@@ -29,7 +29,10 @@ exit:
       (``csrc/rendering.cu``) at vo.map's two proposal shapes, within the
       f32 summation bound of their terms, timed beside the plain [R, B, K]
       indicator contraction (launched on (h1)'s path only: the replica
-      mapper's proposals distill);
+      mapper's proposals distill); and the F = 8 table kernels at the
+      sdf.map cell's grid (16 levels x 8 features, 2^22 entries a level,
+      32 to 2048) and its three encodes (:func:`phase_sdf_kernels`; alone:
+      ``python3 chip_smoke.py sdf-kernels``);
   (b) tracking: ``TrackingStage`` at the full replica configuration
       (DPVO fdim 128 / cdim 384, 96 patches, 32768 edge slots, 32-frame
       ring) on synthetic 360x640 frames, random weights from a seed;
@@ -1015,6 +1018,140 @@ def phase_descriptors(dev):
                         plain_cold_ms=plain_cold, **timing))
         del x, args
         torch.cuda.empty_cache()
+    return out
+
+
+# (a)'s sdf.map shapes: Neuralangelo's grid and the cell's encodes (points
+# a ray: the final samples and their four taps, the stratified samples, an
+# up-sampling round's new samples; benchmark/configs/neuralangelo_replica)
+SDF_GRID = (16, 8, 22, 32, 2048)
+SDF_ENCODES = (("sdf.map final + taps", 128 * 5), ("sdf.map stratified", 64),
+               ("sdf.map round", 16))
+SDF_HELD = 500_000  # descriptors of a large call held against plain
+SDF_BLOCK = 1 << 22  # descriptors of a block of 5o's plain version
+
+
+def sdf_timed(name, fn, nbytes, flops, err):
+    """:func:`time_kernel`'s readings of one call, without a plain
+    version's time (the plain versions of (a)'s sdf.map calls are held on
+    slices, not timed)."""
+    ms = cuda_ms(fn, 20)
+    queued_ms = cuda_ms(fn, 20, queued=True)
+    cold_ms = cuda_ms_cold(fn, 20)
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"(a) {name}: kernel {ms:.4f} ms, queued {queued_ms:.4f} ms, cold "
+          f"{cold_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}): "
+          f"{bound_ms / queued_ms:.1%} of it queued, "
+          f"{bound_ms / cold_ms:.1%} cold", flush=True)
+    return dict(ms=ms, queued_ms=queued_ms, cold_ms=cold_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+
+def phase_sdf_kernels(dev):
+    """Rows D, 3, 2d and 5o at the sdf.map cell's F = 8 grid (no level of
+    it is on the one-hot route, so row 4 does not run there) and its three
+    encodes of 4096 rays (points uniform in the cube), timed as the other
+    rows are. Held: the descriptors bitwise the plain chain on the first
+    and the last ``SDF_HELD`` points; rows 3 and 2d within the f32
+    summation bound on the first and the last ``SDF_HELD`` descriptors
+    (each descriptor's output is its own; the final encode's last ones
+    pass 2^31 elements of their rows); row 5o within its bound over every
+    descriptor, against its plain version summed over blocks of
+    ``SDF_BLOCK`` descriptors (its [M, 256] rows do not fit at once at the
+    final encode's M = 42M), and bitwise the same over two calls. Returns
+    the timings."""
+    from nerf_vo_tpu_torch.ops import gather_cuda as gc
+    from nerf_vo_tpu_torch.ops import hash_grid as hg
+
+    cfg = hg.HashGridConfig(*SDF_GRID)
+    L, NB, F = cfg.n_levels, cfg.bricks_per_level, cfg.features_per_level
+    res, first = cfg.resolutions, [l * NB for l in range(L)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    tab = torch.randn(L * NB, 32 * F, generator=gen, device=dev) * 1e-2
+    out = []
+    for label, per_ray in SDF_ENCODES:
+        n = RAYS * per_ray
+        x = torch.rand(n, 3, generator=gen, device=dev)
+        desc = gc.hash_descriptors(x, res, NB)
+        idx, local, frac, W, _ = desc
+        M = idx.shape[0]
+        k = min(SDF_HELD, n)
+        for s_ in (slice(0, k), slice(n - k, n)):
+            part = gc.hash_descriptors_plain(x[s_], res, NB)
+            for name, a, b in zip(("idx", "local", "frac", "W"), desc, part):
+                a = a.reshape(L, n, *a.shape[1:])[:, s_].reshape(b.shape)
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    fail(f"hash_descriptors ({label}) [{s_.start}:"
+                         f"{s_.stop}]: {name} differs from the plain chain's")
+            del part
+        row = dict(shape=label, M=M, N=n)
+        nbytes = n * 12 + M * (4 + 24 + 12 + 128) + n * 3
+        row["D"] = sdf_timed(
+            f"hash_descriptors {label} N={n} L={L} (M={M})",
+            lambda: gc.hash_descriptors(x, res, NB),
+            nbytes, 0, 0.0)
+        cot = torch.randn(M, F, generator=gen, device=dev)
+        ends = [slice(0, min(SDF_HELD, M)), slice(max(M - SDF_HELD, 0), M)]
+        got = gc.gather_interp(tab, idx, W, F)
+        for s_ in ends:
+            check_sums(f"gather_interp {label} [{s_.start}:{s_.stop}]",
+                       got[s_], gc.gather_interp_plain(tab, idx[s_], W[s_],
+                                                       F),
+                       gc.gather_interp_plain(tab.abs(), idx[s_],
+                                              W[s_].abs(), F), 32, "(a)")
+        del got
+        row["3"] = sdf_timed(
+            f"gather_interp {label}: M={M} F={F} over {L * NB} bricks",
+            lambda: gc.gather_interp(tab, idx, W, F),
+            interp_table_bytes(tab, idx, W, F) + M * (4 + 128 + 4 * F),
+            2 * M * 32 * F, 0.0)
+        a = (tab, idx, cot, local, frac, first, res)
+        got = gc.gather_cols_dfrac(*a)
+        if not torch.equal(got, gc.gather_cols_dfrac(*a)):
+            fail(f"gather_cols_dfrac ({label}) gave other bits on a second "
+                 "call")
+        for s_ in ends:
+            sub = (tab, idx[s_], cot[s_], local[s_], frac[s_], first, res)
+            check_sums(f"gather_cols_dfrac {label} [{s_.start}:{s_.stop}]",
+                       got[s_], gc.gather_cols_dfrac_plain(*sub),
+                       dfrac_abs_sum(*sub), F + 12, "(a)")
+        del got
+        row["2d"] = sdf_timed(
+            f"gather_cols_dfrac {label}: M={M} F={F}",
+            lambda: gc.gather_cols_dfrac(*a),
+            corner_table_bytes(tab, idx, local, F)
+            + M * (4 + 4 * F + 24 + 12 + 12), M * (8 * 2 * F + 40), 0.0)
+        nb = L * NB
+        got = gc.scatter_cols_outer(W, cot, idx, nb)
+        if not torch.equal(got, gc.scatter_cols_outer(W, cot, idx, nb)):
+            fail(f"scatter_cols_outer ({label}) gave other bits on a second "
+                 "call")
+        want, abs_sum = torch.zeros_like(got), torch.zeros_like(got)
+        for b0 in range(0, M, SDF_BLOCK):
+            s_ = slice(b0, b0 + SDF_BLOCK)
+            want += gc.scatter_cols_outer_plain(W[s_], cot[s_], idx[s_], nb)
+            abs_sum += gc.scatter_cols_outer_plain(W[s_].abs(),
+                                                   cot[s_].abs(), idx[s_], nb)
+        terms = torch.zeros(nb, device=dev).index_add_(
+            0, idx.long(), torch.ones(M, device=dev))
+        check_sums(f"scatter_cols_outer {label}", got, want, abs_sum,
+                   terms[:, None], "(a)")
+        del got, want, abs_sum, terms
+        row["5o"] = sdf_timed(
+            f"scatter_cols_outer {label}: M={M} F={F} into {nb} bricks",
+            lambda: gc.scatter_cols_outer(W, cot, idx, nb),
+            M * (32 * 4 + 4 * F + 4) + nb * 32 * F * 4,
+            2 * M * 32 * F, 0.0)
+        row["5s"] = cuda_ms(lambda: gc.sort_ids(idx, nb), 20, queued=True)
+        print(f"(a) sort_ids {label}: M={M} queued {row['5s']:.4f} ms",
+              flush=True)
+        out.append(row)
+        del x, desc, idx, local, frac, W, cot, a
+        torch.cuda.empty_cache()
+    print(json.dumps({"sdf_kernels": out}), flush=True)
     return out
 
 
@@ -3659,6 +3796,11 @@ def run_phases(jtmp):
 
     kernels = (phase_corr(dev) + phase_gather(dev) + phase_descriptors(dev)
                + phase_interlevel(dev))
+    phase_sdf_kernels(dev)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"(a) peak device memory {peak:.2f} GiB (the sdf.map rows' "
+          "buffers at M = 42M)", flush=True)
+    torch.cuda.reset_peak_memory_stats()  # (b)-(c)'s peak below is theirs
     correlation_cuda.corr_level.launches = 0
     correlation_cuda.corr_two_level.launches = 0
     packets, frame_of, fps, updates = phase_tracking(dev)
@@ -3775,8 +3917,27 @@ def run_phases(jtmp):
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def sdf_kernels_only():
+    """Phase (a)'s sdf.map rows alone (``python3 chip_smoke.py
+    sdf-kernels``): the kernels built, then :func:`phase_sdf_kernels`."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from nerf_vo_tpu_torch.ops import cuda_build
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    cuda_build.build_all(["gather"])
+    phase_sdf_kernels(torch.device("cuda", 0))
+    print(json.dumps({"ok": True}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["pixel-f32"]:  # (j2)'s child process
         pixel_f32_child(sys.argv[2])
+    elif sys.argv[1:2] == ["sdf-kernels"]:
+        sdf_kernels_only()
     else:
         main()

@@ -14,7 +14,14 @@ Distilled dense proposal grids take no optimizer step; every
 ``proposal_refresh_every`` steps their rotating slab is rewritten from the
 updated field. Under ``sampler="occupancy"`` the train state carries the
 occupancy grid, refreshed from the updated field every
-``occupancy.update_every`` steps.
+``occupancy.update_every`` steps. Under ``sampler="sdf"`` (Neuralangelo)
+the field's leaves take AdamW (``nerf_field.SDF_LEARNING_RATE``, decoupled
+weight decay, eps 1e-8) at a learning rate warmed up linearly over
+``warm_up_end`` steps and divided by ``SDF_LR_GAMMA`` at each of
+``SDF_LR_STEPS``; the state carries the step-dependent ``schedule`` ([4]
+on the device: active levels, the taps' eps, the curvature weight, the
+cosine anneal; ``NerfactoModel.schedule_values``), set before each step's
+forward.
 
 Prefetch (``TrainerConfig.prefetch_batch``, by default on where
 ``NERF_VO_PREFETCH_BATCH=1``, as in the JAX package; the port reads the
@@ -45,9 +52,10 @@ refresh's ``occ_jitter`` where the state has no grid), prefetch, phased
 table gradients. The list is captured
 again when a tensor it reads from outside its memory pool has another
 address or shape (:meth:`MappingTrainer.graph_key`: the keyframe buffer,
-the model's tensors, the optimizers' state, the occupancy grid, the draws'
-shapes); the keyframe inserts, the dense proposal refresh and the
-occupancy refresh write their tensors in place, so they keep it. After a
+the model's tensors, the optimizers' state, the occupancy grid, the SDF
+schedule, the draws' shapes); the keyframe inserts, the dense proposal
+refresh and the occupancy refresh write their tensors in place, so they
+keep it. After a
 graphed step the dense proposal refresh runs eagerly. The occupancy
 refresh has graphs of its own on the card, whether its step was graphed
 or eager (:meth:`MappingTrainer._occupancy_step`): captured at the first
@@ -55,10 +63,13 @@ refresh step, they read the step and the slab's jitter from their own
 buffers, so one capture serves every slab, and are replayed at each later
 refresh step; they are captured again where a tensor they read has
 moved (:meth:`MappingTrainer.occupancy_key`). On the card both Adams are
-``capturable`` (their step counts on the device) and the camera learning
-rate is a device tensor set before each step's Adam. Counters: ``captures``, ``replays``,
-``eager_steps`` (train steps by how they ran) and ``occ_refreshes``
-(occupancy refreshes, eager or replayed).
+``capturable`` (their step counts on the device); the camera learning
+rate (and the SDF field's) is a device tensor set before each step's
+Adam, and the SDF schedule before the step's graphs. Counters:
+``captures``, ``replays``, ``eager_steps`` (train steps by how they ran),
+``occ_refreshes`` (occupancy refreshes, eager or replayed) and
+``sdf_points`` (the points the SDF field evaluated, by pass: ``upsample``,
+``final``, ``taps``).
 
 Spans (``runtime/perf.py``; open only under a profiler): a step's parts
 are ``map.sample`` (the draws, and the ray batch), ``map.forward`` (the
@@ -83,6 +94,7 @@ import torch
 from nerf_vo_tpu_torch.core import cameras, conventions, lie
 from nerf_vo_tpu_torch.mapping import keyframe_buffer as kb
 from nerf_vo_tpu_torch.mapping import step_graph as sg
+from nerf_vo_tpu_torch.models import nerf_field
 from nerf_vo_tpu_torch.models.nerfacto import NerfactoModel
 from nerf_vo_tpu_torch.ops import occupancy as O
 from nerf_vo_tpu_torch.runtime.perf import span
@@ -128,7 +140,16 @@ class TrainState:
     cam_opt: torch.optim.Adam
     step: int
     occ_grid: Optional[torch.Tensor] = None  # [res^3] under "occupancy"
+    schedule: Optional[torch.Tensor] = None  # [4] under "sdf"
     prefetch: Optional[Dict] = None  # next step's pixel batch (prefetch)
+
+
+def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    for group in opt.param_groups:
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 class MappingTrainer:
@@ -142,6 +163,7 @@ class MappingTrainer:
         self.generator.manual_seed(seed)
         self.captures = self.replays = self.eager_steps = 0
         self.occ_refreshes = 0
+        self.sdf_points = {"upsample": 0, "final": 0, "taps": 0}
         self.graphs: Optional[sg.StepGraphs] = None
         self.occ_graphs: Optional[sg.StepGraphs] = None
 
@@ -155,26 +177,40 @@ class MappingTrainer:
                                   requires_grad=True)
         cfg = self.config
         # on the card the step's graphs hold both Adams: their step counts
-        # and the camera learning rate live on the device
+        # and the learning rates they set live on the device
         card = self.device.type == "cuda"
-        cam_lr = (torch.tensor(cfg.camera_learning_rate, device=self.device)
-                  if card else cfg.camera_learning_rate)
-        opt = torch.optim.Adam(list(params.values()), lr=cfg.learning_rate,
-                               eps=cfg.eps, capturable=card)
-        cam_opt = torch.optim.Adam([pose_deltas], lr=cam_lr, eps=1e-8,
+
+        def rate(lr):
+            return torch.tensor(lr, device=self.device) if card else lr
+
+        mcfg = self.model.config
+        sdf = mcfg.sampler == "sdf"
+        if sdf:
+            opt = torch.optim.AdamW(list(params.values()),
+                                    lr=rate(nerf_field.SDF_LEARNING_RATE),
+                                    weight_decay=nerf_field.SDF_WEIGHT_DECAY,
+                                    capturable=card)
+        else:
+            opt = torch.optim.Adam(list(params.values()),
+                                   lr=cfg.learning_rate, eps=cfg.eps,
                                    capturable=card)
+        cam_opt = torch.optim.Adam([pose_deltas],
+                                   lr=rate(cfg.camera_learning_rate),
+                                   eps=1e-8, capturable=card)
         for o in (opt, cam_opt):  # eager steps are meant: no warning
             o._warned_capturable_if_run_uncaptured = True
-        if card:  # a loaded state's learning rate comes to the device
-            cam_opt.register_load_state_dict_post_hook(self._lr_to_device)
+            if card:  # a loaded state's learning rate comes to the device
+                o.register_load_state_dict_post_hook(self._lr_to_device)
         return TrainState(
             params=params,
             pose_deltas=pose_deltas,
             opt=opt,
             cam_opt=cam_opt,
             step=0,
-            occ_grid=(O.create(self.model.config.occupancy, self.device)
-                      if self.model.config.sampler == "occupancy" else None),
+            occ_grid=(O.create(mcfg.occupancy, self.device)
+                      if mcfg.sampler == "occupancy" else None),
+            schedule=(torch.zeros(4, device=self.device)
+                      if sdf else None),
         )
 
     def _lr_to_device(self, opt: torch.optim.Optimizer) -> None:
@@ -189,6 +225,27 @@ class MappingTrainer:
         rate = cfg.camera_lr_final / cfg.camera_learning_rate
         return cfg.camera_learning_rate * rate ** (
             step / max(cfg.max_iterations, 1))
+
+    def field_lr(self, step: int) -> float:
+        """The SDF field's AdamW learning rate at ``step``: linear warm-up
+        to ``SDF_LEARNING_RATE`` over ``warm_up_end`` steps, then divided
+        by ``SDF_LR_GAMMA`` past each of ``SDF_LR_STEPS`` (Neuralangelo's
+        ``two_steps_with_warmup``)."""
+        end = self.model.config.sdf.warm_up_end
+        lr = nerf_field.SDF_LEARNING_RATE
+        if step < end:
+            return lr * step / end
+        return lr / nerf_field.SDF_LR_GAMMA ** sum(
+            step > s for s in nerf_field.SDF_LR_STEPS)
+
+    def set_schedule(self, state: TrainState) -> None:
+        """The SDF schedule of this step into ``state.schedule`` (in place:
+        the step's graphs read it from the device); nothing for another
+        sampler."""
+        if state.schedule is None:
+            return
+        for i, v in enumerate(self.model.schedule_values(state.step)):
+            state.schedule[i].fill_(v)
 
     def _refreshes_occupancy(self, state: TrainState) -> bool:
         return (state.occ_grid is not None and state.step
@@ -303,9 +360,11 @@ class MappingTrainer:
         """What a captured step reads from outside its memory pool: the
         keyframe buffer's tensors and sizes, the model's parameters and
         buffers, the pose corrections, each optimizer's state and
-        learning rates, the occupancy grid; and the draws' shapes. The
-        graphs replay while it is unchanged."""
+        learning rates, the occupancy grid, the SDF schedule; and the
+        draws' shapes. The graphs replay while it is unchanged."""
         ts = [buffer.intrinsics, buffer.c2w, buffer.pixels, state.pose_deltas]
+        if state.schedule is not None:
+            ts.append(state.schedule)
         for opt in (state.opt, state.cam_opt):
             for st in opt.state.values():
                 ts += [v for v in st.values() if torch.is_tensor(v)]
@@ -337,13 +396,15 @@ class MappingTrainer:
 
         def run(g: sg.StepGraphs):
             d = g.draws
+            if state.schedule is not None:
+                g.eager("sample", lambda: self.set_schedule(state))
             with g.segment("sample"):
                 batch = self._batch(state, buffer, d)
             with g.segment("forward"):
                 loss, metrics = self._forward(state, batch, d, None)
             with g.segment("backward"):
                 self._backward(state, loss)
-            g.eager("optimizer", lambda: self._set_camera_lr(state))
+            g.eager("optimizer", lambda: self._set_learning_rates(state))
             with g.segment("optimizer"):
                 self._adam(state)
                 packed = torch.stack(list(metrics.values()))
@@ -360,6 +421,7 @@ class MappingTrainer:
         copied out of the graphs' memory (one copy)."""
         with span("map.sample"):
             sg.fill_draws(self.graphs.draws, draws)
+        self._count_points(draws)
         self.graphs.replay()
         self.replays += 1
         with span("map.replay"):
@@ -399,6 +461,14 @@ class MappingTrainer:
         graphs.capture(run)
         self.occ_graphs = graphs
 
+    def _count_points(self, draws: Dict) -> None:
+        """``sdf_points``: the SDF field's points of a step of these
+        draws."""
+        if self.model.config.sampler == "sdf":
+            for k, n in self.model.sdf_points(
+                    draws["frame"].shape[0]).items():
+                self.sdf_points[k] += n
+
     def _metrics(self) -> Dict[str, torch.Tensor]:
         names, packed = self.graphs.metrics
         return dict(zip(names, packed.clone().unbind(0)))
@@ -423,6 +493,7 @@ class MappingTrainer:
         sampled without prefetch and the loss is taken without the train
         step (no phased table gradient), as the JAX package's parallel
         steps do."""
+        self.set_schedule(state)
         batch = self._batch(state, buffer, draws, n_rays)
         loss, metrics = self._forward(state, batch, draws,
                                       None if n_rays is not None
@@ -457,10 +528,12 @@ class MappingTrainer:
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The loss and its terms (``step``: the phased table gradient's,
         or None)."""
+        self._count_points(draws)
         with span("map.forward"):
             return self.model.loss(
                 batch, draws["uniforms"], occ_grid=state.occ_grid,
-                step=step, distill_points=draws.get("distill_points"))
+                step=step, distill_points=draws.get("distill_points"),
+                schedule=state.schedule)
 
     def _backward(self, state: TrainState, loss: torch.Tensor) -> None:
         """The loss's gradient into every leaf's ``.grad``."""
@@ -476,21 +549,18 @@ class MappingTrainer:
         zeroed first: the gauge anchor), clear them, run the step's
         refreshes, step + 1."""
         with span("map.optimizer"):
-            self._set_camera_lr(state)
+            self._set_learning_rates(state)
             self._adam(state)
             self._refresh(state, draws)
 
-    def _set_camera_lr(self, state: TrainState) -> None:
-        """The camera learning rate of this step (in place where it is a
-        device tensor, which a capturable Adam reads)."""
-        if not self.config.optimize_extrinsics:
-            return
-        lr = self.camera_lr(state.step)
-        for group in state.cam_opt.param_groups:
-            if torch.is_tensor(group["lr"]):
-                group["lr"].fill_(lr)
-            else:
-                group["lr"] = lr
+    def _set_learning_rates(self, state: TrainState) -> None:
+        """The camera learning rate of this step, and the SDF field's (in
+        place where it is a device tensor, which a capturable Adam
+        reads)."""
+        if self.config.optimize_extrinsics:
+            _set_lr(state.cam_opt, self.camera_lr(state.step))
+        if state.schedule is not None:
+            _set_lr(state.opt, self.field_lr(state.step))
 
     def _adam(self, state: TrainState) -> None:
         """Both Adam updates from the leaves' ``.grad``, which are then
@@ -548,6 +618,9 @@ class MappingTrainer:
         xy = torch.stack([xs, ys], -1).reshape(-1, 2) + 0.5
         o, d, dn = cameras.generate_rays(c2w, intrinsics, xy, "opengl")
         outs = {"rgb": [], "depth": [], "accumulation": []}
+        if self.model.config.sampler == "sdf":
+            # 128 samples and 4 taps a ray: 640 points a ray encoded
+            chunk = min(chunk, 1 << 12)
         render = chunk_fn or (lambda o, d, occ: self.model.render(
             o, d, occ_grid=occ))
         for i in range(0, xy.shape[0], chunk):

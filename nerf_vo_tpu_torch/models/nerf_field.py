@@ -7,7 +7,10 @@ bricks, F = 1, in an f32 or bf16 table), :class:`ProposalDensityField`
 16-wide MLP) and :class:`MLPProposalField` (a Fourier-feature MLP, no
 table), and :class:`NerfactoField` (hash grid -> density + geometry
 feature; SH view directions + appearance embedding -> rgb; geometry
-feature -> predicted normals).
+feature -> predicted normals), and :class:`SDFField` (Neuralangelo's signed
+distance field on the same hash grid: ``[x, features]`` -> an f32
+weight-normed softplus MLP -> SDF and a 256-wide feature; ``[x, SH view,
+normal, feature]`` -> a weight-normed bf16 colour MLP -> rgb).
 
 The MLPs compute in bf16 as the JAX package's Flax ``MLP`` does: input,
 weight and bias cast to bf16, the product and the bias add each rounded to
@@ -18,11 +21,13 @@ seed; :func:`from_jax_params` carries a JAX parameter tree across instead.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F_
 from torch import nn
 
 from nerf_vo_tpu_torch.ops import hash_grid
@@ -297,6 +302,172 @@ class NerfactoField(_UnitCube):
     def normals(self, geo_feat):
         n = self.normal_mlp(geo_feat)
         return n / torch.linalg.norm(n, dim=-1, keepdim=True).clamp(min=1e-7)
+
+
+# Neuralangelo's field, losses and optimizer (Li et al., CVPR 2023;
+# ``projects/neuralangelo/configs/base.yaml``); the hash grid's levels,
+# features and table size are :class:`NerfactoConfig`'s
+SDF_MIN_RES = 32  # the grid's coarsest resolution
+SDF_HIDDEN = 256  # the SDF MLP's hidden width and feature width
+SDF_BETA = 100.0  # softplus
+SDF_COLOR_HIDDEN = 256
+SDF_COLOR_DEPTH = 4
+SDF_SH_DEGREE = 3  # 9 view coefficients
+SDF_OUT_BIAS = 0.5  # the geometric init's sphere radius
+SDF_INIT_S = 3.0  # s_var; inv_s = exp(s_var)
+SDF_UPSAMPLE_INV_S = 64.0  # up-sampling round h: SDF_UPSAMPLE_INV_S * 2**h
+SDF_EIKONAL_MULT = 0.1
+SDF_CURVATURE_MULT = 5e-4  # divided by growth**(active - c2f_init)
+SDF_LEARNING_RATE = 1e-3  # AdamW
+SDF_WEIGHT_DECAY = 1e-2
+SDF_LR_STEPS = (4915, 6554)  # each divides the learning rate by SDF_LR_GAMMA
+SDF_LR_GAMMA = 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SDFConfig:
+    """Neuralangelo's sample counts and schedules, the step counts scaled
+    from its 500k iterations to a mapper's 8192."""
+
+    num_samples: int = 64  # stratified
+    num_importance: int = 16  # each up-sampling round's samples
+    upsample_rounds: int = 4
+    c2f_init: int = 4  # active levels at step 0
+    c2f_step: int = 82  # one more level every c2f_step steps
+    anneal_end: int = 819  # the NeuS cosine anneal's last step
+    warm_up_end: int = 82  # linear warm-up of the learning rate
+
+
+# Neuralangelo's four-tap tetrahedron: sum k = 0, sum k k^T = 4 I
+SDF_TAPS = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0),
+            (1.0, 1.0, 1.0))
+
+
+class _WNLinear(nn.Module):
+    """A linear layer under weight normalization (``torch.nn.utils.
+    weight_norm`` at dim 0): ``weight = weight_v * (weight_g /
+    ||weight_v||)``, row by row."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.weight_v = nn.Parameter(torch.empty(out_dim, in_dim))
+        self.weight_g = nn.Parameter(torch.empty(out_dim, 1))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+
+    def weight(self):
+        return self.weight_v * (self.weight_g / torch.linalg.vector_norm(
+            self.weight_v, dim=1, keepdim=True))
+
+    @torch.no_grad()
+    def reset_g(self) -> None:
+        """g = ||v||, so that the layer starts at weight v."""
+        self.weight_g.copy_(torch.linalg.vector_norm(
+            self.weight_v, dim=1, keepdim=True))
+
+
+class SDFField(_UnitCube):
+    """Neuralangelo's signed distance field on the brick hash grid.
+
+    Positions are world coordinates; :meth:`to_sphere` maps the scene's
+    bounding sphere (centre and radius from the AABB) to the unit sphere,
+    and the grid covers [-1, 1]^3 of it. The SDF MLP takes ``[x,
+    features]`` (levels at or above ``active`` multiplied by 0), has one
+    softplus hidden layer and gives the SDF and a ``SDF_HIDDEN``-wide
+    feature, all in float32: its four-tap differences at ~1/3547 would be noise
+    after a bf16 rounding of its input. The colour MLP ("idr" mode) takes
+    ``[x, SH view, normal, feature]`` and computes in bf16 as :class:`MLP`
+    does. Both are weight-normed. ``s_var`` is NeuS's learnable sharpness.
+    Initialization: Neuralangelo's geometric init of the SDF MLP (inside
+    out: positive inside the sphere of radius ``SDF_OUT_BIAS``),
+    the colour MLP as :func:`_lecun_linear`, tables as Instant-NGP."""
+
+    def __init__(self, grid: HashGridConfig, aabb_min: float = -1.0,
+                 aabb_max: float = 1.0, **tp):
+        super().__init__(False, aabb_min, aabb_max, **tp)
+        self.grid = grid
+        h = SDF_HIDDEN
+        n_in = 3 + grid.output_dim
+        self.sdf_mlp = nn.ModuleList([_WNLinear(n_in, h),
+                                      _WNLinear(h, 1 + h)])
+        dims = ([3 + SDF_SH_DEGREE**2 + 3 + h]
+                + [SDF_COLOR_HIDDEN] * SDF_COLOR_DEPTH + [3])
+        self.color_mlp = nn.ModuleList(
+            _WNLinear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.s_var = nn.Parameter(torch.tensor(SDF_INIT_S))
+        self.tables = nn.Parameter(hash_grid.init_tables(
+            grid, shard=self.model_axis_size))
+        F = grid.features_per_level
+        self.register_buffer("level_of_col", torch.div(
+            torch.arange(grid.output_dim), F, rounding_mode="floor").float(),
+            persistent=False)
+        self.register_buffer("taps", torch.tensor(SDF_TAPS),
+                             persistent=False)
+        self._init_mlps()
+
+    @torch.no_grad()
+    def _init_mlps(self) -> None:
+        first, last = self.sdf_mlp
+        k0 = first.weight_v.shape[0]
+        nn.init.normal_(first.weight_v, 0.0, math.sqrt(2) / math.sqrt(k0))
+        first.weight_v[:, 3:] = 0.0  # the features start out of the SDF
+        nn.init.zeros_(first.bias)
+        k1 = last.weight_v.shape[1]
+        # inside out: the indoor room's free space is inside the sphere
+        nn.init.normal_(last.weight_v, -math.sqrt(math.pi / k1), 1e-4)
+        nn.init.constant_(last.bias, SDF_OUT_BIAS)
+        for layer in self.color_mlp:
+            a = layer.weight_v.shape[1]
+            std = math.sqrt(1.0 / a) / 0.87962566103423978
+            nn.init.trunc_normal_(layer.weight_v, std=std, a=-2 * std,
+                                  b=2 * std)
+            nn.init.zeros_(layer.bias)
+        for layer in list(self.sdf_mlp) + list(self.color_mlp):
+            layer.reset_g()
+
+    @property
+    def radius(self) -> float:
+        return 0.5 * (self.aabb_max - self.aabb_min)
+
+    def to_sphere(self, positions):
+        """World positions -> the unit sphere's frame."""
+        centre = 0.5 * (self.aabb_min + self.aabb_max)
+        return (positions - centre) / self.radius
+
+    def level_mask(self, active):
+        """[L*F] 1 for the features of levels below ``active`` (a 0-dim
+        tensor or a number), else 0."""
+        return (self.level_of_col < active).float()
+
+    def sdf_head(self, h):
+        """The SDF MLP in float32: [..., 3 + L*F] -> [..., 1 + hidden]."""
+        first, last = self.sdf_mlp
+        h = F_.softplus(F_.linear(h, first.weight(), first.bias),
+                        beta=SDF_BETA)
+        return F_.linear(h, last.weight(), last.bias)
+
+    def sdf_out(self, xs, active):
+        """[..., 3] positions in the sphere's frame -> [..., 1 + hidden]:
+        the SDF, then the feature. One encode of every point."""
+        feat = hash_grid.hash_encode(self.tables, (xs + 1.0) * 0.5,
+                                     self.grid, **self._tp())
+        feat = feat * self.level_mask(active)
+        return self.sdf_head(torch.cat([xs, feat], dim=-1))
+
+    def sdf_value(self, xs, active):
+        return self.sdf_out(xs, active)[..., 0]
+
+    def rgb(self, xs, directions, normals, feature):
+        """The colour MLP on ``[x, SH(directions), normals, feature]``:
+        bf16 compute (each product and bias add rounded), sigmoid."""
+        h = torch.cat([xs, sh_encode(directions, SDF_SH_DEGREE),
+                       normals, feature], dim=-1).to(torch.bfloat16)
+        last = len(self.color_mlp) - 1
+        for i, layer in enumerate(self.color_mlp):
+            h = torch.matmul(h, layer.weight().to(torch.bfloat16).t())
+            h = h + layer.bias.to(torch.bfloat16)
+            if i < last:
+                h = torch.relu(h)
+        return torch.sigmoid(h.float())
 
 
 def _mlp_from_jax(prefix: str, tree) -> Dict[str, torch.Tensor]:

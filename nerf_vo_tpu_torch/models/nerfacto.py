@@ -22,14 +22,27 @@ occupancy-grid weights at 128 uniform coarse bins drive the PDF resampler
 (``ops/occupancy.py``), and :meth:`NerfactoModel.refresh_occupancy`
 re-evaluates a rotating slab of the grid from the current field.
 
-Every path of the JAX model is ported; a ``sampler`` other than "proposal"
-or "occupancy" raises ``NotImplementedError``. ``model_axis`` names the
-axis of the mesh the model is given (``NerfactoModel(config, mesh=)``)
-over which every table's rows are sharded: each rank holds
-``1 / model_axis_size`` of each table and every encode makes the model
-axis's collectives (``ops/hash_grid.py``), so the ranks of a model group
-run the same calls in lockstep; ``descriptor_sharding`` routes each rank's
-own samples to the rows' owners.
+Neuralangelo's SDF mapper (``sampler="sdf"``, :class:`nerf_field.SDFField`,
+a port-only mapper with no JAX counterpart) renders a signed distance
+field by NeuS: 64 stratified samples between the ray's entry and exit of
+the scene's unit sphere, then ``upsample_rounds`` of NeuS's up-sampling
+(16 samples each, merged by a sort) under the segment span
+``map.sdf_upsample``; the SDF and its feature at every final sample and
+at its four taps (one encode) under ``map.taps``, where the taps' finite
+differences give the SDF's gradient and Laplacian; the colour MLP under
+``map.field``; NeuS's alphas, the photometric L1, eikonal and curvature
+terms under ``map.loss``. Its step-dependent state (active levels, tap
+spacing, curvature weight, cosine anneal) comes in as the device tensor
+``schedule`` (:meth:`NerfactoModel.schedule_values`, set by the trainer).
+
+Every path of the JAX model is ported; a ``sampler`` other than "proposal",
+"occupancy" or "sdf" raises ``NotImplementedError``. ``model_axis`` names
+the axis of the mesh the model is given (``NerfactoModel(config, mesh=)``)
+over which every table's rows are sharded: each rank holds ``1 /
+model_axis_size`` of each table and every encode makes the model axis's
+collectives (``ops/hash_grid.py``), so the ranks of a model group run the
+same calls in lockstep; ``descriptor_sharding`` routes each rank's own
+samples to the rows' owners.
 
 Random numbers come in as arguments: ``uniforms`` is the list of
 stratification uniforms of one render (the bin jitter ``[R, S0+1]``, then one
@@ -40,6 +53,7 @@ stratification uniforms of one render (the bin jitter ``[R, S0+1]``, then one
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -52,6 +66,8 @@ from nerf_vo_tpu_torch.models.nerf_field import (
     MLPProposalField,
     NerfactoField,
     ProposalDensityField,
+    SDFConfig,
+    SDFField,
 )
 from nerf_vo_tpu_torch.ops import losses as L
 from nerf_vo_tpu_torch.ops import occupancy as O
@@ -107,16 +123,17 @@ class NerfactoConfig:
     sampler: str = "proposal"
     num_occ_bins: int = 128
     occupancy: O.OccupancyConfig = O.OccupancyConfig()
+    sdf: SDFConfig = SDFConfig()  # sampler="sdf" (port-only)
 
 
 def check_ported(cfg: NerfactoConfig) -> None:
     """Raise NotImplementedError for a configuration this port does not
     run."""
-    ok = ("proposal", "occupancy")
+    ok = ("proposal", "occupancy", "sdf")
     if cfg.sampler not in ok:
         raise NotImplementedError(
             f"NerfactoConfig.sampler={cfg.sampler!r} is not ported (ported: "
-            f"{ok})")
+            f"{ok}: the nerfstudio, instant-ngp and neuralangelo mappers)")
 
 
 def _model_axis(cfg: NerfactoConfig, mesh):
@@ -175,19 +192,31 @@ class NerfactoModel(nn.Module):
                 5, 2, 17, 16, res), hidden=16, **common) for res in (128, 256)]
         self.proposal_fields = nn.ModuleList(
             fields[:n_prop] if config.sampler == "proposal" else [])
-        self.field = NerfactoField(
-            grid=HashGridConfig(config.num_grid_levels,
-                                config.grid_features_per_level,
-                                config.log2_hashmap_size, 16, config.max_res),
-            num_images=config.num_images,
-            predict_normals=config.predict_normals,
-            **common,
-        )
+        if config.sampler == "sdf":
+            self.field = SDFField(
+                HashGridConfig(config.num_grid_levels,
+                               config.grid_features_per_level,
+                               config.log2_hashmap_size,
+                               nerf_field.SDF_MIN_RES, config.max_res),
+                **{k: v for k, v in common.items()
+                   if k != "use_contraction"})
+        else:
+            self.field = NerfactoField(
+                grid=HashGridConfig(config.num_grid_levels,
+                                    config.grid_features_per_level,
+                                    config.log2_hashmap_size, 16,
+                                    config.max_res),
+                num_images=config.num_images,
+                predict_normals=config.predict_normals,
+                **common,
+            )
         self._s_to_t = R.SPACINGS[config.spacing][0]
 
     def uniform_shapes(self, n_rays: int) -> Sequence[Tuple[int, int]]:
         """Shapes of the stratification uniforms of one training render."""
         cfg = self.config
+        if cfg.sampler == "sdf":
+            return [(n_rays, cfg.sdf.num_samples)]
         if cfg.sampler == "occupancy":
             counts = [cfg.num_occ_bins, cfg.num_nerf_samples]
         else:
@@ -200,8 +229,8 @@ class NerfactoModel(nn.Module):
         return origins[..., None, :] + directions[..., None, :] * t_mid[..., None]
 
     def render(self, origins, directions, camera_indices=None, uniforms=None,
-               compute_grad_normals: bool = False, occ_grid=None, step=None
-               ) -> Dict[str, Any]:
+               compute_grad_normals: bool = False, occ_grid=None, step=None,
+               schedule=None) -> Dict[str, Any]:
         """Render a batch of rays.
 
         Args:
@@ -213,11 +242,15 @@ class NerfactoModel(nn.Module):
             spreads the samples as if every bin were occupied).
           step: the train step; with ``table_grad_phase`` it phases the
             field's table gradient (training renders only).
+          schedule: under ``sampler="sdf"``, the [4] device tensor of
+            :meth:`schedule_values` (None: the schedules' end).
 
         Returns a dict with rgb [R, 3], depth [R] (euclidean ray distance),
         accumulation [R], the per-level histograms, and the normals.
         """
         cfg = self.config
+        if cfg.sampler == "sdf":
+            return self._render_sdf(origins, directions, uniforms, schedule)
         n_rays = origins.shape[0]
         u = list(uniforms) if uniforms is not None else [None] * (
             len(cfg.num_proposal_samples) + 1)
@@ -337,7 +370,7 @@ class NerfactoModel(nn.Module):
     # -- losses ------------------------------------------------------------
 
     def loss(self, batch: Dict[str, Any], uniforms=None, occ_grid=None,
-             step=None, distill_points=None
+             step=None, distill_points=None, schedule=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full training loss on a ray batch.
 
@@ -345,9 +378,12 @@ class NerfactoModel(nn.Module):
         normal [R, 3], depth_cov [R], camera_indices [R], depth_mask,
         normal_mask. ``step``: the train step (``table_grad_phase``);
         ``distill_points``: the MLP proposals' ``[proposal_distill_points,
-        3]`` uniform unit-cube points.
+        3]`` uniform unit-cube points; ``schedule``: under
+        ``sampler="sdf"``, :meth:`render`'s.
         """
         cfg = self.config
+        if cfg.sampler == "sdf":
+            return self._loss_sdf(batch, uniforms, schedule)
         out = self.render(
             batch["origins"], batch["directions"],
             batch.get("camera_indices"), uniforms=uniforms,
@@ -440,6 +476,117 @@ class NerfactoModel(nn.Module):
             metrics["loss"] = loss
             metrics["psnr"] = -10.0 * torch.log10(
                 metrics["rgb_loss"].clamp(min=1e-10))
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
+    # -- the SDF mapper (sampler="sdf") --------------------------------------
+
+    def schedule_values(self, step: int) -> Tuple[float, ...]:
+        """Neuralangelo's step-dependent state at ``step``: (active levels,
+        the taps' eps = 1 / res[active - 1], the curvature weight
+        ``SDF_CURVATURE_MULT / growth**(active - c2f_init)``, the cosine
+        anneal's ratio)."""
+        sc, grid = self.config.sdf, self.field.grid
+        L = grid.n_levels
+        active = min(L, sc.c2f_init + step // sc.c2f_step)
+        growth = (math.exp((math.log(grid.max_resolution)
+                            - math.log(grid.base_resolution)) / (L - 1))
+                  if L > 1 else 1.0)
+        eps = 1.0 / grid.resolutions[active - 1]
+        curv = (nerf_field.SDF_CURVATURE_MULT
+                / growth ** (active - sc.c2f_init))
+        anneal = min(step / sc.anneal_end, 1.0) if sc.anneal_end else 1.0
+        return float(active), eps, curv, anneal
+
+    def sdf_points(self, n_rays: int) -> Dict[str, int]:
+        """The points the SDF field evaluates in one training render, by
+        pass: the up-sampling's (no gradient), the final samples' and
+        their taps'."""
+        sc = self.config.sdf
+        final = sc.num_samples + sc.upsample_rounds * sc.num_importance
+        return {"upsample": n_rays * (sc.num_samples + (
+                    sc.upsample_rounds - 1) * sc.num_importance),
+                "final": n_rays * final,
+                "taps": n_rays * final * len(nerf_field.SDF_TAPS)}
+
+    def _render_sdf(self, origins, directions, uniforms, schedule):
+        sc = self.config.sdf
+        f = self.field
+        R_ = origins.shape[0]
+        dev = origins.device
+        if schedule is None:
+            schedule = torch.tensor(self.schedule_values(1 << 30),
+                                    device=dev)
+        active, eps, anneal = schedule[0], schedule[1], schedule[3]
+        o = f.to_sphere(origins)
+        d = directions
+        with span("map.sdf_upsample", segment=True):
+            near, far = R.sphere_bounds(o, d)
+            u = (uniforms[0] if uniforms is not None else torch.full(
+                (R_, sc.num_samples), 0.5, device=dev))
+            with torch.no_grad():
+                o_, d_ = o.detach(), d.detach()
+
+                def points(z):
+                    return o_[:, None, :] + d_[:, None, :] * z[..., None]
+
+                z = R.stratified_depths(near.detach(), far.detach(), u)
+                sdf = f.sdf_value(points(z), active)
+                for h in range(sc.upsample_rounds):
+                    new = R.neus_upsample(o_, d_, z, sdf, sc.num_importance,
+                                          nerf_field.SDF_UPSAMPLE_INV_S
+                                          * 2**h)
+                    z, order = torch.sort(torch.cat([z, new], -1), dim=-1)
+                    if h + 1 < sc.upsample_rounds:
+                        sdf = torch.gather(torch.cat(
+                            [sdf, f.sdf_value(points(new), active)], -1),
+                            -1, order)
+        with span("map.taps"):
+            # the final samples and their four taps in one encode
+            x = o[:, None, :] + d[:, None, :] * z[..., None]  # [R, S, 3]
+            e = eps * (1.0 / math.sqrt(3.0))
+            x5 = torch.cat([x[..., None, :],
+                            x[..., None, :] + e * f.taps], dim=-2)
+            out = f.sdf_out(x5, active)  # [R, S, 5, 1 + hidden]
+            sdf, feature = out[..., 0, 0], out[..., 0, 1:]
+            s_taps = out[..., 1:, 0]  # [R, S, 4]
+            grad = torch.sum(s_taps[..., None] * f.taps, dim=-2) / (4.0 * e)
+            laplacian = (torch.sum(s_taps, -1) * 0.5 - 2.0 * sdf) / (e * e)
+        with span("map.field"):
+            normals = grad / torch.linalg.vector_norm(
+                grad, dim=-1, keepdim=True).clamp(min=1e-12)
+            rgb_s = f.rgb(x, d[:, None, :].expand(x.shape), normals,
+                          feature)
+        with span("map.loss"):
+            alpha = R.neus_alphas(sdf, grad, d, z, far,
+                                  torch.exp(f.s_var), anneal)
+            w = R.alpha_weights(alpha)
+            acc = R.render_accumulation(w)
+            return {
+                "rgb": R.composite(w, rgb_s),
+                "depth": f.radius * torch.sum(w * z, -1) / acc.clamp(
+                    min=1e-10),
+                "accumulation": acc,
+                "sample_weights": w,
+                "sample_depths": z,
+                "sample_gradients": grad,
+                "sample_laplacian": laplacian,
+            }
+
+    def _loss_sdf(self, batch, uniforms, schedule):
+        out = self._render_sdf(batch["origins"], batch["directions"],
+                               uniforms, schedule)
+        with span("map.loss"):
+            rgb_loss = L.rgb_l1_loss(out["rgb"], batch["rgb"])
+            eik = L.eikonal_loss(out["sample_gradients"])
+            curv = L.curvature_loss(out["sample_laplacian"])
+            curv_mult = (schedule[2] if schedule is not None
+                         else self.schedule_values(1 << 30)[2])
+            loss = (rgb_loss + nerf_field.SDF_EIKONAL_MULT * eik
+                    + curv_mult * curv)
+            mse = torch.mean((out["rgb"] - batch["rgb"]) ** 2)
+            metrics = {"rgb_loss": rgb_loss, "eikonal_loss": eik,
+                       "curvature_loss": curv, "loss": loss,
+                       "psnr": -10.0 * torch.log10(mse.clamp(min=1e-10))}
         return loss, {k: v.detach() for k, v in metrics.items()}
 
     # -- proposal distillation ----------------------------------------------

@@ -2,7 +2,8 @@
 
 Counterpart of ``nerf_vo_tpu/ops/losses.py``: RGB MSE, the DS-NeRF depth
 log-likelihood, the monosdf normal loss, the NGP path's covariance-weighted
-L2 depth loss, and the orientation / predicted-normal regularizers.
+L2 depth loss, the orientation / predicted-normal regularizers, and the
+SDF mapper's photometric L1, eikonal and curvature terms.
 """
 
 from __future__ import annotations
@@ -77,3 +78,18 @@ def pred_normal_loss(weights, pred_normals, grad_normals):
     stop-gradient)."""
     sim = 1.0 - torch.sum(pred_normals * grad_normals.detach(), dim=-1)
     return torch.mean(torch.sum(weights * sim, dim=-1))
+
+
+def rgb_l1_loss(pred, target):
+    return torch.mean(torch.abs(pred - target))
+
+
+def eikonal_loss(gradients):
+    """mean (|grad f| - 1)^2 over the samples."""
+    return torch.mean((torch.linalg.vector_norm(gradients, dim=-1) - 1.0)
+                      ** 2)
+
+
+def curvature_loss(laplacian):
+    """mean |sum of the hessian's diagonal| over the samples."""
+    return torch.mean(torch.abs(laplacian))

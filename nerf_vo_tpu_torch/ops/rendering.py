@@ -123,6 +123,103 @@ def sample_pdf(s_edges, weights, n_samples: int, u=None,
 
 
 # ---------------------------------------------------------------------------
+# SDF rendering (NeuS, as Neuralangelo runs it)
+# ---------------------------------------------------------------------------
+
+
+def sphere_bounds(origins, directions):
+    """(near, far) [R] where unit-direction rays from ``origins`` (in the
+    unit sphere's frame) meet the unit sphere; near held at 0 for a ray
+    that starts inside it (Neuralangelo's ``get_dist_bounds``)."""
+    b = torch.sum(origins * directions, dim=-1)
+    c = torch.sum(origins * origins, dim=-1) - 1.0
+    root = torch.sqrt((b * b - c).clamp(min=0.0))
+    return torch.relu(-b - root), -b + root
+
+
+def stratified_depths(near, far, u):
+    """[R, N] depths, one uniform draw ``u`` [R, N] in each of N equal
+    intervals of [near, far]."""
+    n = u.shape[-1]
+    i = torch.arange(n, dtype=u.dtype, device=u.device)
+    return near[:, None] + (i + u) / n * (far - near)[:, None]
+
+
+def neus_upsample(origins, directions, z, sdf, n_new: int, inv_s: float):
+    """NeuS's up-sampling (``up_sample``): [R, n_new] new depths from the
+    depths ``z`` [R, N] (sorted) and their SDF values. Each interval's SDF
+    at its ends is estimated from its mid-point SDF and a cosine taken
+    from the neighbouring samples (the smaller of this interval's and the
+    previous one's, clipped to [-1e3, 0] and zeroed where neither end is
+    inside the unit sphere); the alphas at sharpness ``inv_s`` are
+    composited into weights, which :func:`sample_pdf` inverts at the
+    ``n_new`` mid-quantiles (histogram padding 1e-5, NeuS's)."""
+    R = z.shape[0]
+    radius = torch.linalg.vector_norm(
+        origins[:, None, :] + directions[:, None, :] * z[..., None], dim=-1)
+    inside = ((radius[:, :-1] < 1.0) | (radius[:, 1:] < 1.0)).to(z.dtype)
+    prev_sdf, next_sdf = sdf[:, :-1], sdf[:, 1:]
+    dz = z[:, 1:] - z[:, :-1]
+    mid = 0.5 * (prev_sdf + next_sdf)
+    cos = (next_sdf - prev_sdf) / (dz + 1e-5)
+    prev_cos = torch.cat([torch.zeros_like(cos[:, :1]), cos[:, :-1]], -1)
+    cos = torch.minimum(prev_cos, cos).clamp(-1e3, 0.0) * inside
+    prev_cdf = torch.sigmoid((mid - cos * dz * 0.5) * inv_s)
+    next_cdf = torch.sigmoid((mid + cos * dz * 0.5) * inv_s)
+    alpha = (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
+    trans = torch.cumprod(torch.cat([torch.ones_like(alpha[:, :1]),
+                                     1.0 - alpha + 1e-7], -1), -1)
+    weights = alpha * trans[:, :-1]
+    half = torch.full((R, n_new), 0.5, dtype=z.dtype, device=z.device)
+    return sample_pdf(z, weights, n_new - 1, half, histogram_padding=1e-5)
+
+
+def neus_alphas(sdf, gradients, directions, z, far, inv_s, anneal=1.0,
+                eps: float = 1e-5):
+    """NeuS's discrete opacities [R, S] of the samples at depths ``z``
+    with SDF ``sdf`` and SDF gradients [R, S, 3]: each interval reaches
+    the next sample (the last one ``far``); its ends' SDF is estimated
+    from the sample's and the annealed cosine (``anneal`` 1:
+    ``-relu(-cos)``), then ``(Phi(prev) - Phi(next)) / (Phi(prev) +
+    eps)`` clipped to [0, 1], Phi the sigmoid of ``inv_s`` times it."""
+    true_cos = torch.sum(directions[:, None, :] * gradients, dim=-1)
+    cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - anneal)
+            + torch.relu(-true_cos) * anneal)
+    ends = torch.cat([z, far[:, None]], -1)
+    half = (ends[:, 1:] - ends[:, :-1]) * 0.5
+    prev_cdf = torch.sigmoid((sdf - cos * half) * inv_s)
+    next_cdf = torch.sigmoid((sdf + cos * half) * inv_s)
+    return ((prev_cdf - next_cdf) / (prev_cdf + eps)).clamp(0.0, 1.0)
+
+
+class _CumprodPositive(torch.autograd.Function):
+    """``torch.cumprod`` along the last dim of a tensor with no zero entry.
+    Its backward is torch's own for such input (the reversed cumulative
+    sum of output x grad, over the input) without torch's look on the
+    host for a zero entry, a sync that a CUDA graph's capture refuses."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        w = torch.flip(out * g, (-1,))
+        return torch.flip(torch.cumsum(w, dim=-1), (-1,)) / x
+
+
+def alpha_weights(alpha):
+    """Compositing weights [R, S] of opacities below 1: alpha_i
+    prod_{j<i} (1 - alpha_j). NeuS's alphas are at most prev / (prev +
+    1e-5), so no factor is 0."""
+    front = torch.cat([torch.zeros_like(alpha[:, :1]), alpha[:, :-1]], -1)
+    return alpha * _CumprodPositive.apply(1.0 - front)
+
+
+# ---------------------------------------------------------------------------
 # compositing
 # ---------------------------------------------------------------------------
 

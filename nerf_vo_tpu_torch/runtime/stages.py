@@ -238,15 +238,23 @@ class EnhancementStage:
         return out
 
 
+MAPPING_MODULES = ("nerfstudio", "instant-ngp", "neuralangelo")
+
+
 def mapping_model_config(args) -> NerfactoConfig:
     """The mapper's ``NerfactoConfig`` for a run's ``args``: the nerfstudio
-    mapper's settings, or under ``mapping_module: instant-ngp`` the NGP
+    mapper's settings, under ``mapping_module: instant-ngp`` the NGP
     mapper's (covariance-weighted L2 depth, no contraction, the occupancy
-    sampler with linear spacing in the bounded AABB), then
+    sampler with linear spacing in the bounded AABB), or under
+    ``neuralangelo`` Neuralangelo's SDF mapper (``sampler="sdf"``: a 16 x 8
+    hash grid at log2 22 from 32 to 2048 over the sphere of radius 4.5
+    about the first keyframe, no depth or normal terms); then
     ``mapping_model_overrides`` applied field for field (lists become
-    tuples)."""
+    tuples; an ``sdf`` dict sets those fields of ``SDFConfig``: its sample
+    counts and schedules)."""
     use_normals = "normal" in getattr(args, "enhancement_module", "depth")
-    ngp = getattr(args, "mapping_module", "nerfstudio") == "instant-ngp"
+    module = getattr(args, "mapping_module", "nerfstudio")
+    ngp = module == "instant-ngp"
     cfg = NerfactoConfig(
         near=0.05,
         far=20.0,
@@ -261,6 +269,12 @@ def mapping_model_config(args) -> NerfactoConfig:
         sampler="occupancy" if ngp else "proposal",
         spacing="linear" if ngp else "disparity",
     )
+    if module == "neuralangelo":
+        cfg = dataclasses.replace(
+            cfg, sampler="sdf", use_contraction=False, aabb_min=-4.5,
+            aabb_max=4.5, predict_normals=False, depth_loss_mult=0.0,
+            normal_loss_mult=0.0, num_grid_levels=16,
+            grid_features_per_level=8, log2_hashmap_size=22, max_res=2048)
     overrides = getattr(args, "mapping_model_overrides", None)
     if overrides:
         fields = {f.name for f in dataclasses.fields(NerfactoConfig)}
@@ -270,6 +284,8 @@ def mapping_model_config(args) -> NerfactoConfig:
                 raise ValueError(f"unknown NerfactoConfig field in "
                                  f"mapping_model_overrides: {k!r}")
             clean[k] = tuple(v) if isinstance(v, list) else v
+        if isinstance(clean.get("sdf"), dict):
+            clean["sdf"] = dataclasses.replace(cfg.sdf, **clean["sdf"])
         cfg = dataclasses.replace(cfg, **clean)
     return cfg
 
@@ -295,12 +311,13 @@ def _image_u8(out: Dict[str, torch.Tensor]):
 
 
 class MappingStage:
-    """Online NeRF mapping (reference MappingModule), the ``nerfstudio`` or
-    ``instant-ngp`` module: a keyframe buffer fed by enhanced packets (with
-    a depth-covariance channel under ``instant-ngp``) and a nerfacto
-    trainer paced against the keyframe stream. Optional: preview renders
-    in ``<dir_prediction>/previews`` every ``preview_iterations`` steps,
-    and the live web viewer (``viewer: true``)."""
+    """Online NeRF mapping (reference MappingModule), the ``nerfstudio``,
+    ``instant-ngp`` or ``neuralangelo`` module: a keyframe buffer fed by
+    enhanced packets (with a depth-covariance channel under
+    ``instant-ngp``) and a trainer paced against the keyframe stream.
+    Optional: preview renders in ``<dir_prediction>/previews`` every
+    ``preview_iterations`` steps, and the live web viewer (``viewer:
+    true``)."""
 
     def __init__(self, args, state_dict: Optional[Dict] = None,
                  device="cuda"):
@@ -311,10 +328,10 @@ class MappingStage:
         else on ``device``."""
         set_float_policy()
         name = getattr(args, "mapping_module", "nerfstudio")
-        if name not in ("nerfstudio", "instant-ngp"):
+        if name not in MAPPING_MODULES:
             raise NotImplementedError(
-                f"mapping_module {name!r}: only 'nerfstudio' and "
-                "'instant-ngp' are ported")
+                f"mapping_module {name!r}: only 'nerfstudio', "
+                "'instant-ngp' and 'neuralangelo' are ported")
         self.device = _pick_device(args, "mapping", device)
         # preview renders and the viewer replace the reference's viser
         # viewer (nerf_vo/mapping/nerfstudio.py:101-102,125-137)

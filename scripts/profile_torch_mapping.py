@@ -4,8 +4,9 @@ mapping cell of the benchmark on one NVIDIA GPU.
     python3 scripts/profile_torch_mapping.py [--config nerf_vo_replica] [--seed 7] [--steps 16] [--seconds 20] [--out FILE]
 
 ``--config`` names the configuration whose mapping cell is profiled:
-``nerf_vo_replica`` (``vo.map``: nerfacto) or ``nerf_slam_replica``
-(``slam.map``: the Instant-NGP mapper). Builds the cell as
+``nerf_vo_replica`` (``vo.map``: nerfacto), ``nerf_slam_replica``
+(``slam.map``: the Instant-NGP mapper) or ``neuralangelo_replica``
+(``sdf.map``: Neuralangelo's SDF mapper). Builds the cell as
 ``benchmark/run.py --workload <cell>`` does (its driver's ``setup``: the
 room's 192 keyframes, the mapper at its published widths, weights from the
 seed, the compared steps and the warm-up), times
@@ -20,8 +21,9 @@ operation goes to the span in which its launch began. The replayed window
 by the parts of the step with ``replay`` beside them (the graphs' work;
 the table-kernel calls stay in their parts); the eager window three times
 over: the parts of the step (sample, forward, backward, optimizer), the
-forward's parts (the occupancy sampler's bins and resampling or the
-proposal passes, the final field, compositing and the loss terms), and the
+forward's parts (the occupancy sampler's bins and resampling, the
+proposal passes or the SDF sampler's up-sampling and taps, the final
+field, compositing and the loss terms), and the
 hash grid's encodes and backwards (``hash.encode``, ``hash.backward``),
 each with its device time (a union) and the window's idle time inside it.
 Both windows are also reduced by the occupancy sampler's spans
@@ -35,7 +37,8 @@ given by span in each of the three. What the program's spans cost a
 profiled step is their count a step times the time of one empty span
 under the profiler (the mean of 20,000). Prints one JSON line (and writes
 it to ``--out`` when given) with the card, its power limit, the trainer's
-``captures`` / ``replays`` / ``eager_steps`` / ``occ_refreshes``, and per
+``captures`` / ``replays`` / ``eager_steps`` / ``occ_refreshes`` /
+``sdf_points`` (each read where the trainer has it), and per
 window and span:
 launches a step, device ms a step, idle share of the window, its top
 operations; the operations in no part and those whose launch the trace
@@ -65,7 +68,8 @@ from nerf_vo_tpu_torch.runtime import perf  # noqa: E402
 
 WINDOW = "bench.window"
 REPLAYED = parts.PARTS + ("replay",)
-FORWARD = ("occupancy", "proposal", "field", "loss")
+FORWARD = ("occupancy", "proposal", "sdf_upsample", "taps", "field",
+           "loss")
 OCCUPANCY = ("occupancy", "occ_refresh")
 HASH = ("encode", "backward")
 CAT = "CatArrayBatchedCopy"
@@ -163,8 +167,8 @@ def _span_s(n: int = 20000) -> float:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="nerf_vo_replica",
-                    help="nerf_vo_replica (vo.map) or nerf_slam_replica "
-                    "(slam.map)")
+                    help="nerf_vo_replica (vo.map), nerf_slam_replica "
+                    "(slam.map) or neuralangelo_replica (sdf.map)")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--seconds", type=float, default=20.0)
@@ -191,8 +195,9 @@ def main():
     for k, fn in captured.items():
         counted[k]["replayed"] = (fn.launches
                                   - counted[k]["setup_and_untraced"])
-    counters = {k: getattr(trainer, k) for k in (
-        "captures", "replays", "eager_steps", "occ_refreshes")}
+    counters = {k: getattr(trainer, k, None) for k in (
+        "captures", "replays", "eager_steps", "occ_refreshes",
+        "sdf_points")}
 
     def eager():
         d = trainer.draws(stage.buffer, stage.state)
