@@ -69,7 +69,8 @@ Adam, and the SDF schedule before the step's graphs. Counters:
 ``captures``, ``replays``, ``eager_steps`` (train steps by how they ran),
 ``occ_refreshes`` (occupancy refreshes, eager or replayed) and
 ``sdf_points`` (the points the SDF field evaluated, by pass: ``upsample``,
-``final``, ``taps``).
+``final``, ``taps``; and ``feature``, the points whose feature rows its
+MLP ran).
 
 Spans (``runtime/perf.py``; open only under a profiler): a step's parts
 are ``map.sample`` (the draws, and the ray batch), ``map.forward`` (the
@@ -163,7 +164,8 @@ class MappingTrainer:
         self.generator.manual_seed(seed)
         self.captures = self.replays = self.eager_steps = 0
         self.occ_refreshes = 0
-        self.sdf_points = {"upsample": 0, "final": 0, "taps": 0}
+        self.sdf_points = {"upsample": 0, "final": 0, "taps": 0,
+                           "feature": 0}
         self.graphs: Optional[sg.StepGraphs] = None
         self.occ_graphs: Optional[sg.StepGraphs] = None
 

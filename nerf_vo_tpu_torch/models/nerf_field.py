@@ -365,6 +365,47 @@ class _WNLinear(nn.Module):
             self.weight_v, dim=1, keepdim=True))
 
 
+def _sdf_row(rows, w, b):
+    """Row 0 of the SDF MLP's last layer (``w``, ``b``) over [n, hidden]
+    rows: column 0 of a GEMM with rows 0-1. On the CPU that is bitwise
+    the whole layer's row 0, where a GEMV sums in another order; the
+    taps' differences divide the SDF's rounding by 4e and e^2."""
+    return torch.addmm(b[:2], rows, w[:2].t())[:, 0]
+
+
+class _SDFRows(torch.autograd.Function):
+    """The SDF MLP's last layer on the hidden rows ``h`` [..., P, hidden]
+    where only some of its rows are read: the SDF row at every point, the
+    feature rows (1..) at point 0 of each P alone, a GEMM that reads those
+    rows in place (leading dimension P * hidden). The backward writes d h
+    once: ``dsdf * w[0]`` at points 1.., the whole layer's product at
+    point 0. No [..., 1 + hidden] output or gradient is made."""
+
+    @staticmethod
+    def forward(ctx, h, w, b):
+        h = h.contiguous()
+        H = h.shape[-1]
+        sdf = _sdf_row(h.view(-1, H), w, b)
+        feat = torch.addmm(b[1:], h[..., 0, :].reshape(-1, H), w[1:].t())
+        ctx.save_for_backward(h, w)
+        return sdf.view(h.shape[:-1]), feat.view(h.shape[:-2] + (-1,))
+
+    @staticmethod
+    def backward(ctx, dsdf, dfeat):
+        h, w = ctx.saved_tensors
+        P, H = h.shape[-2:]
+        rows, first = h.view(-1, H), h[..., 0, :].reshape(-1, H)
+        ds, df = dsdf.reshape(-1), dfeat.reshape(-1, w.shape[0] - 1)
+        dh = h.new_empty(h.shape)
+        d5 = dh.view(-1, P, H)
+        torch.mul(ds.view(-1, P)[:, 1:, None], w[0], out=d5[:, 1:])
+        d5[:, 0].addmm_(torch.cat([ds.view(-1, P)[:, :1], df], 1), w,
+                        beta=0)
+        dw = torch.cat([torch.mv(rows.t(), ds)[None], df.t().mm(first)])
+        db = torch.cat([ds.sum()[None], df.sum(0)])
+        return dh.view(h.shape), dw, db
+
+
 class SDFField(_UnitCube):
     """Neuralangelo's signed distance field on the brick hash grid.
 
@@ -439,22 +480,35 @@ class SDFField(_UnitCube):
         return (self.level_of_col < active).float()
 
     def sdf_head(self, h):
-        """The SDF MLP in float32: [..., 3 + L*F] -> [..., 1 + hidden]."""
-        first, last = self.sdf_mlp
-        h = F_.softplus(F_.linear(h, first.weight(), first.bias),
-                        beta=SDF_BETA)
-        return F_.linear(h, last.weight(), last.bias)
+        """The SDF MLP's hidden layer in float32: [..., 3 + L*F] ->
+        [..., hidden] after the softplus. Its callers apply the rows of
+        the last layer that they read (:meth:`sdf_value`,
+        :meth:`sdf_and_feature`)."""
+        first = self.sdf_mlp[0]
+        return F_.softplus(F_.linear(h, first.weight(), first.bias),
+                           beta=SDF_BETA)
 
-    def sdf_out(self, xs, active):
-        """[..., 3] positions in the sphere's frame -> [..., 1 + hidden]:
-        the SDF, then the feature. One encode of every point."""
+    def _hidden(self, xs, active):
+        """[..., 3] positions in the sphere's frame -> [..., hidden]. One
+        encode of every point."""
         feat = hash_grid.hash_encode(self.tables, (xs + 1.0) * 0.5,
                                      self.grid, **self._tp())
         feat = feat * self.level_mask(active)
         return self.sdf_head(torch.cat([xs, feat], dim=-1))
 
     def sdf_value(self, xs, active):
-        return self.sdf_out(xs, active)[..., 0]
+        """[..., 3] positions -> [...] SDF: the last layer's row 0 alone."""
+        h = self._hidden(xs, active)
+        last = self.sdf_mlp[1]
+        return _sdf_row(h.reshape(-1, h.shape[-1]), last.weight(),
+                        last.bias).view(h.shape[:-1])
+
+    def sdf_and_feature(self, xs, active):
+        """[..., P, 3] positions -> ([..., P] SDF, [..., hidden] feature
+        of point 0 of each P): the feature rows run at point 0 alone."""
+        last = self.sdf_mlp[1]
+        return _SDFRows.apply(self._hidden(xs, active), last.weight(),
+                              last.bias)
 
     def rgb(self, xs, directions, normals, feature):
         """The colour MLP on ``[x, SH(directions), normals, feature]``:

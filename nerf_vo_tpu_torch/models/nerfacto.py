@@ -500,13 +500,16 @@ class NerfactoModel(nn.Module):
     def sdf_points(self, n_rays: int) -> Dict[str, int]:
         """The points the SDF field evaluates in one training render, by
         pass: the up-sampling's (no gradient), the final samples' and
-        their taps'."""
+        their taps'; and ``feature``, the points whose feature rows the
+        SDF MLP runs (:meth:`SDFField.sdf_and_feature`: the final samples
+        alone; every other point takes the SDF row alone)."""
         sc = self.config.sdf
         final = sc.num_samples + sc.upsample_rounds * sc.num_importance
         return {"upsample": n_rays * (sc.num_samples + (
                     sc.upsample_rounds - 1) * sc.num_importance),
                 "final": n_rays * final,
-                "taps": n_rays * final * len(nerf_field.SDF_TAPS)}
+                "taps": n_rays * final * len(nerf_field.SDF_TAPS),
+                "feature": n_rays * final}
 
     def _render_sdf(self, origins, directions, uniforms, schedule):
         sc = self.config.sdf
@@ -546,9 +549,8 @@ class NerfactoModel(nn.Module):
             e = eps * (1.0 / math.sqrt(3.0))
             x5 = torch.cat([x[..., None, :],
                             x[..., None, :] + e * f.taps], dim=-2)
-            out = f.sdf_out(x5, active)  # [R, S, 5, 1 + hidden]
-            sdf, feature = out[..., 0, 0], out[..., 0, 1:]
-            s_taps = out[..., 1:, 0]  # [R, S, 4]
+            s5, feature = f.sdf_and_feature(x5, active)  # [R, S, 5]
+            sdf, s_taps = s5[..., 0], s5[..., 1:]
             grad = torch.sum(s_taps[..., None] * f.taps, dim=-2) / (4.0 * e)
             laplacian = (torch.sum(s_taps, -1) * 0.5 - 2.0 * sdf) / (e * e)
         with span("map.field"):

@@ -117,7 +117,7 @@ def test_replayed_sdf_steps_are_the_eager_steps(card):
     assert gst.schedule[0].item() == 4.0
     assert graphed.sdf_points == eager.sdf_points == {
         "upsample": 12 * RAYS * 24, "final": 12 * RAYS * 32,
-        "taps": 12 * RAYS * 128}
+        "taps": 12 * RAYS * 128, "feature": 12 * RAYS * 32}
 
 
 def _cell_grid():

@@ -11,12 +11,14 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch.nn.functional as F
 import yaml
 
 from nerf_vo_tpu_torch import run as run_mod
 from nerf_vo_tpu_torch.models import nerfacto
 from nerf_vo_tpu_torch.models import nerf_field
 from nerf_vo_tpu_torch.models.nerf_field import SDFConfig
+from nerf_vo_tpu_torch.ops import hash_grid
 from nerf_vo_tpu_torch.ops import rendering as R
 from nerf_vo_tpu_torch.runtime import stages
 
@@ -38,15 +40,19 @@ def _model(levels=2, max_res=64, **sdf):
 
 def _sphere(model, radius, sign=1.0):
     """The field's SDF replaced by ``sign * (|x| - radius)`` in the sphere's
-    frame, with a zero feature."""
+    frame, with a zero feature, at both of its entries: the up-sampling's
+    SDF alone and the final samples' SDF at each of their five points with
+    the feature of the first."""
     hidden = nerf_field.SDF_HIDDEN
 
-    def out(xs, active):
-        f = sign * (torch.linalg.vector_norm(xs, dim=-1, keepdim=True)
-                    - radius)
-        return torch.cat([f, torch.zeros(xs.shape[:-1] + (hidden,))], -1)
+    def value(xs, active):
+        return sign * (torch.linalg.vector_norm(xs, dim=-1) - radius)
 
-    model.field.sdf_out = out
+    def and_feature(xs, active):
+        return value(xs, active), torch.zeros(xs.shape[:-2] + (hidden,))
+
+    model.field.sdf_value = value
+    model.field.sdf_and_feature = and_feature
 
 
 def _rays(n, seed=0):
@@ -141,6 +147,88 @@ def test_masked_levels_get_no_table_gradient():
     NB = f.grid.bricks_per_level
     g = f.tables.grad
     assert g[:NB].abs().sum() > 0 and g[NB:].abs().sum() == 0
+
+
+def _full_head(f, xs, active):
+    """The SDF MLP with every row of its last layer at every point:
+    [..., 3] -> [..., 1 + hidden]."""
+    feat = hash_grid.hash_encode(f.tables, (xs + 1.0) * 0.5, f.grid)
+    h = torch.cat([xs, feat * f.level_mask(active)], -1)
+    first, last = f.sdf_mlp
+    h = F.softplus(F.linear(h, first.weight(), first.bias),
+                   beta=nerf_field.SDF_BETA)
+    return F.linear(h, last.weight(), last.bias)
+
+
+@pytest.mark.parametrize("active,eps", [(1, 1 / 32), (2, 1 / 64),
+                                        (2, 1 / 512)])
+def test_split_head_is_the_full_head(active, eps):
+    """The SDF row at the five points of a sample and the feature rows at
+    its first, against the whole last layer at every point: the values,
+    and the gradient of a loss over both for every leaf (tables, both
+    layers' ``weight_v`` / ``weight_g`` / ``bias``, positions), within
+    float32 rounding; the up-sampling's SDF alone, the same."""
+    model = _model()
+    f = model.field
+    g = torch.Generator().manual_seed(active + int(1 / eps))
+    with torch.no_grad():
+        # the cell's start: feature columns N(0, 0.05); the table and the
+        # last layer's rows moved apart so that each row is its own
+        f.sdf_mlp[0].weight_v[:, 3:] = 0.05 * torch.randn(
+            f.sdf_mlp[0].weight_v[:, 3:].shape, generator=g)
+        f.sdf_mlp[1].weight_v.add_(0.01 * torch.randn(
+            f.sdf_mlp[1].weight_v.shape, generator=g))
+        f.tables.normal_(0.0, 0.1, generator=g)
+    x = (torch.rand(6, 10, 3, generator=g) * 1.6 - 0.8).requires_grad_()
+    e = eps / math.sqrt(3.0)
+    x5 = torch.cat([x[..., None, :], x[..., None, :] + e * f.taps], -2)
+    act = torch.tensor(float(active))
+    c_sdf = torch.randn(6, 10, 5, generator=g)
+    c_feat = torch.randn(6, 10, nerf_field.SDF_HIDDEN, generator=g)
+    leaves = [f.tables, x] + [p for layer in f.sdf_mlp for p in (
+        layer.weight_v, layer.weight_g, layer.bias)]
+
+    s5, feat = f.sdf_and_feature(x5, act)
+    got = torch.autograd.grad(
+        (c_sdf * s5).sum() + (c_feat * feat).sum(), leaves)
+    out = _full_head(f, x5, act)
+    want = torch.autograd.grad(
+        (c_sdf * out[..., 0]).sum() + (c_feat * out[..., 0, 1:]).sum(),
+        leaves)
+    torch.testing.assert_close(s5, out[..., 0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(feat, out[..., 0, 1:], rtol=1e-5, atol=1e-6)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max(), (
+            (a - b).abs().max(), b.abs().max())
+    assert want[0].abs().max() > 0
+    with torch.no_grad():
+        torch.testing.assert_close(f.sdf_value(x5, act), out[..., 0],
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_a_step_runs_the_feature_rows_at_the_final_samples():
+    """One training step of 8 rays at the published sampler (64 + 4 x 16
+    samples a ray): ``sdf_points`` counts the feature rows at the 128
+    final samples a ray, the SDF row at every point the head serves."""
+    stage = stages.MappingStage(types.SimpleNamespace(
+        mapping_module="neuralangelo", num_keyframes=2, frame_height=8,
+        frame_width=8, rays_per_batch=8, mapping_iterations=8,
+        mapping_model_overrides=dict(num_grid_levels=2,
+                                     log2_hashmap_size=10, max_res=64)),
+        device="cpu")
+    c2w = torch.eye(4).repeat(2, 1, 1)
+    c2w[1, 0, 3] = 0.3
+    stage.update({"camera_extrinsics": c2w,
+                  "camera_intrinsics": torch.tensor(
+                      [[8.0, 8.0, 4.0, 4.0]]).repeat(2, 1),
+                  "frames_color_float": torch.rand(2, 8, 8, 3),
+                  "frames_depth": torch.rand(2, 8, 8) + 1.0})
+    stage.stream_active = False
+    assert torch.isfinite(stage.train_step()["loss"])
+    assert stage.trainer.sdf_points == {
+        "upsample": 8 * 112, "final": 8 * 128, "taps": 8 * 512,
+        "feature": 8 * 128}
 
 
 def test_unported_modules_name_the_ported_ones():
